@@ -2,7 +2,8 @@
 from .activation import gelu, relu
 from .common import dropout, linear
 from .input import embedding
+from .loss import cross_entropy, softmax_with_cross_entropy
 from .norm import layer_norm
 
 __all__ = ["gelu", "relu", "dropout", "linear", "embedding",
-           "layer_norm"]
+           "cross_entropy", "softmax_with_cross_entropy", "layer_norm"]

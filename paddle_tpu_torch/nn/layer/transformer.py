@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ...core import flags
+from ...core import random as _random
 from ...ops import attention as attn_ops
 from ...ops.kernels import layer_norm as _fln
 from .. import functional as F
@@ -72,14 +73,16 @@ class MultiHeadAttention(nn.Module):
 def _sublayer_epilogue(layer, out, residual, norm, dropout_layer):
     """src = norm(residual + dropout(out)), the post-LN sublayer tail.  With
     ``use_fused_layer_norm`` on, post-LN goes to kernel C (its plain version
-    on CPU tensors); otherwise the composition runs."""
+    on CPU tensors), the dropout inside it seeded by one host draw;
+    otherwise the composition runs."""
     rate = float(dropout_layer.p) if layer.training else 0.0
     if (not layer.normalize_before
             and flags.get_flag("use_fused_layer_norm")
             and len(norm.normalized_shape) == 1):
+        seed = _random.draw_seed() if rate > 0.0 else None
         return _fln.fused_residual_dropout_layer_norm(
             out, residual, norm.weight, norm.bias, dropout_rate=rate,
-            epsilon=norm.epsilon)
+            seed=seed, epsilon=norm.epsilon)
     src = residual + dropout_layer(out)
     if not layer.normalize_before:
         src = norm(src)

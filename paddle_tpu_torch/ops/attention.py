@@ -16,6 +16,7 @@ import math
 import torch
 
 from ..core import flags
+from ..core import random as _random
 from .kernels import flash_attention_packed as fap
 
 _BHSD_NOT_PORTED = (
@@ -31,12 +32,10 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
 
     ``attn_mask`` is additive (float, broadcastable to (b, h, sq, sk)) or
     boolean (True = keep).  Scores and softmax are fp32; the probabilities
-    are cast to q's dtype before the product with v.
+    are cast to q's dtype before the product with v.  Training-mode dropout
+    drops probabilities with the plain dropout op (a mask from the active
+    generator), as the JAX package draws one from its key stream.
     """
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout comes with the training slice (ROADMAP.md, "
-            "Queue 1 slice 2)")
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     s = torch.matmul(q, k.transpose(-1, -2)).float() * scale
@@ -50,6 +49,10 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
         else:
             s = s + attn_mask.float()
     p = torch.softmax(s, dim=-1).to(q.dtype)
+    if dropout_p > 0.0 and training:
+        # imported here: nn imports this module while it initialises
+        from ..nn.functional.common import dropout
+        p = dropout(p, dropout_p)
     return torch.matmul(p, v)
 
 
@@ -92,9 +95,10 @@ def flash_attention_packed(q, k, v, num_heads, attn_mask=None,
                 f"{num_heads}, head_dim={hd}) needs {_BHSD_NOT_PORTED}")
         return None
     rate = float(dropout_p) if training else 0.0
+    seed = _random.draw_seed() if rate > 0.0 else None
     return fap.flash_attention_packed(q, k, v, num_heads, bias=bias,
                                       sm_scale=scale, causal=is_causal,
-                                      dropout_rate=rate)
+                                      dropout_rate=rate, seed=seed)
 
 
 def flash_attention(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False,

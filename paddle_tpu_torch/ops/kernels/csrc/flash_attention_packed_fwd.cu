@@ -4,8 +4,10 @@
 // `_forward` (line 212, kernel `_fwd_kernel`): online-softmax attention read
 // straight out of the (batch, seq, heads * head_dim) projection layout, with
 // an additive fp32 (batch, seq) key bias, optional causal masking, and the
-// per-row log-sum-exp written for the backward.  Dropout is not here yet: the
-// wrapper refuses a rate above 0.
+// per-row log-sum-exp written for the backward, and in-kernel dropout: the
+// keep mask is the position hash of dropout_hash.cuh keyed by (batch * heads
+// + head, query, key), so the backward (flash_attention_packed_bwd.cu)
+// replays it without a mask in device memory.
 //
 // Layout change from the TPU kernel: LSE is fp32 (batch, heads, seq), not
 // (batch, head_pairs, heads_per_pair, seq).  The 128-lane head pairing was a
@@ -17,7 +19,9 @@
 // fp32; P is rounded to the input type before the PV product while l sums
 // the unrounded P; out = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30)).
 // Masked (causal) scores are -1e30 as in the TPU kernel; key positions past
-// the end of a ragged sequence are dropped (exp gives exactly 0).
+// the end of a ragged sequence are dropped (exp gives exactly 0).  With
+// dropout, l sums the undropped P and P * keep / (1 - rate) enters the PV
+// product (softmax-then-dropout, as the Pallas kernel).
 //
 // What bounds it on the H100.  At the ERNIE-base shape (b 8, s 512, h 12,
 // d 64) the least time is set by bytes in bf16 (25 MB of q, k, v and o at
@@ -45,7 +49,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
+#include "mma_bf16.cuh"
+
 namespace {
+
+using dropout_hash::Params;
 
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // key rows per K/V tile
@@ -96,7 +105,8 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
                       const float* __restrict__ v,
                       const float* __restrict__ bias,
                       float* __restrict__ out, float* __restrict__ lse,
-                      int seq, int heads, float sm_scale, int causal) {
+                      int seq, int heads, float sm_scale, int causal,
+                      Params drop) {
   using L = Tile<D>;
   constexpr int ld = L::kLd;
   constexpr int lds = L::kLdS;
@@ -117,6 +127,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
   const int b = blockIdx.z;
   const int packed = heads * D;
   const int64_t brow = (int64_t)b * seq;
+  const uint32_t bh = (uint32_t)(b * heads + h);  // dropout stream key
 
   // Register tiles: rows ty*4 + i of the block; S columns tx + 8*j; O
   // columns tx*4 + 32*j + e.
@@ -208,9 +219,16 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
       float sum = 0.f;
 #pragma unroll 8
       for (int jj = 0; jj < kBK / 2; ++jj) {
-        const float p = expf(srow_p[2 * jj + half] - m_new);
-        sum += p;
-        srow_p[2 * jj + half] = p;
+        const int c = 2 * jj + half;
+        const float p = expf(srow_p[c] - m_new);
+        sum += p;  // l sums the undropped P
+        float pd = p;
+        if (drop.on)
+          pd = dropout_hash::keep(drop.seed, bh, q0 + srow, k0 + c,
+                                  drop.threshold)
+                   ? p * drop.scale
+                   : 0.f;
+        srow_p[c] = pd;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       l_i = l_i * alpha + sum;
@@ -292,45 +310,6 @@ struct MmaTile {
       sizeof(float) * kBK;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
-                                            uint32_t& r2, uint32_t& r3,
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // Copy rows [row0, row0 + rows) of head h into a bf16 shared tile with row
 // stride ld; rows past seq are zero.
 template <int D>
@@ -358,7 +337,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      const float* __restrict__ bias,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     int seq, int heads, float sm_scale, int causal) {
+                     int seq, int heads, float sm_scale, int causal,
+                     Params drop) {
   constexpr int ld = MmaTile<D>::kLd;
   constexpr int NT = kBK / 8;  // 8-key n-tiles of S
   constexpr int KD = D / 16;   // 16-wide k-steps over the head dim
@@ -379,6 +359,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.z;
   const int packed = heads * D;
   const int64_t brow = (int64_t)b * seq;
+  const uint32_t bh = (uint32_t)(b * heads + h);  // dropout stream key
   // This thread's two query rows (fragment rows g and g + 8 of the warp).
   const int qrow0 = q0 + warp * 16 + g;
   const int qrow1 = qrow0 + 8;
@@ -388,13 +369,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Q fragments for the warp's 16 rows, kept for every K/V tile.
   uint32_t qf[KD][4];
-  {
-    const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-      ldmatrix_x4(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-                  Qs + r * ld + kk * 16 + (lane >> 4) * 8);
-  }
+  for (int kk = 0; kk < KD; ++kk)
+    mma_bf16::load_a(qf[kk], Qs, ld, warp * 16, kk * 16, lane);
 
   float o[ND][4];
 #pragma unroll
@@ -425,13 +402,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
       for (int n = 0; n < NT; n += 2) {
-        // matrices: (keys n*8.., dims lo), (n*8.., hi), (n*8+8.., lo), (hi)
-        const int m = lane >> 3;
-        const int key = n * 8 + (m >> 1) * 8 + (lane & 7);
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4(b0, b1, b2, b3, Ks + key * ld + kk * 16 + (m & 1) * 8);
-        mma_bf16(s[n], qf[kk], b0, b1);
-        mma_bf16(s[n + 1], qf[kk], b2, b3);
+        uint32_t bf[4];  // K^T for keys n*8.. and n*8+8..
+        mma_bf16::load_b_t(bf, Ks, ld, n * 8, kk * 16, lane);
+        mma_bf16::mma(s[n], qf[kk], bf[0], bf[1]);
+        mma_bf16::mma(s[n + 1], qf[kk], bf[2], bf[3]);
       }
     }
 
@@ -473,6 +447,19 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     l0 = l0 * a0 + sum0;
     l1 = l1 * a1 + sum1;
+    if (drop.on) {  // l summed the undropped P; PV takes the dropped one
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+          const int qpos = (e < 2) ? qrow0 : qrow1;
+          s[n][e] = dropout_hash::keep(drop.seed, bh, qpos, kpos,
+                                       drop.threshold)
+                        ? s[n][e] * drop.scale
+                        : 0.f;
+        }
+    }
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       o[n][0] *= a0;
@@ -485,20 +472,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pf[0] = mma_bf16::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[1] = mma_bf16::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[2] = mma_bf16::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[3] = mma_bf16::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
-        // matrices: (keys lo, dims n*8..), (keys hi, n*8..), (lo, n*8+8..),
-        // (hi, n*8+8..), transposed into B fragments
-        const int m = lane >> 3;
-        const int key = kk * 16 + (m & 1) * 8 + (lane & 7);
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3, Vs + key * ld + (n + (m >> 1)) * 8);
-        mma_bf16(o[n], pf, b0, b1);
-        mma_bf16(o[n + 1], pf, b2, b3);
+        uint32_t bf[4];  // V for keys kk*16.., dims n*8.. and n*8+8..
+        mma_bf16::load_b(bf, Vs, ld, kk * 16, n * 8, lane);
+        mma_bf16::mma(o[n], pf, bf[0], bf[1]);
+        mma_bf16::mma(o[n + 1], pf, bf[2], bf[3]);
       }
     }
   }
@@ -537,7 +520,7 @@ template <typename T, typename Kernel>
 int launch_with(Kernel kernel, size_t smem, bool& smem_set, const void* q,
                 const void* k, const void* v, const void* bias, void* out,
                 void* lse, int batch, int seq, int heads, float sm_scale,
-                int causal, cudaStream_t stream) {
+                int causal, Params drop, cudaStream_t stream) {
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -550,29 +533,31 @@ int launch_with(Kernel kernel, size_t smem, bool& smem_set, const void* q,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(out), static_cast<float*>(lse), seq, heads, sm_scale,
-      causal);
+      causal, drop);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, const void* bias,
                 void* out, void* lse, int batch, int seq, int heads,
-                float sm_scale, int causal, cudaStream_t stream) {
+                float sm_scale, int causal, Params drop,
+                cudaStream_t stream) {
   static bool smem_set = false;
   return launch_with<float>(flash_fwd_fp32_kernel<D>, Tile<D>::kBytes,
                             smem_set, q, k, v, bias, out, lse, batch, seq,
-                            heads, sm_scale, causal, stream);
+                            heads, sm_scale, causal, drop, stream);
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* bias,
                 void* out, void* lse, int batch, int seq, int heads,
-                float sm_scale, int causal, cudaStream_t stream) {
+                float sm_scale, int causal, Params drop,
+                cudaStream_t stream) {
   static bool smem_set = false;
   return launch_with<__nv_bfloat16>(flash_fwd_mma_kernel<D>,
                                     MmaTile<D>::kBytes, smem_set, q, k, v,
                                     bias, out, lse, batch, seq, heads,
-                                    sm_scale, causal, stream);
+                                    sm_scale, causal, drop, stream);
 }
 
 }  // namespace
@@ -582,19 +567,22 @@ extern "C" int flash_attention_packed_fwd(const void* q, const void* k,
                                           void* out, void* lse, int batch,
                                           int seq, int heads, int head_dim,
                                           float sm_scale, int causal,
+                                          uint32_t seed, uint32_t threshold,
+                                          float keep_scale, int dropout,
                                           int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Params drop{seed, threshold, keep_scale, dropout};
   if (dtype == kF32 && head_dim == 64)
     return launch_fp32<64>(q, k, v, bias, out, lse, batch, seq, heads,
-                           sm_scale, causal, s);
+                           sm_scale, causal, drop, s);
   if (dtype == kF32 && head_dim == 128)
     return launch_fp32<128>(q, k, v, bias, out, lse, batch, seq, heads,
-                            sm_scale, causal, s);
+                            sm_scale, causal, drop, s);
   if (dtype == kBF16 && head_dim == 64)
     return launch_bf16<64>(q, k, v, bias, out, lse, batch, seq, heads,
-                           sm_scale, causal, s);
+                           sm_scale, causal, drop, s);
   if (dtype == kBF16 && head_dim == 128)
     return launch_bf16<128>(q, k, v, bias, out, lse, batch, seq, heads,
-                            sm_scale, causal, s);
+                            sm_scale, causal, drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,11 @@
 //
 // Replaces two Pallas kernels of paddle_tpu/ops/pallas/layer_norm.py:
 //   * `_fwd` (line 86, kernel `_ln_fwd_kernel`): out = LN(x) * w + b;
-//   * `_rdln_fwd` (line 266, kernel `_rdln_fwd_kernel`) at dropout rate 0:
-//     out = LN(residual + x) * w + b.
-// Both also write the fp32 per-row mean and rstd the backward will read.
+//   * `_rdln_fwd` (line 266, kernel `_rdln_fwd_kernel`):
+//     out = LN(residual + dropout(x)) * w + b, the dropout in the kernel:
+//     x * keep / (1 - rate) with the position hash of dropout_hash.cuh keyed
+//     by (0, row, column), so layer_norm_bwd.cu replays the mask.
+// Both also write the fp32 per-row mean and rstd the backward reads.
 //
 // Numerics follow the Pallas kernels: inputs upcast to fp32, the sum
 // residual + x taken in fp32, the mean first and then the variance as the
@@ -28,53 +30,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
+#include "vec.cuh"
+
 namespace {
 
+using dropout_hash::Params;
+
 constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Load VEC consecutive values (16 bytes) of T starting at p into f.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float* f) {
-  static_assert(VEC * sizeof(T) == 16, "one 16-byte load");
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) f[i] = to_float(e[i]);
-}
-
-// Store VEC consecutive values as TO, in 16-byte stores.
-template <typename TO, int VEC>
-__device__ __forceinline__ void store_vec(TO* p, const float* f) {
-  constexpr int kBytes = VEC * sizeof(TO);
-  static_assert(kBytes % 16 == 0, "whole 16-byte stores");
-  TO tmp[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) tmp[i] = from_float<TO>(f[i]);
-#pragma unroll
-  for (int i = 0; i < kBytes / 16; ++i)
-    reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(tmp)[i];
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // One warp per row.  T: type of x and residual; TW: type of w and b; TO:
 // output type.  MAX_ELEMS: values of one row a lane keeps in registers, so
@@ -84,7 +47,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
               const TW* __restrict__ w, const TW* __restrict__ b,
               TO* __restrict__ out, float* __restrict__ mean_out,
-              float* __restrict__ rstd_out, int64_t n, int dim, float eps) {
+              float* __restrict__ rstd_out, int64_t n, int dim, float eps,
+              Params drop) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = MAX_ELEMS / VEC;
   const int lane = threadIdx.x & 31;
@@ -103,6 +67,14 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
       if (RESIDUAL) {
         float r[VEC];
         load_vec<T, VEC>(rr + col, r);
+        if (drop.on) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            v[c][i] = dropout_hash::keep(drop.seed, 0u, (uint32_t)row,
+                                         (uint32_t)(col + i), drop.threshold)
+                          ? v[c][i] * drop.scale
+                          : 0.f;
+        }
 #pragma unroll
         for (int i = 0; i < VEC; ++i) v[c][i] = r[i] + v[c][i];
       }
@@ -153,7 +125,7 @@ constexpr int kBF16 = 1;
 template <typename T, typename TW, typename TO, bool RESIDUAL>
 int launch_dim(const void* x, const void* res, const void* w, const void* b,
                void* out, float* mean, float* rstd, int64_t n, int dim,
-               float eps, cudaStream_t stream) {
+               float eps, Params drop, cudaStream_t stream) {
   const dim3 grid((unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock));
   const dim3 block(kWarpsPerBlock * 32);
   const auto* xp = static_cast<const T*>(x);
@@ -163,10 +135,10 @@ int launch_dim(const void* x, const void* res, const void* w, const void* b,
   auto* op = static_cast<TO*>(out);
   if (dim <= 32 * 32) {
     ln_fwd_kernel<T, TW, TO, 32, RESIDUAL><<<grid, block, 0, stream>>>(
-        xp, rp, wp, bp, op, mean, rstd, n, dim, eps);
+        xp, rp, wp, bp, op, mean, rstd, n, dim, eps, drop);
   } else if (dim <= 32 * 64) {
     ln_fwd_kernel<T, TW, TO, 64, RESIDUAL><<<grid, block, 0, stream>>>(
-        xp, rp, wp, bp, op, mean, rstd, n, dim, eps);
+        xp, rp, wp, bp, op, mean, rstd, n, dim, eps, drop);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -176,22 +148,22 @@ int launch_dim(const void* x, const void* res, const void* w, const void* b,
 template <bool RESIDUAL>
 int launch(const void* x, const void* res, const void* w, const void* b,
            void* out, float* mean, float* rstd, int64_t n, int dim, float eps,
-           int x_dtype, int w_dtype, void* stream) {
+           Params drop, int x_dtype, int w_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The output type is the promotion of x's and w's types (bf16 only when
   // both are bf16), as result_type does in the Pallas wrapper.
   if (x_dtype == kF32 && w_dtype == kF32)
-    return launch_dim<float, float, float, RESIDUAL>(x, res, w, b, out, mean,
-                                                     rstd, n, dim, eps, s);
+    return launch_dim<float, float, float, RESIDUAL>(
+        x, res, w, b, out, mean, rstd, n, dim, eps, drop, s);
   if (x_dtype == kF32 && w_dtype == kBF16)
     return launch_dim<float, __nv_bfloat16, float, RESIDUAL>(
-        x, res, w, b, out, mean, rstd, n, dim, eps, s);
+        x, res, w, b, out, mean, rstd, n, dim, eps, drop, s);
   if (x_dtype == kBF16 && w_dtype == kBF16)
     return launch_dim<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, RESIDUAL>(
-        x, res, w, b, out, mean, rstd, n, dim, eps, s);
+        x, res, w, b, out, mean, rstd, n, dim, eps, drop, s);
   if (x_dtype == kBF16 && w_dtype == kF32)
     return launch_dim<__nv_bfloat16, float, float, RESIDUAL>(
-        x, res, w, b, out, mean, rstd, n, dim, eps, s);
+        x, res, w, b, out, mean, rstd, n, dim, eps, drop, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -202,16 +174,19 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                               int dim, float eps, int x_dtype, int w_dtype,
                               void* stream) {
   return launch<false>(x, nullptr, w, b, out, static_cast<float*>(mean),
-                       static_cast<float*>(rstd), n, dim, eps, x_dtype,
-                       w_dtype, stream);
+                       static_cast<float*>(rstd), n, dim, eps, Params{},
+                       x_dtype, w_dtype, stream);
 }
 
 extern "C" int residual_layer_norm_fwd(const void* x, const void* residual,
                                        const void* w, const void* b, void* out,
                                        void* mean, void* rstd, int64_t n,
-                                       int dim, float eps, int x_dtype,
-                                       int w_dtype, void* stream) {
+                                       int dim, float eps, uint32_t seed,
+                                       uint32_t threshold, float keep_scale,
+                                       int dropout, int x_dtype, int w_dtype,
+                                       void* stream) {
   return launch<true>(x, residual, w, b, out, static_cast<float*>(mean),
-                      static_cast<float*>(rstd), n, dim, eps, x_dtype, w_dtype,
-                      stream);
+                      static_cast<float*>(rstd), n, dim, eps,
+                      Params{seed, threshold, keep_scale, dropout}, x_dtype,
+                      w_dtype, stream);
 }

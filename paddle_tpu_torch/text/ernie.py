@@ -1,7 +1,6 @@
-"""ERNIE/BERT-class model for serving: embeddings, a post-LN transformer
-encoder, pooler, and the MLM + NSP heads (counterpart of
-paddle_tpu/text/ernie.py; the pretraining criterion comes with the training
-slice).
+"""ERNIE/BERT-class pretraining model: embeddings, a post-LN transformer
+encoder, pooler, the MLM + NSP heads and the pretraining criterion
+(counterpart of paddle_tpu/text/ernie.py).
 
 Parameter names match the JAX package's ``parameters_dict`` names, so
 ``paddle_tpu_torch.convert.from_jax_params`` is a renaming-free copy.  The
@@ -175,3 +174,24 @@ class ErnieForPretraining(nn.Module):
         seq_out, pooled = self.ernie(input_ids, token_type_ids, position_ids,
                                      attention_mask)
         return self.cls(seq_out, pooled, masked_positions)
+
+
+class ErniePretrainingCriterion(nn.Module):
+    """Masked-LM cross-entropy (labels of -1 ignored) plus NSP
+    cross-entropy, each a mean, as the JAX package's criterion."""
+
+    def __init__(self, vocab_size):
+        super().__init__()
+        self.vocab_size = vocab_size
+
+    def forward(self, prediction_scores, seq_relationship_score,
+                masked_lm_labels, next_sentence_labels,
+                masked_lm_weights=None):
+        F = pnn.functional
+        mlm = F.cross_entropy(
+            prediction_scores.reshape(-1, self.vocab_size),
+            masked_lm_labels.reshape(-1), ignore_index=-1, reduction="mean")
+        nsp = F.cross_entropy(seq_relationship_score,
+                              next_sentence_labels.reshape(-1),
+                              reduction="mean")
+        return mlm + nsp

@@ -4,17 +4,21 @@
 * every CUDA source under ops/kernels/csrc/ has a wrapper module that
   declares its kernels, each with a plain PyTorch version and a launch
   counter;
+* every ``torch.autograd.Function`` of a kernel module runs a declared
+  backward kernel, which has its own plain version and launch counter;
 * nothing is built at import time.
 """
 import importlib
 import inspect
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch.ops.kernels import build, config
@@ -94,6 +98,37 @@ def test_every_cuda_source_has_wrapped_kernels():
     assert len(names) == len(set(names))
 
 
+def test_autograd_functions_run_declared_backward_kernels():
+    seen = 0
+    for mod in _kernel_modules():
+        src = inspect.getsource(mod)
+        by_wrapper = {k.wrapper.__name__: k for k in mod.KERNELS}
+        for obj in vars(mod).values():
+            if not (isinstance(obj, type)
+                    and issubclass(obj, torch.autograd.Function)
+                    and obj.__module__ == mod.__name__):
+                continue
+            seen += 1
+            fwd = inspect.getsource(obj.forward)
+            bwd = inspect.getsource(obj.backward)
+            calls = lambda text: [k for n, k in by_wrapper.items()
+                                  if re.search(rf"\b{n}\(", text)]
+            fwd_k, bwd_k = calls(fwd), calls(bwd)
+            assert len(fwd_k) == 1 and len(bwd_k) == 1, obj.__name__
+            k = bwd_k[0]
+            assert k.name != fwd_k[0].name
+            assert k.plain.__name__.endswith("_plain"), k.name
+            assert inspect.signature(k.plain).parameters.keys() \
+                == inspect.signature(k.wrapper).parameters.keys(), k.name
+            # the wrapper counts its launches under the kernel's own name
+            const = [n for n, v in vars(mod).items() if v == k.name
+                     and n.isupper()]
+            wrapper = inspect.getsource(k.wrapper)
+            assert "config.record_call(" in src
+            assert any(c in wrapper for c in const), k.name
+    assert seen == 3   # attention, LayerNorm, residual + LayerNorm
+
+
 def test_cuda_sources_name_the_tpu_kernel_they_replace():
     for mod in _kernel_modules():
         for k in mod.KERNELS:
@@ -116,6 +151,8 @@ def test_import_builds_nothing():
             "import paddle_tpu_torch.ops.kernels.build as b\n"
             "import paddle_tpu_torch.ops.kernels.flash_attention_packed\n"
             "import paddle_tpu_torch.ops.kernels.layer_norm\n"
+            "import paddle_tpu_torch.optimizer\n"
+            "import paddle_tpu_torch.entry\n"
             "import paddle_tpu_torch.text.ernie\n"
             "assert b._libs == {}\n" % str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
