@@ -43,9 +43,30 @@ Phases (any failed check raises, so the script exits non-zero):
               steps run under torch.profiler and their device time is
               split by kernel and by kind (the port's kernels, cuBLAS
               matrix products, the rest).
+5. paged   -- (a) the paged-attention kernel against its plain version at
+              256 rows x 128 blocks of 16 tokens, d 128, ragged lengths
+              1..2048 from --seed (and rows of 0, 3, 16, 2048) over a
+              32768-block pool, in fp32, bf16 and int8, plus d 32 / block
+              8; its times beside its bound and SDPA on pre-gathered K/V.
+              (b) the slice: ``PagedDecoder`` serving the paged toy LM at
+              vocab 32000, hidden 128, 4096 positions (random weights from
+              --seed) from a 16384-block pool, 64 rows, 64-token prefill
+              chunks: 96 requests of 16-2048 prompt tokens, 32 of them
+              behind one 512-token system prompt, 64 new tokens each.
+              Checks: launches = prefill chunks + live decode steps;
+              tokens of the kernel path against the plain path and against
+              ``dense_reference_decode`` (near-ties excepted); prefix hits,
+              and hit requests equal to the same prompts decoded cold;
+              int8 KV blocks: kernel path equal to the plain path, and a
+              token match rate against fp32 >= 0.9 over the first 8 new
+              tokens of each request (the JAX package's gate; the rate over
+              all 64 is printed).  Then decode and
+              prefill tokens/s, TTFT p50/p99, and the kernel's share of the
+              device time over 20 decode steps of 64 rows.
 
-Before the last line it prints a ``{"kernels": [...]}`` JSON line and the
-card's name and power limit; the last line is
+Before the last line it prints ``{"train": ...}``, ``{"paged": ...}`` and
+``{"kernels": [...]}`` JSON lines and the card's name and power limit; the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -54,6 +75,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -91,7 +113,37 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 64, 512, 25      # bench.py's TPU run
 # The port's kernels in a profile, by names no library kernel has (the
 # csrc/*.cu __global__ functions).
 PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)_(fp32|mma)|flash_bwd_delta|"
-                         r"ln_(fwd|bwd|partials_reduce))_kernel\b")
+                         r"ln_(fwd|bwd|partials_reduce)|paged_attn)_kernel\b")
+
+# Paged attention (phase 5).  Tolerances: fp32 and int8 against the plain
+# version on the same blocks with rtol = atol = 2e-5 (tests/test_paged.py's
+# kernel check); bf16 relative to the fp32 plain version on the same values.
+# Token checks: a differing greedy token must be a near-tie, the top-2
+# logit gap of the context below NEAR_TIE_REL of the top logit.
+PAGED_KERNEL_SHAPE = dict(num_seqs=256, max_blocks=128, block_size=16,
+                          d=128, max_len=2048)
+PAGED_SERVE = dict(vocab=32000, hidden=128, max_positions=4096,
+                   num_blocks=16384, block_size=16, max_seqs=64,
+                   max_blocks_per_seq=256, prefill_chunk=64, requests=96,
+                   shared=32, system_len=512, prompt_lo=16, prompt_hi=2048,
+                   max_new=64, oracle=4, cold=4, int8_probe=12,
+                   profile_prompt=1024, profile_steps=20)
+TOL_PAGED_FP32 = 2e-5
+TOL_PAGED_BF16_REL = 2e-2
+NEAR_TIE_REL = 1e-4
+PAGED_MAX_DIFFERING = 1      # requests, kernel path vs plain path
+# int8 KV against fp32: the JAX package's gate (tests/test_paged.py:343-356)
+# is a token match rate >= 0.9 over 8 new tokens a request.  Greedy decode
+# diverges for good after the first flip, so over 64 tokens the rate also
+# measures how long the streams run; the gate is taken over the first 8
+# and the whole-stream rate is printed beside it.
+MIN_INT8_MATCH = 0.9
+INT8_GATE_TOKENS = 8
+# Each int8 stream's first flip away from fp32 must be at a near-tie of the
+# fp32 logits: the top-2 gap below this share of the top logit (the H100
+# readings at seed 0 reach 1.25e-2).  The int8 pool itself is checked value
+# by value in int8_kv_check, so a store or scale fault fails there.
+INT8_FLIP_GAP_REL = 2e-2
 
 MASK_ID, CLS_ID, SEP_ID = 3, 1, 2
 DEV = "cuda"
@@ -894,6 +946,537 @@ def train_phase(seed):
                         peak_gib=peak / 2 ** 30, losses=losses)
 
 
+# -- phase 5: paged attention and the paged decode slice ----------------------
+
+def paged_cost(lens, block_size, d, kv_elt, q_elt, quantized):
+    """(bytes, flops) that one paged-attention call needs for these
+    lengths: K and V of the live tokens at the storage type, the live table
+    entries (and int8 scale pairs), q, out and the lengths; ~4 d + 5 flops a
+    token."""
+    lens = lens.long()
+    tokens = int(lens.sum())
+    blocks = int(((lens + block_size - 1) // block_size).sum())
+    n = lens.numel()
+    nbytes = (2 * tokens * d * kv_elt + blocks * 4 + n * 4
+              + 2 * n * d * q_elt + (blocks * 8 if quantized else 0))
+    return nbytes, tokens * (4 * d + 5)
+
+
+def paged_inputs(gen, rng, num_seqs, max_blocks, block_size, d, max_len,
+                 lens=None):
+    """fp32 q and caches over a pool of num_seqs * max_blocks blocks plus
+    the null block, tables a random permutation, int8 blocks with random
+    per-block scales, and ragged lengths 1..max_len from ``rng`` with rows
+    of 0, 3, one block and the full table (unless ``lens`` is given)."""
+    nb = num_seqs * max_blocks + 1
+    q = torch.randn((num_seqs, d), generator=gen).to(DEV)
+    k = torch.randn((nb, block_size, d), generator=gen).to(DEV)
+    v = torch.randn((nb, block_size, d), generator=gen).to(DEV)
+    k8, v8 = (torch.randint(-127, 128, (nb, block_size, d), generator=gen,
+                            dtype=torch.int8).to(DEV) for _ in range(2))
+    scales = (torch.rand((nb, 2), generator=gen) * 0.09 + 0.01).to(DEV)
+    tables = (torch.from_numpy(rng.permutation(nb - 1)[:num_seqs * max_blocks]
+                               + 1).int().reshape(num_seqs, max_blocks)
+              .to(DEV))
+    if lens is None:
+        lens = rng.integers(1, max_len + 1, num_seqs)
+        lens[:4] = [0, 3, block_size, max_blocks * block_size]
+    lens = torch.from_numpy(np.asarray(lens, np.int32)).to(DEV)
+    return dict(q=q, k=k, v=v, k8=k8, v8=v8, scales=scales, tables=tables,
+                lens=lens)
+
+
+def paged_kernel_case(pa, t, dtype, tag):
+    """The kernel against its plain version on ``t`` in ``dtype`` (float32,
+    bfloat16: q and caches rounded to bf16; int8: the int8 blocks, fp32 q).
+    Returns (run, plain, library, cost, max abs err)."""
+    F = torch.nn.functional
+    q, tb, lens = t["q"], t["tables"], t["lens"]
+    kw = {}
+    if dtype == torch.int8:
+        k, v, kw = t["k8"], t["v8"], {"kv_scales": t["scales"]}
+    elif dtype == torch.bfloat16:
+        q, k, v = (x.to(dtype) for x in (q, t["k"], t["v"]))
+    else:
+        k, v = t["k"], t["v"]
+    run = lambda: pa.paged_attention(q, k, v, tb, lens, **kw)
+    plain = lambda: pa.paged_attention_plain(q, k, v, tb, lens, **kw)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max_abs(out, ref)
+    label = " ".join(x for x in ("paged_attention", tag, dtag(dtype)) if x)
+    if dtype == torch.bfloat16:
+        ref32 = pa.paged_attention_plain(q.float(), k.float(), v.float(), tb,
+                                         lens)
+        r = rel_err(out, ref32)
+        check(r <= TOL_PAGED_BF16_REL, f"{label}: rel err vs fp32 plain "
+              f"{r:.3g} <= {TOL_PAGED_BF16_REL} (max abs vs bf16 plain "
+              f"{err:.3g})")
+    else:
+        excess = float(((out - ref).abs() - TOL_PAGED_FP32
+                        * (1 + ref.abs())).max())
+        check(excess <= 0, f"{label}: |err| <= 2e-5 + 2e-5 |plain| "
+              f"(max abs err {err:.3g})")
+    zero = lens == 0
+    check(bool((out[zero] == 0).all()), f"{label}: {int(zero.sum())} rows "
+          f"of length 0 are exactly 0")
+    # library yardstick: SDPA over K/V gathered beforehand (gather excluded)
+    n, d = q.shape
+    span = tb.shape[1] * k.shape[1]
+    kg, vg = k[tb.long()], v[tb.long()]
+    if dtype == torch.int8:
+        s = t["scales"][tb.long()]
+        kg = kg.float() * s[..., 0, None, None]
+        vg = vg.float() * s[..., 1, None, None]
+    kg, vg = (x.reshape(n, 1, span, d) for x in (kg, vg))
+    qg = q.reshape(n, 1, 1, d).to(kg.dtype)
+    mask = (torch.arange(span, device=DEV)[None, :] < lens.long()[:, None]
+            ).reshape(n, 1, 1, span)
+    lib = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    cost = paged_cost(lens, k.shape[1], d, k.element_size(),
+                      q.element_size(), dtype == torch.int8)
+    return run, plain, lib, cost, err
+
+
+def paged_kernel_phase(gen, seed):
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    S, MB, bs, d, max_len = (PAGED_KERNEL_SHAPE[k] for k in (
+        "num_seqs", "max_blocks", "block_size", "d", "max_len"))
+    rng = np.random.default_rng(seed)
+    t = paged_inputs(gen, rng, S, MB, bs, d, max_len)
+    cache_mb = {dt: 2 * t["k"].numel() * e / 1e6 for dt, e in (
+        (torch.float32, 4), (torch.bfloat16, 2), (torch.int8, 1))}
+    log(f"[paged] kernel: {S} rows x {MB} blocks of {bs}, d {d}, pool "
+        f"{S * MB} blocks + null; lengths 1..{max_len} (mean "
+        f"{float(t['lens'].float().mean()):.1f}, rows of 0/3/{bs}/{MB * bs}); "
+        f"K+V {', '.join(f'{dtag(k)} {v:.0f} MB' for k, v in cache_mb.items())}")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        run, plain, lib, cost, err = paged_kernel_case(pa, t, dtype, "")
+        b = bound(*cost, torch.float32)   # the kernel computes in fp32
+        full = pa.paged_attention_cost(S, MB, bs, d,
+                                       1 if dtype == torch.int8 else
+                                       (2 if dtype == torch.bfloat16 else 4))
+        results[dtype] = dict(ms=time_ms(run), eager_ms=eager_ms(run),
+                              plain_ms=time_ms(plain), library_ms=time_ms(lib),
+                              bound=b, bytes=cost[0], full_table_bytes=full[1],
+                              err=err)
+        del run, plain, lib
+        torch.cuda.empty_cache()
+    small = paged_inputs(gen, rng, 4, 3, 8, 32, 24, lens=[0, 3, 8, 24])
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        paged_kernel_case(pa, small, dtype, "4 rows x 3 blocks of 8, d 32")
+    # a prefill chunk's layout: its rows share one table (row stride 0),
+    # lengths start+1..start+rows
+    rows, width = (PAGED_SERVE[k] for k in ("prefill_chunk",
+                                            "max_blocks_per_seq"))
+    start = int(rng.integers(0, width * bs - rows + 1))
+    chunk = paged_inputs(gen, rng, 1, width, bs, d, 0, lens=[0])
+    chunk.update(q=torch.randn((rows, d), generator=gen).to(DEV),
+                 tables=chunk["tables"].expand(rows, width),
+                 lens=torch.arange(start + 1, start + rows + 1,
+                                   dtype=torch.int32, device=DEV))
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        paged_kernel_case(pa, chunk, dtype, f"{rows} rows sharing one table "
+                          f"of {width} (stride 0), lengths {start + 1}.."
+                          f"{start + rows}")
+    for dtype, r in results.items():
+        log(f"  paged_attention {dtag(dtype)}: {r['ms']:.4f} ms (eager "
+            f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms (F.scaled_dot_product_attention on "
+            f"K/V gathered beforehand, gather excluded), bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {r['bytes'] / 1e6:.1f}"
+            f" MB of live context; full-table cost model "
+            f"{r['full_table_bytes'] / 1e6:.1f} MB); max abs err vs plain "
+            f"{r['err']:.3g}")
+    del t, small, chunk
+    torch.cuda.empty_cache()
+    return results
+
+
+def serve_traffic(rng, cfg):
+    """``requests`` prompts of prompt_lo..prompt_hi tokens; ``shared`` of
+    them, at random places, begin with one system prompt of system_len
+    tokens (and are longer than it, so its full blocks can be shared)."""
+    vocab = cfg["vocab"]
+    system = rng.integers(1, vocab, cfg["system_len"]).tolist()
+    shared = set(rng.choice(cfg["requests"], cfg["shared"],
+                            replace=False).tolist())
+    prompts = []
+    for i in range(cfg["requests"]):
+        if i in shared:
+            n = int(rng.integers(cfg["system_len"] + 1, cfg["prompt_hi"] + 1))
+            prompts.append(system + rng.integers(
+                1, vocab, n - cfg["system_len"]).tolist())
+        else:
+            n = int(rng.integers(cfg["prompt_lo"], cfg["prompt_hi"] + 1))
+            prompts.append(rng.integers(1, vocab, n).tolist())
+    return prompts, sorted(shared)
+
+
+def serve_once(model, prompts, cfg, kv_dtype="float32", kernel=True,
+               num_blocks=None):
+    """Decode ``prompts`` through a fresh cache and decoder; returns the
+    tokens and what the run counted and timed."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.serving import PagedDecoder, PagedKVCache
+    from paddle_tpu_torch.serving import paged as P
+    from paddle_tpu_torch.utils import monitor
+
+    cache = PagedKVCache(model, num_blocks or cfg["num_blocks"],
+                         cfg["block_size"], kv_dtype=kv_dtype)
+    dec = PagedDecoder(model, cache, max_seqs=cfg["max_seqs"],
+                       max_blocks_per_seq=cfg["max_blocks_per_seq"],
+                       prefill_chunk=cfg["prefill_chunk"])
+    steps, hits = [0], []
+    joined, waiting, first = [], [], {}
+    decode_step, try_join, step = dec._decode_step, dec.try_join, dec.step
+
+    def counted_decode_step(width):
+        steps[0] += 1
+        return decode_step(width)
+
+    def counted_try_join(prompt, max_new_tokens):
+        before = P.KV_PREFIX_HITS.value()
+        h = try_join(prompt, max_new_tokens)
+        if h is not None:       # decode() joins in prompt order
+            hits.append(int(P.KV_PREFIX_HITS.value() - before))
+            waiting.append((len(joined), h))
+            joined.append(time.perf_counter())
+        return h
+
+    def timed_step():
+        n = step()
+        now = time.perf_counter()
+        for i, h in [w for w in waiting if w[1].tokens]:
+            first[i] = now
+            waiting.remove((i, h))
+        return n
+
+    # count live decode steps and each request's prefix hits; time each
+    # request's first token (a step returns once its tokens are on the host)
+    dec._decode_step, dec.try_join = counted_decode_step, counted_try_join
+    dec.step = timed_step
+    flags.set_flags({"use_paged_attention": kernel})
+    monitor.default_registry().reset()
+    torch.cuda.synchronize()
+    config.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        tokens = dec.decode(prompts, cfg["max_new"])
+    finally:
+        flags.set_flags({"use_paged_attention": True})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = config.launch_counts().get("paged_attention", 0)
+    if len(first) != len(prompts):
+        raise AssertionError(f"chip_smoke check failed: {len(first)} of "
+                             f"{len(prompts)} first tokens timed")
+    from_join = [(first[i] - joined[i]) * 1e3 for i in range(len(prompts))]
+    from_call = [(first[i] - t0) * 1e3 for i in range(len(prompts))]
+    ttft = {}
+    for q in (50, 99):
+        hist = P.TTFT_MS.percentile(q)
+        lo = max((b for b in P.TTFT_MS.buckets if b < hist), default=0.0)
+        hi = min((b for b in P.TTFT_MS.buckets if b >= hist),
+                 default=float("inf"))
+        ttft.update({f"ttft_p{q}_ms": float(np.percentile(from_join, q)),
+                     f"ttft_call_p{q}_ms": float(np.percentile(from_call, q)),
+                     f"ttft_hist_p{q}_ms": hist,
+                     f"ttft_hist_p{q}_bucket_ms": [lo, hi]})
+    return dict(tokens=tokens, wall_s=wall, launches=launches,
+                decode_steps=steps[0], hits=hits,
+                chunks=int(P.KV_PREFILL_CHUNKS.value()),
+                prefix_hits=int(P.KV_PREFIX_HITS.value()),
+                cache_bytes=cache.bytes, **ttft)
+
+
+def dense_logits(model, context):
+    """The next-token logits after ``context`` (dense, fp32)."""
+    dev = model.device
+    with torch.no_grad():
+        q, k, v = model.qkv(torch.tensor(context, device=dev),
+                            torch.arange(len(context), device=dev))
+        p = torch.softmax((q[-1:] @ k.T) / model.hidden ** 0.5, dim=-1)
+        return ((p @ v) @ model.wo)[0]
+
+
+def near_tie(model, prompt, ref, got, label):
+    """None if ``got == ref``; else the first differing step, which must be
+    a near-tie of ``ref``'s context (top-2 logit gap below NEAR_TIE_REL of
+    the top logit)."""
+    if got == ref:
+        return None
+    i = next(j for j, (a, b) in enumerate(zip(ref, got)) if a != b)
+    top2 = torch.topk(dense_logits(model, prompt + ref[:i]), 2).values
+    gap = float(top2[0] - top2[1])
+    rel = gap / max(abs(float(top2[0])), 1e-30)
+    check(rel < NEAR_TIE_REL, f"{label}: first differs at step {i}, top-2 "
+          f"logit gap {gap:.3g} = {rel:.3g} of the top logit < {NEAR_TIE_REL}")
+    return i
+
+
+def int8_kv_check(model, prompts, cfg):
+    """The int8 pool a decoder wrote on the card against the fp32 K/V of the
+    same contexts: each dequantised value within half its block's scale
+    (plus tol for the recomputed K/V), and the int8 kernel's attention of
+    each context's last query within the bound those scales imply of fp32
+    attention.  A score moves by at most D = sm * |q|_1 * (ks/2 + tol), so
+    each softmax weight by a factor within exp(+-2D), and a value by at
+    most vs/2 + tol: |out8 - out| <= vs/2 + expm1(2D) max|v| + 2 tol."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving import PagedDecoder, PagedKVCache
+
+    cache = PagedKVCache(model, cfg["num_blocks"], cfg["block_size"],
+                         kv_dtype="int8")
+    dec = PagedDecoder(model, cache, max_seqs=cfg["max_seqs"],
+                       max_blocks_per_seq=cfg["max_blocks_per_seq"],
+                       prefill_chunk=cfg["prefill_chunk"])
+    # streams long enough that none retires before the last one's prefill
+    handles = [dec.join(p, cfg["max_positions"] - len(p)) for p in prompts]
+    while any(len(h.tokens) < 2 for h in handles):   # prefill + a decode
+        dec.step()
+    dev, bs, tol = model.device, cache.block_size, TOL_PAGED_FP32
+    sm = 1.0 / model.hidden ** 0.5
+    excess, held, qs, lens, tables, refs, bounds = (float("-inf"), [], [], [],
+                                                    [], [], [])
+    with torch.no_grad():
+        for h in handles:
+            seq = dec._slots[h.slot]
+            ctx = h.prompt + h.tokens[:-1]      # what the pool holds
+            n = len(ctx)
+            held.append(seq.context_len == n)
+            q, k, v = model.qkv(torch.tensor(ctx, device=dev),
+                                torch.arange(n, device=dev))
+            bids = torch.tensor(seq.block_ids, device=dev)
+            s = cache.scales[bids].repeat_interleave(bs, dim=0)[:n]
+            for pool, ref, sc in ((cache.k, k, s[:, :1]),
+                                  (cache.v, v, s[:, 1:])):
+                deq = pool[bids].reshape(-1, model.hidden)[:n].float() * sc
+                excess = max(excess, float(((deq - ref).abs() - sc / 2
+                                            - tol).max()))
+            refs.append(torch.softmax((q[-1] @ k.T) * sm, dim=-1) @ v)
+            dscore = sm * float(q[-1].abs().sum()) * (
+                float(s[:, 0].max()) / 2 + tol)
+            bounds.append(float(s[:, 1].max()) / 2 + 2 * tol
+                          + math.expm1(2 * dscore) * float(v.abs().max()))
+            qs.append(q[-1])
+            lens.append(n)
+            tables.append(seq.block_ids)
+        width = max(map(len, tables))
+        tb = torch.tensor([t + [0] * (width - len(t)) for t in tables],
+                          dtype=torch.int32, device=dev)
+        out = pa.paged_attention(
+            torch.stack(qs), cache.k, cache.v, tb,
+            torch.tensor(lens, dtype=torch.int32, device=dev), sm_scale=sm,
+            kv_scales=cache.scales)
+    err = (out - torch.stack(refs)).abs().amax(dim=1).tolist()
+    share = max(e / b for e, b in zip(err, bounds))
+    for h in handles:
+        dec.evict(h)
+    check(all(held), f"int8 KV: each pool holds its prompt and all but the "
+          f"last generated token")
+    check(excess <= 0, f"int8 KV: {len(handles)} contexts ({sum(lens)} "
+          f"tokens) stored by the decoder read back within half their "
+          f"scale of the fp32 K/V (largest excess over that {excess:.3g})")
+    check(share <= 1, f"int8 KV: the kernel's attention over them is "
+          f"within the bound the scales imply of fp32 attention (max err "
+          f"{max(err):.3g}, at most {share:.3g} of its bound; bounds "
+          f"{min(bounds):.3g}-{max(bounds):.3g})")
+    return dict(contexts=len(handles), tokens=sum(lens),
+                max_attn_err=max(err), max_err_over_bound=share,
+                bound_min=min(bounds), bound_max=max(bounds),
+                k_scale=cache.k_scale, v_scale=cache.v_scale)
+
+
+def paged_slice_phase(seed):
+    from paddle_tpu_torch.serving import (PagedDecoder, PagedKVCache,
+                                          dense_reference_decode,
+                                          kv_pool_bytes, make_paged_toy_lm)
+
+    cfg = PAGED_SERVE
+    log(f"[paged] slice: paged toy LM vocab {cfg['vocab']} hidden "
+        f"{cfg['hidden']} positions {cfg['max_positions']}, random weights "
+        f"from seed {seed}; pool {cfg['num_blocks']} blocks of "
+        f"{cfg['block_size']} ({kv_pool_bytes(cfg['num_blocks'], cfg['block_size'], cfg['hidden']) / 1e6:.0f} MB fp32), "
+        f"{cfg['max_seqs']} rows, tables of {cfg['max_blocks_per_seq']}, "
+        f"prefill chunk {cfg['prefill_chunk']}")
+    model = make_paged_toy_lm(vocab=cfg["vocab"], hidden=cfg["hidden"],
+                              max_positions=cfg["max_positions"], seed=seed,
+                              device=DEV)
+    rng = np.random.default_rng(seed)
+    prompts, shared = serve_traffic(rng, cfg)
+    n_prompt = sum(len(p) for p in prompts)
+    log(f"  {len(prompts)} requests, {n_prompt} prompt tokens (lengths "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}), {len(shared)} "
+        f"behind a {cfg['system_len']}-token system prompt, "
+        f"{cfg['max_new']} new tokens each")
+    serve_once(model, [prompts[0][:40], prompts[1][:300]], cfg)   # warm-up
+
+    runs = {"kernel": serve_once(model, prompts, cfg)}
+    r = runs["kernel"]
+    check(r["launches"] > 0 and r["launches"] == r["chunks"]
+          + r["decode_steps"], f"paged_attention: {r['launches']} launches "
+          f"= {r['chunks']} prefill chunks + {r['decode_steps']} live decode "
+          f"steps")
+    check(r["prefix_hits"] > 0, f"prefix cache: {r['prefix_hits']} block "
+          f"hits")
+    n_new = sum(len(t) for t in r["tokens"])
+    check(n_new == len(prompts) * cfg["max_new"], f"{n_new} tokens generated")
+    runs["plain"] = serve_once(model, prompts, cfg, kernel=False)
+    check(runs["plain"]["launches"] == 0, "plain path launches no kernel")
+    same = 0
+    for i, (p, a, b) in enumerate(zip(prompts, runs["plain"]["tokens"],
+                                      r["tokens"])):
+        same += near_tie(model, p, a, b, f"request {i} kernel vs plain "
+                         f"path") is None
+    want = len(prompts) - PAGED_MAX_DIFFERING
+    check(same >= want, f"kernel path tokens equal the plain path's for "
+          f"{same} of {len(prompts)} requests (>= {want}; the rest "
+          f"near-ties)")
+
+    # the oracle: dense_reference_decode on the card, one request with hits
+    with_hits = [i for i, n in enumerate(r["hits"]) if n > 0]
+    check(len(with_hits) > cfg["cold"], f"{len(with_hits)} requests took "
+          f"prefix hits ({sum(r['hits'])} blocks)")
+    hit = with_hits[0]
+    picks = [hit] + [i for i in range(len(prompts)) if i != hit][
+        :cfg["oracle"] - 1]
+    for i in picks:
+        ref = dense_reference_decode(model, prompts[i], cfg["max_new"])
+        step = near_tie(model, prompts[i], ref, r["tokens"][i],
+                        f"request {i} vs dense_reference_decode")
+        log(f"  request {i} (len {len(prompts[i])}"
+            f"{', prefix hits' if i == hit else ''}) vs "
+            f"dense_reference_decode: "
+            f"{'equal' if step is None else f'near-tie at step {step}'}")
+
+    # prefix-hit requests against the same prompts decoded cold
+    for i in with_hits[:cfg["cold"]]:
+        cold = serve_once(model, [prompts[i]], cfg, num_blocks=1024)
+        check(cold["prefix_hits"] == 0 and cold["tokens"][0] ==
+              r["tokens"][i], f"request {i} ({r['hits'][i]} prefix hits in "
+              f"the batch): tokens equal the prompt decoded cold")
+
+    runs["int8"] = serve_once(model, prompts, cfg, kv_dtype="int8")
+    r8 = runs["int8"]
+    runs["int8_plain"] = serve_once(model, prompts, cfg, kv_dtype="int8",
+                                    kernel=False)
+    same8 = sum(a == b for a, b in zip(runs["int8_plain"]["tokens"],
+                                       r8["tokens"]))
+    want = len(prompts) - PAGED_MAX_DIFFERING
+    check(same8 >= want, f"int8 KV: kernel path tokens equal the plain "
+          f"path's for {same8} of {len(prompts)} requests (>= {want})")
+    rate = sum(a == b for ta, tb in zip(r8["tokens"], r["tokens"])
+               for a, b in zip(ta, tb)) / n_new
+    flips, gaps = [], []
+    for p, ta, tb in zip(prompts, r8["tokens"], r["tokens"]):
+        if ta != tb:
+            i = next(j for j, (a, b) in enumerate(zip(ta, tb)) if a != b)
+            top2 = torch.topk(dense_logits(model, p + tb[:i]), 2).values
+            flips.append(i)
+            gaps.append(float((top2[0] - top2[1]) / top2[0].abs()))
+    h = INT8_GATE_TOKENS
+    head = sum(a == b for ta, tb in zip(r8["tokens"], r["tokens"])
+               for a, b in zip(ta[:h], tb[:h])) / (h * len(prompts))
+    log(f"  int8 vs fp32: {len(flips)} of {len(prompts)} requests differ; "
+        f"first differing step {sorted(flips)}; fp32 top-2 gap there, of "
+        f"the top logit: median {np.median(gaps) if gaps else 0:.3g}, max "
+        f"{max(gaps, default=0):.3g}; token match over all "
+        f"{cfg['max_new']} new tokens {rate:.4f}")
+    check(head >= MIN_INT8_MATCH, f"int8 KV tokens match the fp32 kernel "
+          f"run at {head:.4f} >= {MIN_INT8_MATCH} over the first {h} new "
+          f"tokens of each request")
+    check(max(gaps, default=0.0) < INT8_FLIP_GAP_REL, f"int8 KV: every "
+          f"first flip is at an fp32 top-2 gap below {INT8_FLIP_GAP_REL} of "
+          f"the top logit (max {max(gaps, default=0.0):.3g})")
+    want = kv_pool_bytes(cfg["num_blocks"], cfg["block_size"], cfg["hidden"],
+                         "int8")
+    check(r8["cache_bytes"] == want, f"int8 cache holds {want} bytes "
+          f"(kv_pool_bytes)")
+    kv8 = int8_kv_check(model, [prompts[i] for i in sorted(
+        set(range(cfg["int8_probe"])) | set(shared[:4]))], cfg)
+
+    speed = {}
+    for name, run in runs.items():
+        speed[name] = dict(
+            wall_s=run["wall_s"], decode_tokens_per_s=n_new / run["wall_s"],
+            prompt_tokens_per_s=n_prompt / run["wall_s"],
+            launches=run["launches"], prefill_chunks=run["chunks"],
+            decode_steps=run["decode_steps"], prefix_hits=run["prefix_hits"],
+            **{k: v for k, v in run.items() if k.startswith("ttft_")})
+        s = speed[name]
+        hist = ", ".join(
+            f"p{q} in the {b[0]:g}-{b[1]:g} ms bucket"
+            for q in (50, 99) for b in [s[f"ttft_hist_p{q}_bucket_ms"]])
+        log(f"[paged] {name}: {run['wall_s']:.3f} s wall, "
+            f"{s['decode_tokens_per_s']:.1f} generated tokens/s, "
+            f"{s['prompt_tokens_per_s']:.1f} prompt tokens/s; TTFT over "
+            f"{len(prompts)} requests from join p50 {s['ttft_p50_ms']:.1f} "
+            f"ms p99 {s['ttft_p99_ms']:.1f} ms, from the decode() call p50 "
+            f"{s['ttft_call_p50_ms']:.1f} ms p99 {s['ttft_call_p99_ms']:.1f}"
+            f" ms (serve.ttft_ms histogram: {hist}); {run['chunks']} chunks "
+            f"+ {run['decode_steps']} decode steps, {run['prefix_hits']} "
+            f"prefix hits")
+
+    # 20 decode steps of 64 rows at ~1024 tokens of context, profiled
+    prof = profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache)
+    out = dict(runs=speed, int8_token_match_first8=head,
+               int8_token_match=rate, int8_first_flip_steps=sorted(flips),
+               int8_flip_gap_max=max(gaps, default=0.0), int8_kv=kv8,
+               int8_same_as_plain=same8, same_as_plain=same,
+               requests=len(prompts), prompt_tokens=n_prompt,
+               generated_tokens=n_new, profile=prof)
+    return r["launches"], out
+
+
+def profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache):
+    from torch.profiler import ProfilerActivity, profile
+
+    n = cfg["max_seqs"]
+    cache = PagedKVCache(model, cfg["num_blocks"], cfg["block_size"])
+    dec = PagedDecoder(model, cache, max_seqs=n,
+                       max_blocks_per_seq=cfg["max_blocks_per_seq"],
+                       prefill_chunk=cfg["prefill_chunk"])
+    plen = cfg["profile_prompt"]
+    max_new = cfg["max_positions"] - plen
+    handles = [dec.join(rng.integers(1, cfg["vocab"], plen).tolist(),
+                        max_new) for _ in range(n)]
+    while any(len(h.tokens) == 0 for h in handles):
+        dec.step()
+    torch.cuda.synchronize()
+    steps = cfg["profile_steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            dec.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = device_events(p)
+    busy = sum(us for us, _, _ in events) / 1e3 / steps
+    kernel = sum(us for us, _, name in events
+                 if "paged_attn_kernel" in name) / 1e3 / steps
+    ctx = float(np.mean([len(h.prompt) + len(h.tokens) for h in handles]))
+    for h in handles:
+        dec.evict(h)
+    top = sorted(events, reverse=True)[:8]
+    log(f"[profile] paged decode step, {n} rows, mean context {ctx:.0f}: "
+        f"{wall_ms:.3f} ms wall (under the profiler), device busy "
+        f"{busy:.4f} ms (busy share {busy / wall_ms:.3f}), paged_attention "
+        f"{kernel:.4f} ms = {kernel / busy:.3f} of device time, "
+        f"{kernel / wall_ms:.3f} of wall")
+    for us, count, name in top:
+        log(f"  {us / 1e3 / steps:8.4f} ms  x{count // steps:<3d} {name[:90]}")
+    return dict(step_wall_ms=wall_ms, device_busy_ms=busy,
+                kernel_ms=kernel, kernel_share_of_device=kernel / busy,
+                kernel_share_of_wall=kernel / wall_ms, mean_context=ctx,
+                rows=n)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -906,6 +1489,7 @@ def main(argv=None):
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -932,6 +1516,9 @@ def main(argv=None):
     log("[slice] share of the bf16 b8 s512 forward's device time: "
         + ", ".join(f"{k} {v:.3f}" for k, v in share.items()))
     counts, train = train_phase(args.seed)
+    torch.cuda.empty_cache()
+    paged = paged_kernel_phase(gen, args.seed)
+    paged_launches, paged_slice = paged_slice_phase(args.seed)
 
     kernels = []
     for k in fap.KERNELS + ln.KERNELS:
@@ -962,7 +1549,27 @@ def main(argv=None):
         if k.name.endswith("_bwd"):
             entry["dropout"] = RATE if k.name != ln.LN_BWD else 0.0
         kernels.append(entry)
+    p32 = paged[torch.float32]
+    entry = {
+        "name": pa.KERNEL, "route": "cuda",
+        "source": f"paddle_tpu_torch/ops/kernels/csrc/{pa.SOURCE}.cu",
+        "replaces": pa.REPLACES, "launches": paged_launches,
+        "max_abs_err": p32["err"], "ms": p32["ms"],
+        "plain_ms": p32["plain_ms"], "bound_ms": p32["bound"][0],
+        "bound_by": p32["bound"][1], "library_ms": p32["library_ms"],
+        "library": "F.scaled_dot_product_attention on K/V gathered "
+                   "beforehand (gather excluded)",
+        "dtype": "float32", "eager_ms": p32["eager_ms"],
+        "launches_per": "paged slice run (96 requests)"}
+    for dtype, r in paged.items():
+        t = {torch.float32: "fp32", torch.bfloat16: "bf16"}.get(dtype, "int8")
+        entry.update({f"{t}_ms": r["ms"], f"{t}_max_abs_err": r["err"],
+                      f"{t}_bound_ms": r["bound"][0],
+                      f"{t}_plain_ms": r["plain_ms"],
+                      f"{t}_library_ms": r["library_ms"]})
+    kernels.append(entry)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"paged": paged_slice}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

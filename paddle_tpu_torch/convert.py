@@ -46,3 +46,34 @@ def from_jax_params(np_params: Dict[str, np.ndarray], model: nn.Module,
     if dtype is not None:
         model.to(dtype)
     return model
+
+
+_PAGED_TOY_LM_KEYS = ("emb", "pe", "wq", "wk", "wv", "wo")
+
+
+def paged_toy_lm_from_jax(np_weights: Dict[str, np.ndarray], vocab: int,
+                          hidden: int, max_positions: int, seed: int,
+                          device=None):
+    """A port ``PagedToyLM`` holding the JAX ``PagedToyLM``'s weights
+    (``{emb, pe, wq, wk, wv, wo}`` as numpy arrays) for the same
+    ``vocab / hidden / max_positions / seed``, so its fingerprint, and with
+    it every prefix-cache hash, is the JAX model's.  Keys and shapes are
+    checked strictly."""
+    from .serving.paged import PagedToyLM
+
+    got = set(np_weights)
+    if got != set(_PAGED_TOY_LM_KEYS):
+        raise KeyError(f"paged_toy_lm_from_jax: missing keys "
+                       f"{sorted(set(_PAGED_TOY_LM_KEYS) - got)}, unexpected "
+                       f"keys {sorted(got - set(_PAGED_TOY_LM_KEYS))}")
+    model = PagedToyLM(vocab, hidden, max_positions, seed, device=device)
+    with torch.no_grad():
+        for name in _PAGED_TOY_LM_KEYS:
+            p = getattr(model, name)
+            arr = np.array(np_weights[name], dtype=np.float32)
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"paged_toy_lm_from_jax: {name} has shape "
+                                 f"{arr.shape}, the model expects "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(arr))
+    return model

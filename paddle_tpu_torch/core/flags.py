@@ -1,8 +1,8 @@
 """Typed global flags (counterpart of paddle_tpu/core/flags.py).
 
-Only the two kernel flags of the ported path live here, with the JAX
-package's names, defaults and env passthrough (``PDTPU_FLAGS_<name>``).
-A flag that is on selects the kernel on CUDA tensors; off selects the plain
+Only the flags of the ported paths live here, with the JAX package's
+names, defaults and env passthrough (``PDTPU_FLAGS_<name>``).  A kernel
+flag that is on selects the kernel on CUDA tensors; off selects the plain
 PyTorch composition on every device.
 """
 from __future__ import annotations
@@ -65,3 +65,12 @@ define_flag("use_fused_layer_norm", True, "Use the LayerNorm and the "
             "residual+dropout+LayerNorm CUDA kernels (ops/kernels/"
             "layer_norm.py) on CUDA tensors: one pass over device memory "
             "per call.")
+define_flag("use_paged_attention", True, "Use the paged-attention decode "
+            "CUDA kernel (ops/kernels/paged_attention.py) in the paged "
+            "decoder: one-token attention gathered block by block through "
+            "a per-sequence block table, online softmax, in-kernel int8 KV "
+            "dequant.  Off: the plain gather + masked softmax on every "
+            "device.")
+define_flag("metrics", True, "Collect runtime telemetry into the metrics "
+            "registry (utils/monitor.py).  Off (PDTPU_FLAGS_metrics=0): "
+            "instrumented paths still run but record nothing.")

@@ -40,6 +40,7 @@ class Kernel:
 _KERNEL_FLAGS: Tuple[Tuple[str, str], ...] = (
     ("fa", "use_flash_attention"),
     ("ln", "use_fused_layer_norm"),
+    ("pgat", "use_paged_attention"),
 )
 
 _lock = threading.Lock()
@@ -66,7 +67,8 @@ def kernel_enabled(flag_name: str) -> bool:
 
 
 def fingerprint() -> str:
-    """Effective kernel set, e.g. ``tk1:fa=1,ln=1`` (all zero off CUDA)."""
+    """Effective kernel set, e.g. ``tk1:fa=1,ln=1,pgat=1`` (all zero off
+    CUDA)."""
     bits = ",".join(f"{tag}={int(kernel_enabled(name))}"
                     for tag, name in _KERNEL_FLAGS)
     return f"tk{_SCHEMA}:{bits}"

@@ -45,6 +45,29 @@ def _kernel_modules():
     return mods
 
 
+def test_import_scan_covers_every_package_of_the_port():
+    names = _all_modules()
+    for pkg in ("core", "nn", "ops.kernels", "optimizer", "serving", "text",
+                "utils"):
+        assert f"paddle_tpu_torch.{pkg}" in names, pkg
+    for mod in ("serving.paged", "serving.slo", "serving.continuous",
+                "utils.monitor", "core.errors", "ops.kernels.paged_attention"):
+        assert f"paddle_tpu_torch.{mod}" in names, mod
+
+
+def test_paged_attention_kernel_is_declared():
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    (k,) = pa.KERNELS
+    assert k.source == "paged_attention" and k.source in build.sources()
+    assert k.replaces == ("paddle_tpu/ops/pallas/paged_attention.py:116 "
+                          "paged_attention_kernel")
+    assert k.plain is pa.paged_attention_plain
+    assert inspect.signature(k.plain).parameters.keys() \
+        == inspect.signature(k.wrapper).parameters.keys()
+    assert "config.record_call(KERNEL)" in inspect.getsource(k.wrapper)
+
+
 def test_port_imports_neither_jax_nor_paddle_tpu():
     code = (
         "import sys\n"
@@ -151,6 +174,8 @@ def test_import_builds_nothing():
             "import paddle_tpu_torch.ops.kernels.build as b\n"
             "import paddle_tpu_torch.ops.kernels.flash_attention_packed\n"
             "import paddle_tpu_torch.ops.kernels.layer_norm\n"
+            "import paddle_tpu_torch.ops.kernels.paged_attention\n"
+            "import paddle_tpu_torch.serving\n"
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.entry\n"
             "import paddle_tpu_torch.text.ernie\n"
