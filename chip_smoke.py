@@ -19,7 +19,9 @@ Phases (any failed check raises, so the script exits non-zero):
               plain version's, a PyTorch library call's and its bound.
               Then all six kernels in bf16 against their plain versions
               at the training step's own shapes (b 64, s 512; 32768 rows),
-              with their times and bounds there.
+              and the (b, h, s, d) kernels of phase 5 there too, on the
+              split-head route's views (dropout 0.1, ragged keys), with
+              their times and bounds there.
 3. slice   -- serving: full-width ERNIE-base (L12 H768 A12 I3072 V18000,
               random weights from --seed) answers token-id requests of
               mixed lengths, batched and padded at s 128 and s 512: the
@@ -43,7 +45,26 @@ Phases (any failed check raises, so the script exits non-zero):
               steps run under torch.profiler and their device time is
               split by kernel and by kind (the port's kernels, cuBLAS
               matrix products, the rest).
-5. paged   -- (a) the paged-attention kernel against its plain version at
+5. bhsd    -- the (batch, heads, seq, head_dim) flash-attention kernels
+              (rows 3-4; the packed kernel's sources with other strides):
+              (a) forward and backward against their plain versions in
+              fp32 and bf16 at ERNIE-base's attention (b8 h12 s512 d64,
+              ragged keys, dropout 0 and 0.1), GPT-2 XL's (b2 h25 s1024
+              d64, causal), LLaMA-2-7B's (b1 h32 s4096 d128, causal),
+              Gemma-7B's (b1 h16 s2048 d256) and d192 (b2 h3 s256, dropout
+              0 and 0.1); (b) the ERNIE-base fp32 case at dropout 0.1
+              against kernel A on the same inputs in packed layout (out,
+              lse, dq, dk, dv within 1e-4: one mask key); (c) each case's
+              times beside the plain version, SDPA (backend named) and the
+              bound; (d) full-width ERNIE-base through MultiHeadAttention's
+              split-head route (the packed layout gate swapped for one that
+              refuses every layout): the bf16 b8 s512 forward (12 / 0
+              launches of the (b, h, s, d) / packed forward, logits against
+              the packed route), the fp32 L2 b8 step at dropout 0.1 against
+              the packed route (loss and every gradient), and 5 bf16 b64
+              s512 steps (12 / 12 launches, falling loss, tokens/s beside
+              the packed route's).
+6. paged   -- (a) the paged-attention kernel against its plain version at
               256 rows x 128 blocks of 16 tokens, d 128, ragged lengths
               1..2048 from --seed (and rows of 0, 3, 16, 2048) over a
               32768-block pool, in fp32, bf16 and int8, plus d 32 / block
@@ -64,7 +85,8 @@ Phases (any failed check raises, so the script exits non-zero):
               prefill tokens/s, TTFT p50/p99, and the kernel's share of the
               device time over 20 decode steps of 64 rows.
 
-Before the last line it prints ``{"train": ...}``, ``{"paged": ...}`` and
+Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
+``{"paged": ...}`` and
 ``{"kernels": [...]}`` JSON lines and the card's name and power limit; the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -95,6 +117,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # (bf16 keeps ~3 significant digits).  dw/db sum 4096 rows: relative to
 # their largest value.
 TOL_FP32 = {"flash_attention_packed": 1e-4, "flash_attention_packed_bwd": 1e-4,
+            "flash_attention": 1e-4, "flash_attention_bwd": 1e-4,
             "layer_norm": 2e-5, "residual_layer_norm": 2e-5,
             "layer_norm_bwd": 2e-5, "residual_layer_norm_bwd": 2e-5}
 TOL_BF16_REL = 2e-2
@@ -346,13 +369,15 @@ def timings(run, plain, lib, nbytes, flops, dtype, lib_profiled=False):
                 bound=bound(nbytes, flops, dtype))
 
 
-def attn_cost(backward, b, s, h, d, elt):
-    """(bytes, flops) of kernel A: q, k, v read and o written (and dO, o
-    read, dq, dk, dv written for the backward), the fp32 bias and LSE; 4
-    b h s^2 d flops forward, 10 backward (S recomputed once)."""
+def attn_cost(backward, b, s, h, d, elt, causal=False):
+    """(bytes, flops) of attention in either layout: q, k, v read and o
+    written (and dO, o read, dq, dk, dv written for the backward), the fp32
+    bias and LSE; 4 b h s^2 d flops forward, 10 backward (S recomputed
+    once), over the s (s + 1) / 2 scores a causal mask leaves."""
     io = (8 if backward else 4) * b * s * h * d * elt
+    scores = s * (s + 1) // 2 if causal else s * s
     return io + b * s * 4 + b * h * s * 4, \
-        (10 if backward else 4) * b * h * s * s * d
+        (10 if backward else 4) * b * h * scores * d
 
 
 def ln_cost(name, n, dim, elt):
@@ -554,11 +579,15 @@ def kernel_phase(gen):
 
 
 def train_shape_phase(gen):
-    """The six kernels against their plain versions at the bf16 training
-    step's own shapes (b TRAIN_BATCH, s TRAIN_SEQ; TRAIN_BATCH * TRAIN_SEQ
-    rows), where the wrappers launch other grids than at KERNEL_SHAPE (the
-    LayerNorm backwards walk 16 rows a warp, not 2), with the same seeds
-    and tolerances; then each kernel's device time and bound there."""
+    """The main path's kernels against their plain versions at the bf16
+    training step's own shapes (b TRAIN_BATCH, s TRAIN_SEQ; TRAIN_BATCH *
+    TRAIN_SEQ rows), where the wrappers launch other grids than at
+    KERNEL_SHAPE (the LayerNorm backwards walk 16 rows a warp, not 2; the
+    attention backwards' delta pre-pass covers b * h * s rows), with the
+    same seeds and tolerances: kernel A and A-backward, the (b, h, s, d)
+    kernels on the split-head route's views, and the four LayerNorm
+    kernels; then each kernel's device time and bound there."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
 
@@ -568,8 +597,9 @@ def train_shape_phase(gen):
     elt = torch.tensor([], dtype=dtype).element_size()
     log(f"[kernels] training shapes, bf16: b{b} s{s} h{h} d{d}, rows {n} x "
         f"{dim}, dropout {RATE}")
-    a = attention_case(fap, gen, b, s, h, d, dtype, False,
-                       [s] * (b - 2) + [300, 37], rate=RATE, backward=True)
+    lengths = [s] * (b - 2) + [300, 37]
+    a = attention_case(fap, gen, b, s, h, d, dtype, False, lengths,
+                       rate=RATE, backward=True)
     qkv = (a["q"], a["k"], a["v"])
     fargs = (h, a["bias"], a["scale"], False, RATE, SEED)
     bargs = (a["bias"], a["out"], a["lse"], a["do"], h, a["scale"], False,
@@ -579,6 +609,17 @@ def train_shape_phase(gen):
             fap.KERNEL_BWD: (
                 lambda: fap.flash_attention_packed_bwd(*qkv, *bargs),
                 attn_cost(True, b, s, h, d, elt), a["bwd_err"])}
+    c = bhsd_case(fa, gen, b, h, s, d, dtype, False, lengths, RATE,
+                  f"(b, h, s, d) attention on split-head views b{b} h{h} "
+                  f"s{s} d{d} bf16 dropout={RATE}", split=True)
+    runs[fa.KERNEL] = (
+        lambda: fa.flash_attention_fwd(c["q"], c["k"], c["v"], *c["fargs"]),
+        attn_cost(False, b, s, h, d, elt), c["err"])
+    runs[fa.KERNEL_BWD] = (
+        lambda: fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["bias"],
+                                       c["out"], c["lse"], c["do"],
+                                       *c["bargs"]),
+        attn_cost(True, b, s, h, d, elt), c["bwd_err"])
     cases, _ = ln_family(ln, gen, n, dim, dtype)
     cases[ln.RDLN] = cases.pop((ln.RDLN, RATE))
     for name in (ln.LN, ln.LN_BWD, ln.RDLN, ln.RDLN_BWD):
@@ -590,7 +631,7 @@ def train_shape_phase(gen):
         log(f"  {name} bf16 at the training shapes: {out[name]['ms']:.4f} ms,"
             f" bound {out[name]['bound'][0]:.4f} ms ({out[name]['bound'][1]})"
             f"; max abs err vs bf16 plain {err:.3g}")
-    del a, qkv, runs, cases
+    del a, c, qkv, runs, cases
     torch.cuda.empty_cache()
     return out
 
@@ -762,11 +803,12 @@ def plain_wrappers():
     """Every kernel wrapper swapped for its plain version (same arguments),
     as module attributes, so the autograd Functions call the plain
     arithmetic on CUDA tensors."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
 
     saved = []
-    for mod in (fap, ln):
+    for mod in (fa, fap, ln):
         for k in mod.KERNELS:
             saved.append((mod, k.wrapper.__name__, k.wrapper))
             setattr(mod, k.wrapper.__name__, k.plain)
@@ -836,6 +878,22 @@ def profile_steps(step, params, state, batch, gen, steps=2):
     return params, state
 
 
+def steps_agree(loss, grads, loss_ref, grads_ref, ref_name):
+    """One fp32 train step's loss and every gradient against another run of
+    the step: the loss within TOL_TRAIN_LOSS_REL, each gradient within
+    TOL_TRAIN_GRAD_REL of its largest value (floored at 1e-4 of the largest
+    gradient of all: the key-projection bias's is rounding noise)."""
+    r = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+    check(r <= TOL_TRAIN_LOSS_REL, f"loss {loss.item():.6f} vs {ref_name} "
+          f"{loss_ref.item():.6f}: rel err {r:.3g} <= {TOL_TRAIN_LOSS_REL}")
+    floor = 1e-4 * max(float(g.abs().max()) for g in grads_ref.values())
+    worst = max((max_abs(grads[k], g) / max(float(g.abs().max()), floor), k)
+                for k, g in grads_ref.items())
+    check(worst[0] <= TOL_TRAIN_GRAD_REL, f"{len(grads_ref)} gradients vs "
+          f"{ref_name}: worst err {worst[0]:.3g} of the gradient's max "
+          f"({worst[1]}) <= {TOL_TRAIN_GRAD_REL}")
+
+
 def train_phase(seed):
     from paddle_tpu_torch import convert, entry
     from paddle_tpu_torch.ops.kernels import config
@@ -874,15 +932,7 @@ def train_phase(seed):
                                   torch.Generator().manual_seed(seed))
     torch.cuda.synchronize()
     check(not config.launch_counts(), "plain wrappers launch no kernel")
-    r = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    check(r <= TOL_TRAIN_LOSS_REL, f"loss {loss_k.item():.6f} vs plain "
-          f"{loss_p.item():.6f}: rel err {r:.3g} <= {TOL_TRAIN_LOSS_REL}")
-    floor = 1e-4 * max(float(g.abs().max()) for g in grads_p.values())
-    worst = max((max_abs(grads_k[k], g) / max(float(g.abs().max()), floor), k)
-                for k, g in grads_p.items())
-    check(worst[0] <= TOL_TRAIN_GRAD_REL, f"{len(grads_p)} gradients vs "
-          f"plain: worst err {worst[0]:.3g} of the gradient's max "
-          f"({worst[1]}) <= {TOL_TRAIN_GRAD_REL}")
+    steps_agree(loss_k, grads_k, loss_p, grads_p, "plain")
     del model, step, grads_k, grads_p, params
 
     # bf16 over fp32 masters, full width, b64: the main path
@@ -946,7 +996,324 @@ def train_phase(seed):
                         peak_gib=peak / 2 ** 30, losses=losses)
 
 
-# -- phase 5: paged attention and the paged decode slice ----------------------
+# -- phase 5: (b, h, s, d) flash attention and the split-head route ---------
+
+# (label, b, h, s, d, causal, key lengths (None: all s), dropout rates): the
+# (b, h, s, d) kernels at ERNIE-base's attention, GPT-2 XL's 25 heads of 64
+# (causal), LLaMA-2-7B's 32 heads of 128 at 4096 (causal), Gemma-7B's 16
+# heads of 256, and heads of 192 at a small size.
+BHSD_CASES = (
+    ("ERNIE-base", 8, 12, 512, 64, False,
+     (512, 480, 300, 37, 512, 128, 200, 450), (0.0, RATE)),
+    ("GPT-2 XL", 2, 25, 1024, 64, True, None, (0.0,)),
+    ("LLaMA-2-7B", 1, 32, 4096, 128, True, None, (0.0,)),
+    ("Gemma-7B", 1, 16, 2048, 256, False, None, (0.0,)),
+    ("d192", 2, 3, 256, 192, False, (256, 100), (0.0, RATE)),
+)
+TOL_KERNEL_A = 1e-4   # fp32: (b, h, s, d) kernels vs kernel A, same inputs
+BHSD_TRAIN_STEPS = 5
+
+
+def bhsd_case(fa, gen, b, h, s, d, dtype, causal, lengths, rate, tag,
+              split=False):
+    """The (b, h, s, d) forward and backward kernels against their plain
+    versions (fp32 max abs, bf16 relative to the fp32 plain version, LSE);
+    returns the inputs, outputs and errors.  With ``split``, q, k, v and dO
+    are what the split-head route gives the kernels: (b, h, s, d) views of
+    (b, s, h*d) tensors; else contiguous (b, h, s, d) tensors."""
+    if split:
+        q, k, v, do = (randn(gen, (b, s, h, d), dtype).transpose(1, 2)
+                       for _ in range(4))
+    else:
+        q, k, v, do = (randn(gen, (b, h, s, d), dtype) for _ in range(4))
+    bias = padding_bias(lengths or [s] * b, s)
+    scale = d ** -0.5
+    fargs = (bias, scale, causal, rate, SEED)
+    out, lse = fa.flash_attention_fwd(q, k, v, *fargs)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, *fargs)
+    f32 = [t.float() for t in (q, k, v, do)]
+    ref32, ref32_lse = fa.flash_attention_fwd_plain(*f32[:3], *fargs)
+    err = compare(tag, fa.KERNEL, out, ref, ref32, dtype)
+    lerr = max_abs(lse, ref_lse)
+    check(lerr <= TOL_LSE * max(1.0, float(ref32_lse.abs().max())),
+          f"{tag}: lse max abs err {lerr:.3g}")
+    bargs = (scale, causal, rate, SEED)
+    grads = fa.flash_attention_bwd(q, k, v, bias, out, lse, do, *bargs)
+    torch.cuda.synchronize()
+    refs = fa.flash_attention_bwd_plain(q, k, v, bias, ref, ref_lse, do,
+                                        *bargs)
+    refs32 = fa.flash_attention_bwd_plain(*f32[:3], bias, ref32, ref32_lse,
+                                          f32[3], *bargs)
+    bwd_err = max(compare(f"{tag} d{name}", fa.KERNEL_BWD, g, r, r32, dtype)
+                  for name, g, r, r32 in zip("qkv", grads, refs, refs32))
+    return dict(q=q, k=k, v=v, do=do, bias=bias, fargs=fargs, bargs=bargs,
+                out=out, lse=lse, grads=grads, err=err, bwd_err=bwd_err)
+
+
+def sdpa_mask(c, causal, dtype):
+    """SDPA's arguments for case ``c``'s masking: is_causal, or the key
+    bias as a (b, 1, 1, s) float mask."""
+    if causal:
+        return dict(is_causal=True)
+    return dict(attn_mask=c["bias"][:, None, None, :].to(dtype))
+
+
+def sdpa_backend(q, k, v, mask, rate):
+    """The backend SDPA's dispatcher picks for these arguments."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, mask.get("attn_mask"), rate,
+        mask.get("is_causal", False))).name
+
+
+def bhsd_fwd_timings(fa, c, b, h, s, d, dtype, causal):
+    """The forward kernel's device time on case ``c`` beside its plain
+    version's, SDPA's on the same (b, h, s, d) tensors and the bound."""
+    q, k, v = c["q"], c["k"], c["v"]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    mask = sdpa_mask(c, causal, dtype)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, **mask)
+    r = timings(lambda: fa.flash_attention_fwd(q, k, v, *c["fargs"]),
+                lambda: fa.flash_attention_fwd_plain(q, k, v, *c["fargs"]),
+                lib, *attn_cost(False, b, s, h, d, elt, causal), dtype)
+    return dict(r, err=c["err"],
+                library_backend=sdpa_backend(q, k, v, mask, 0.0))
+
+
+def bhsd_bwd_timings(fa, c, b, h, s, d, dtype, causal, rate):
+    """The backward kernels' device time on case ``c`` beside their plain
+    version's, SDPA's backward at the same dropout rate (an autograd call:
+    profiler device time) and the bound."""
+    q, k, v = c["q"], c["k"], c["v"]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    bargs = (c["bias"], c["out"], c["lse"], c["do"], *c["bargs"])
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    mask = sdpa_mask(c, causal, dtype)
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, dropout_p=rate, **mask)
+    lib = lambda: torch.autograd.grad(lib_out, leaves, c["do"],
+                                      retain_graph=True)
+    r = timings(lambda: fa.flash_attention_bwd(q, k, v, *bargs),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, *bargs),
+                lib, *attn_cost(True, b, s, h, d, elt, causal), dtype,
+                lib_profiled=True)
+    return dict(r, err=c["bwd_err"], dropout=rate,
+                library_eager_ms=eager_ms(lib),
+                library_backend=sdpa_backend(*leaves, mask, rate))
+
+
+def kernel_a_cross_check(fa, fap, c, b, h, s, d, rate):
+    """The (b, h, s, d) kernels and kernel A on the same fp32 inputs (kernel
+    A's in packed layout) with the same seed: out, lse, dq, dk and dv agree
+    within TOL_KERNEL_A (both key the dropout mask by batch * heads +
+    head)."""
+    packed = lambda t: t.transpose(1, 2).reshape(b, s, h * d).contiguous()
+    q, k, v, do = (packed(c[n]) for n in ("q", "k", "v", "do"))
+    bias, scale, causal, _, _ = c["fargs"]
+    out, lse = fap.flash_attention_packed_fwd(q, k, v, h, bias, scale, causal,
+                                              rate, SEED)
+    grads = fap.flash_attention_packed_bwd(q, k, v, bias, out, lse, do, h,
+                                           scale, causal, rate, SEED)
+    torch.cuda.synchronize()
+    errs = {"out": max_abs(out, packed(c["out"])),
+            "lse": max_abs(lse, c["lse"])}
+    errs.update({f"d{n}": max_abs(g, packed(mine))
+                 for n, g, mine in zip("qkv", grads, c["grads"])})
+    for name, e in errs.items():
+        check(e <= TOL_KERNEL_A, f"ERNIE-base fp32 dropout {rate}: {name} of "
+              f"the (b, h, s, d) kernels vs kernel A: max abs {e:.3g} <= "
+              f"{TOL_KERNEL_A}")
+    return errs
+
+
+def bhsd_kernel_phase(gen):
+    """(a) each case against the plain versions in fp32 and bf16, forward
+    and backward; (b) the ERNIE-base case against kernel A; (c) bf16 times
+    (fp32 for ERNIE-base) beside plain, SDPA and the bound."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
+
+    results, cross = {}, {}
+    for label, b, h, s, d, causal, lengths, rates in BHSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            timed = dtype == torch.bfloat16 or label == "ERNIE-base"
+            for rate in rates:
+                tag = (f"(b, h, s, d) attention {label} b{b} h{h} s{s} d{d} "
+                       f"{dtag(dtype)} causal={int(causal)} dropout={rate}")
+                c = bhsd_case(fa, gen, b, h, s, d, dtype, causal, lengths,
+                              rate, tag)
+                if label == "ERNIE-base" and dtype == torch.float32 \
+                        and rate > 0:
+                    cross = kernel_a_cross_check(fa, fap, c, b, h, s, d,
+                                                 rate)
+                fkey, bkey = (label, dtype, "fwd"), (label, dtype, "bwd")
+                if timed and rate == 0.0:
+                    results[fkey] = bhsd_fwd_timings(fa, c, b, h, s, d,
+                                                     dtype, causal)
+                elif timed:
+                    results[fkey].update(dropout=rate, dropout_ms=time_ms(
+                        lambda: fa.flash_attention_fwd(
+                            c["q"], c["k"], c["v"], *c["fargs"])))
+                if timed and rate == rates[-1]:
+                    results[bkey] = bhsd_bwd_timings(fa, c, b, h, s, d,
+                                                     dtype, causal, rate)
+                del c
+            torch.cuda.empty_cache()
+    for (label, dtype, kind), r in results.items():
+        log(f"  (b, h, s, d) {kind} {label} {dtag(dtype)}: {r['ms']:.4f} ms "
+            f"(eager {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"SDPA {r['library_ms']:.4f} ms ({r['library_backend']}), "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return results, cross
+
+
+@contextlib.contextmanager
+def split_route():
+    """``MultiHeadAttention``'s split-head route for every head layout: the
+    packed dispatch's layout gate swapped, as a module attribute, for one
+    that refuses every layout (as ``plain_wrappers`` swaps the wrappers)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
+
+    saved = fap.head_layout_ok
+    fap.head_layout_ok = lambda num_heads, head_dim: False
+    try:
+        yield
+    finally:
+        fap.head_layout_ok = saved
+
+
+def bhsd_model_phase(seed, packed_tokens_per_s):
+    """(d) full-width ERNIE-base through the split-head route: the bf16
+    serving forward at b8 s512 (launches, logits against the packed route,
+    times), the fp32 L2 b8 train step against the packed route (loss and
+    every gradient), and the bf16 b64 s512 step (launches, falling loss,
+    tokens/s beside the packed route's from phase 4)."""
+    from paddle_tpu_torch import convert, entry
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.text.ernie import (
+        ErnieConfig,
+        ErnieForPretraining,
+        ErniePretrainingCriterion,
+    )
+
+    cfg = ErnieConfig()
+    L, seq = cfg.num_hidden_layers, TRAIN_SEQ
+    n_mask = max(1, int(seq * 0.15))
+    crit = ErniePretrainingCriterion(cfg.vocab_size)
+    rng = np.random.default_rng(seed + 1)
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+
+    log(f"[bhsd] ERNIE-base serving forward through the split-head route, "
+        f"bf16 b8 s{seq}")
+    model = ErnieForPretraining(cfg, device=DEV, generator=gen).eval().to(
+        torch.bfloat16)
+    ids = torch.randint(5, cfg.vocab_size, (8, seq), generator=gen)
+    ids[-2:, 3 * seq // 4:] = 0
+    ids = ids.to(DEV)
+    fwd = lambda: model(ids)
+    with torch.inference_mode():
+        ref = fwd()
+        graphed = {"packed": time_ms(fwd, reps=5)}
+        with split_route():
+            config.reset_counts()
+            got = fwd()
+            torch.cuda.synchronize()
+            counts = config.launch_counts()
+            graphed["split"] = time_ms(fwd, reps=5)
+    check(counts.get("flash_attention", 0) == L
+          and counts.get("flash_attention_packed", 0) == 0,
+          f"split-head forward: {counts.get('flash_attention', 0)} (b, h, s, "
+          f"d) and {counts.get('flash_attention_packed', 0)} packed "
+          f"attention launches ({L} and 0)")
+    r = max(rel_err(g, p) for g, p in zip(got, ref))
+    check(r <= TOL_BF16_REL, f"split-head bf16 logits vs the packed route: "
+          f"rel err {r:.3g} <= {TOL_BF16_REL} (bitwise equal: "
+          f"{all(torch.equal(g, p) for g, p in zip(got, ref))})")
+    tokens = ids.numel()
+    for route, ms in graphed.items():
+        log(f"  bf16 forward b8 s{seq}, {route} route: CUDA graph {ms:.3f} ms "
+            f"= {tokens / ms * 1e3:.1f} tokens/s")
+    out["serving"] = dict(launches=counts, graph_ms=graphed,
+                          logits_rel_err_vs_packed=r)
+    del model, ref, got
+
+    log(f"[bhsd] fp32 L2 b8 s{seq} train step, dropout "
+        f"{cfg.attention_probs_dropout_prob}: split-head vs packed route")
+    model = ErnieForPretraining(ErnieConfig(num_hidden_layers=2), device=DEV,
+                                generator=torch.Generator().manual_seed(seed))
+    step = entry.make_train_step(model, crit, _GradCapture())
+    batch = pretrain_batch(rng, 8, seq, cfg.vocab_size, n_mask, pad_rows=2)
+    params = convert.parameters_dict(model)
+    grads_p, _, loss_p = step(params, None, batch,
+                              torch.Generator().manual_seed(seed))
+    with split_route():
+        config.reset_counts()
+        grads_s, _, loss_s = step(params, None, batch,
+                                  torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        counts = config.launch_counts()
+    check(counts.get("flash_attention", 0) == 2
+          and counts.get("flash_attention_bwd", 0) == 2
+          and not counts.get("flash_attention_packed", 0)
+          and not counts.get("flash_attention_packed_bwd", 0),
+          f"split-head L2 step launches 2 / 2 (b, h, s, d) kernels, no "
+          f"packed one: {counts}")
+    steps_agree(loss_s, grads_s, loss_p, grads_p, "the packed route")
+    del model, step, grads_p, grads_s, params
+
+    b = TRAIN_BATCH
+    log(f"[bhsd] bf16 ERNIE-base b{b} s{seq} train steps through the "
+        f"split-head route")
+    model = ErnieForPretraining(cfg, device=DEV,
+                                generator=torch.Generator().manual_seed(seed))
+    params = convert.parameters_dict(model)
+    opt = Adam(learning_rate=1e-4)
+    state = opt.init(params)
+    step = entry.make_train_step(model, crit, opt, torch.bfloat16)
+    batch = pretrain_batch(rng, b, seq, cfg.vocab_size, n_mask)
+    gen = torch.Generator().manual_seed(seed)
+    with split_route():
+        config.reset_counts()
+        params, state, loss = step(params, state, batch, gen)
+        torch.cuda.synchronize()
+        counts = config.launch_counts()
+        losses = [loss]
+        t0 = time.perf_counter()
+        for _ in range(1, BHSD_TRAIN_STEPS):
+            params, state, loss = step(params, state, batch, gen)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (BHSD_TRAIN_STEPS - 1) * 1e3
+        log("[bhsd] split-head route, profiled:")
+        profile_steps(step, params, state, batch, gen)
+    want = {"flash_attention": L, "flash_attention_bwd": L,
+            "flash_attention_packed": 0, "flash_attention_packed_bwd": 0}
+    for name, n in want.items():
+        check(counts.get(name, 0) == n, f"split-head b{b} step: "
+              f"{counts.get(name, 0)} launches of {name} ({n})")
+    losses = torch.stack(losses).tolist()
+    log(f"  losses: {[round(x, 4) for x in losses]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"split-head loss finite and falling over {BHSD_TRAIN_STEPS} steps: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    toks = b * seq / step_ms * 1e3
+    log(f"[bhsd] bf16 step b{b} s{seq}, split-head route (eager, mean of "
+        f"steps 1-{BHSD_TRAIN_STEPS - 1}): {step_ms:.2f} ms = {toks:.1f} "
+        f"tokens/s; packed route (phase 4): {packed_tokens_per_s:.1f} "
+        f"tokens/s; split / packed {toks / packed_tokens_per_s:.3f}")
+    out["train"] = dict(launches=counts, step_ms=step_ms, tokens_per_s=toks,
+                        packed_tokens_per_s=packed_tokens_per_s,
+                        share_of_packed=toks / packed_tokens_per_s,
+                        losses=losses)
+    return counts, out
+
+
+# -- phase 6: paged attention and the paged decode slice ----------------------
 
 def paged_cost(lens, block_size, d, kv_elt, q_elt, quantized):
     """(bytes, flops) that one paged-attention call needs for these
@@ -1487,6 +1854,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
@@ -1516,6 +1884,11 @@ def main(argv=None):
     log("[slice] share of the bf16 b8 s512 forward's device time: "
         + ", ".join(f"{k} {v:.3f}" for k, v in share.items()))
     counts, train = train_phase(args.seed)
+    torch.cuda.empty_cache()
+    log("[bhsd] (b, h, s, d) kernels against their plain versions")
+    bhsd, cross = bhsd_kernel_phase(gen)
+    bhsd_counts, bhsd_model = bhsd_model_phase(args.seed,
+                                               train["tokens_per_s"])
     torch.cuda.empty_cache()
     paged = paged_kernel_phase(gen, args.seed)
     paged_launches, paged_slice = paged_slice_phase(args.seed)
@@ -1549,6 +1922,41 @@ def main(argv=None):
         if k.name.endswith("_bwd"):
             entry["dropout"] = RATE if k.name != ln.LN_BWD else 0.0
         kernels.append(entry)
+    for k in fa.KERNELS:
+        kind = "bwd" if k.name == fa.KERNEL_BWD else "fwd"
+        r = bhsd[("ERNIE-base", torch.bfloat16, kind)]
+        r32 = bhsd[("ERNIE-base", torch.float32, kind)]
+        entry = {
+            "name": k.name, "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/kernels/csrc/{k.source}.cu",
+            "replaces": k.replaces, "launches": bhsd_counts.get(k.name, 0),
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "library": f"F.scaled_dot_product_attention "
+                       f"({r['library_backend']} backend)",
+            "dtype": "bfloat16", "shape": "b8 h12 s512 d64", "eager_ms":
+            r["eager_ms"], "fp32_ms": r32["ms"], "fp32_max_abs_err":
+            r32["err"], "launches_per": "train step (split-head route)",
+            "train_shape_ms": at_train[k.name]["ms"],
+            "train_shape_bound_ms": at_train[k.name]["bound"][0],
+            "train_shape_max_abs_err": at_train[k.name]["err"],
+            "cases": [dict(case=label, dtype=dtag(dtype), ms=x["ms"],
+                           plain_ms=x["plain_ms"],
+                           library_ms=x["library_ms"],
+                           bound_ms=x["bound"][0], bound_by=x["bound"][1],
+                           max_abs_err=x["err"])
+                      for (label, dtype, kd), x in bhsd.items()
+                      if kd == kind]}
+        for key in ("dropout", "dropout_ms", "library_eager_ms"):
+            if key in r:
+                entry[key] = r[key]
+        if kind == "bwd":
+            entry["library_timing"] = "torch.profiler device time"
+        if kind == "fwd":
+            entry["serving_launches"] = \
+                bhsd_model["serving"]["launches"].get(k.name, 0)
+        kernels.append(entry)
     p32 = paged[torch.float32]
     entry = {
         "name": pa.KERNEL, "route": "cuda",
@@ -1569,6 +1977,8 @@ def main(argv=None):
                       f"{t}_library_ms": r["library_ms"]})
     kernels.append(entry)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"bhsd": dict(bhsd_model, kernel_a_max_abs_err=cross)}),
+          flush=True)
     print(json.dumps({"paged": paged_slice}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

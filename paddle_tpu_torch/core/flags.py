@@ -58,9 +58,10 @@ def set_flags(flags: Dict[str, Any]):
             _FLAGS[name] = value
 
 
-define_flag("use_flash_attention", True, "Use the packed flash-attention "
-            "CUDA kernel (ops/kernels/flash_attention_packed.py) on CUDA "
-            "tensors where the attention semantics allow it.")
+define_flag("use_flash_attention", True, "Use the flash-attention CUDA "
+            "kernels on CUDA tensors where the attention semantics allow "
+            "it: packed (ops/kernels/flash_attention_packed.py) and "
+            "(batch, heads, seq, head_dim) (ops/kernels/flash_attention.py).")
 define_flag("use_fused_layer_norm", True, "Use the LayerNorm and the "
             "residual+dropout+LayerNorm CUDA kernels (ops/kernels/"
             "layer_norm.py) on CUDA tensors: one pass over device memory "

@@ -2,15 +2,22 @@
 paddle_tpu/nn/layer/transformer.py).
 
 Attention feeds the projection outputs in (batch, seq, heads*head_dim)
-layout straight to the packed flash-attention kernel; the split-head
-``_attend`` path is the plain route.  The post-LN sublayer tail
+layout straight to the packed flash-attention kernel.  Where the packed
+kernel refuses the head layout (an odd count of 64-wide heads, heads of 192
+or 256), and on the cache and explicit-weights paths, the split-head
+``_attend`` takes over: it views the projections as (batch, heads, seq,
+head_dim), a transpose of strides that the (b, h, s, d) kernel reads in
+place, and runs ``ops.attention.flash_attention`` (that kernel where its
+gates hold, else the plain reference), or the explicit softmax when
+``need_weights``.  The post-LN sublayer tail
 ``LN(residual + dropout(out))`` goes to the fused residual + LayerNorm
-kernel.  The decoder, the incremental-decode cache and recompute wait for
-later slices.
+kernel.  The decoder and recompute wait for later slices.
 """
 from __future__ import annotations
 
+import collections
 import copy
+import math
 from typing import Optional
 
 import torch
@@ -26,10 +33,17 @@ from .norm import LayerNorm
 
 
 class MultiHeadAttention(nn.Module):
-    """q/k/v/out projections around scaled-dot-product attention (self or
-    cross attention, no cache)."""
+    """q/k/v/out projections around scaled-dot-product attention: self or
+    cross attention (``kdim`` / ``vdim`` size the key and value inputs),
+    the attention weights returned beside the output (``need_weights``),
+    and an incremental-decode ``Cache`` (keys and values appended step by
+    step) or ``StaticCache`` (keys and values computed once)."""
 
-    def __init__(self, embed_dim, num_heads, dropout=0.0,
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.embed_dim = embed_dim
@@ -39,35 +53,86 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"embed_dim {embed_dim} not divisible by "
                              f"num_heads {num_heads}")
         self.dropout = dropout
+        self.need_weights = need_weights
         self.q_proj = Linear(embed_dim, embed_dim, generator=generator)
-        self.k_proj = Linear(embed_dim, embed_dim, generator=generator)
-        self.v_proj = Linear(embed_dim, embed_dim, generator=generator)
+        self.k_proj = Linear(kdim or embed_dim, embed_dim, generator=generator)
+        self.v_proj = Linear(vdim or embed_dim, embed_dim, generator=generator)
         self.out_proj = Linear(embed_dim, embed_dim, generator=generator)
 
     def _split_heads(self, x):
         b, s, _ = x.shape
         return x.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
 
-    def forward(self, query, key=None, value=None, attn_mask=None):
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
         key = query if key is None else key
         value = key if value is None else value
-        qp = self.q_proj(query)
-        kp = self.k_proj(key)
-        vp = self.v_proj(value)
-        out = attn_ops.flash_attention_packed(
-            qp, kp, vp, self.num_heads, attn_mask=attn_mask,
-            dropout_p=self.dropout, training=self.training)
-        if out is not None:
-            return self.out_proj(out)
-        return self._attend(self._split_heads(qp), self._split_heads(kp),
-                            self._split_heads(vp), attn_mask)
+        if cache is None and not self.need_weights:
+            qp = self.q_proj(query)
+            kp = self.k_proj(key)
+            vp = self.v_proj(value)
+            out = attn_ops.flash_attention_packed(
+                qp, kp, vp, self.num_heads, attn_mask=attn_mask,
+                dropout_p=self.dropout, training=self.training)
+            if out is not None:
+                return self.out_proj(out)
+            return self._attend(self._split_heads(qp), self._split_heads(kp),
+                                self._split_heads(vp), attn_mask, None)
+        q = self._split_heads(self.q_proj(query))
+        if isinstance(cache, MultiHeadAttention.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value))
+            if isinstance(cache, MultiHeadAttention.Cache):
+                k = torch.cat([cache.k, k], dim=2)
+                v = torch.cat([cache.v, v], dim=2)
+                cache = MultiHeadAttention.Cache(k, v)
+        return self._attend(q, k, v, attn_mask, cache)
 
-    def _attend(self, q, k, v, attn_mask):
-        out = attn_ops.flash_attention(q, k, v, attn_mask=attn_mask,
-                                       dropout_p=self.dropout,
-                                       training=self.training)
+    def _attend(self, q, k, v, attn_mask, cache):
+        """Split-head attention on (b, h, s, d): ``out``, then the weights
+        (``need_weights``) and the grown ``Cache``, as a tuple when there
+        is more than ``out``."""
+        weights = None
+        if self.need_weights:
+            # explicit weights (the flash kernel never materialises them)
+            s_ = torch.matmul(q, k.transpose(-1, -2)).float()
+            s_ = s_ / math.sqrt(self.head_dim)
+            if attn_mask is not None:
+                s_ = (s_.masked_fill(~attn_mask, -1e30)
+                      if attn_mask.dtype == torch.bool
+                      else s_ + attn_mask.float())
+            weights = torch.exp(s_ - s_.amax(dim=-1, keepdim=True))
+            weights = (weights / weights.sum(dim=-1, keepdim=True)).to(q.dtype)
+            p = weights
+            if self.dropout > 0.0 and self.training:
+                p = F.dropout(weights, p=self.dropout, training=True)
+            out = torch.matmul(p, v)
+        else:
+            out = attn_ops.flash_attention(q, k, v, attn_mask=attn_mask,
+                                           dropout_p=self.dropout,
+                                           training=self.training)
         b, h, s, d = out.shape
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, h * d))
+        out = self.out_proj(out.transpose(1, 2).reshape(b, s, h * d))
+        outs = (out,)
+        if self.need_weights:
+            outs += (weights,)
+        if isinstance(cache, MultiHeadAttention.Cache):
+            outs += (cache,)
+        return outs if len(outs) > 1 else out
+
+    def gen_cache(self, key, value=None, type=None):
+        """``StaticCache`` of the projected keys and values (``type`` =
+        ``MultiHeadAttention.StaticCache``), else an empty ``Cache``."""
+        if type == MultiHeadAttention.StaticCache:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(
+                value if value is not None else key))
+            return MultiHeadAttention.StaticCache(k, v)
+        k = torch.zeros((key.shape[0], self.num_heads, 0, self.head_dim),
+                        dtype=key.dtype, device=key.device)
+        return MultiHeadAttention.Cache(k, k)
 
 
 def _sublayer_epilogue(layer, out, residual, norm, dropout_layer):
@@ -112,11 +177,17 @@ class TransformerEncoderLayer(nn.Module):
                                    else dropout)
         self.activation = getattr(F, activation)
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, cache=None):
+        """``src`` after the layer; with a ``cache`` (an attention
+        ``Cache``), ``(src, grown cache)``."""
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
-        out = self.self_attn(src, src, src, attn_mask=src_mask)
+        if cache is None:
+            out = self.self_attn(src, src, src, attn_mask=src_mask)
+        else:
+            out, cache = self.self_attn(src, src, src, attn_mask=src_mask,
+                                        cache=cache)
         src = _sublayer_epilogue(self, out, residual, self.norm1,
                                  self.dropout1)
         residual = src
@@ -124,8 +195,9 @@ class TransformerEncoderLayer(nn.Module):
             src = self.norm2(src)
         src = self.linear2(self.act_dropout(self.activation(
             self.linear1(src))))
-        return _sublayer_epilogue(self, src, residual, self.norm2,
-                                  self.dropout2)
+        src = _sublayer_epilogue(self, src, residual, self.norm2,
+                                 self.dropout2)
+        return src if cache is None else (src, cache)
 
 
 class TransformerEncoder(nn.Module):
@@ -147,10 +219,21 @@ class TransformerEncoder(nn.Module):
         self.num_layers = num_layers
         self.norm = norm
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, cache=None):
+        """The stack's output; with ``cache`` (one attention ``Cache`` per
+        layer, as ``gen_cache`` makes), ``(output, grown caches)``."""
         output = src
-        for layer in self.layers:
-            output = layer(output, src_mask=src_mask)
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                output = layer(output, src_mask=src_mask)
+            else:
+                output, c = layer(output, src_mask=src_mask, cache=cache[i])
+                new_caches.append(c)
         if self.norm is not None:
             output = self.norm(output)
-        return output
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        """One empty attention ``Cache`` per layer."""
+        return [layer.self_attn.gen_cache(src) for layer in self.layers]

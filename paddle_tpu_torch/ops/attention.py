@@ -1,13 +1,15 @@
 """Attention ops: the plain reference and the flash-attention dispatch
 (counterpart of paddle_tpu/ops/attention.py).
 
-``flash_attention_packed`` keeps the JAX dispatch's gates that express
-semantics (a key-position mask, equal q/k/v shapes, a packed head layout)
-and drops its "backend is TPU" gate: on a CUDA tensor the kernel runs.  A
-mask that is not a key-position mask takes the plain
-``scaled_dot_product_attention``, as the JAX package takes its jnp
-reference there.  Inputs of ``scaled_dot_product_attention`` and
-``flash_attention`` follow the (batch, heads, seq, head_dim) convention.
+Both dispatchers keep the JAX dispatch's gates that express semantics (the
+flag, a key-position mask, equal q/k/v shapes, and a head layout or shape
+the kernel takes) and drop its "backend is TPU" gate: on a CUDA tensor the
+kernel runs, and a shape it cannot take raises there.  A mask that is not a
+key-position mask takes the plain ``scaled_dot_product_attention``, as the
+JAX package takes its jnp reference there; a packed head layout that the
+packed kernel refuses returns None, and the caller takes the split-head
+route.  Inputs of ``scaled_dot_product_attention`` and ``flash_attention``
+follow the (batch, heads, seq, head_dim) convention.
 """
 from __future__ import annotations
 
@@ -17,13 +19,8 @@ import torch
 
 from ..core import flags
 from ..core import random as _random
+from .kernels import flash_attention as fa
 from .kernels import flash_attention_packed as fap
-
-_BHSD_NOT_PORTED = (
-    "the (batch, heads, seq, head_dim) flash-attention kernel "
-    "(paddle_tpu/ops/pallas/flash_attention.py) is not ported yet "
-    "(ROADMAP.md, Queue 2 row 3); set the flag use_flash_attention off to "
-    "take the plain path")
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -78,21 +75,15 @@ def flash_attention_packed(q, k, v, num_heads, attn_mask=None,
                            training=True):
     """Packed-layout dispatch: q/k/v are (batch, seq, heads*head_dim), the
     projection output.  Returns (batch, seq, heads*head_dim), or None when
-    the semantics do not fit the packed kernel (the caller then takes the
-    split-head path)."""
+    the semantics or the head layout do not fit the packed kernel (the
+    caller then takes the split-head path)."""
     b, s, packed = q.shape
-    hd = packed // num_heads
     if not (flags.get_flag("use_flash_attention")
-            and q.shape == k.shape == v.shape):
+            and q.shape == k.shape == v.shape
+            and fap.head_layout_ok(num_heads, packed // num_heads)):
         return None
     bias = _as_padding_bias(attn_mask, b, s, q.device)
     if bias is None:
-        return None
-    if not fap.head_layout_ok(num_heads, hd):
-        if q.device.type == "cuda":
-            raise NotImplementedError(
-                f"flash_attention_packed: head layout (num_heads="
-                f"{num_heads}, head_dim={hd}) needs {_BHSD_NOT_PORTED}")
         return None
     rate = float(dropout_p) if training else 0.0
     seed = _random.draw_seed() if rate > 0.0 else None
@@ -103,15 +94,21 @@ def flash_attention_packed(q, k, v, num_heads, attn_mask=None,
 
 def flash_attention(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False,
                     scale=None, training=True):
-    """(b, h, s, d) dispatch.  Where the JAX package would run its bhsd
-    kernel, a CUDA tensor raises until that kernel is ported; every other
-    case runs the plain reference, as in the JAX package."""
+    """(b, h, s, d) dispatch: the flash-attention kernel where the JAX
+    package runs its Pallas kernel (flag on, equal q/k/v shapes,
+    ``supported(s, d)``, a key-position mask), with one dropout seed drawn
+    when training drops; every other case runs the plain reference, as in
+    the JAX package."""
     b, h, s, d = q.shape
-    if (flags.get_flag("use_flash_attention") and q.device.type == "cuda"
-            and q.shape == k.shape == v.shape and d % 64 == 0
-            and s % 128 == 0
-            and _as_padding_bias(attn_mask, b, s, q.device) is not None):
-        raise NotImplementedError(f"flash_attention: {_BHSD_NOT_PORTED}")
+    if (flags.get_flag("use_flash_attention")
+            and q.shape == k.shape == v.shape and fa.supported(s, d)):
+        bias = _as_padding_bias(attn_mask, b, s, q.device)
+        if bias is not None:
+            rate = float(dropout_p) if training else 0.0
+            seed = _random.draw_seed() if rate > 0.0 else None
+            return fa.flash_attention(q, k, v, bias=bias, sm_scale=scale,
+                                      causal=is_causal, dropout_rate=rate,
+                                      seed=seed)
     return scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                         dropout_p=dropout_p,
                                         is_causal=is_causal, scale=scale,

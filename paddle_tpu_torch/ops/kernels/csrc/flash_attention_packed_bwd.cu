@@ -1,10 +1,17 @@
-// Packed-layout flash-attention backward for sm_90a.
+// Flash-attention backward for sm_90a, in either head layout.
 //
-// Replaces the Pallas backward paddle_tpu/ops/pallas/flash_attention_packed.py
-// `_backward` (line 246): `_bwd_dkdv_kernel` (dK, dV over key tiles) and
-// `_bwd_dq_kernel` (dQ over query tiles).  Inputs are read straight out of
-// the (batch, seq, heads * head_dim) projection layout, with the forward's
-// fp32 (batch, heads, seq) log-sum-exp and its (batch, seq) key bias.
+// Replaces two Pallas backwards that compute the same function on two
+// layouts:
+//   * paddle_tpu/ops/pallas/flash_attention_packed.py `_backward` (line
+//     246): `_bwd_dkdv_kernel` (dK, dV over key tiles) and `_bwd_dq_kernel`
+//     (dQ over query tiles), on the (batch, seq, heads * head_dim)
+//     projection layout;
+//   * paddle_tpu/ops/pallas/flash_attention.py `_flash_backward` (line 295):
+//     delta = rowsum(dO * O), `_flash_bwd_dkdv_kernel` and
+//     `_flash_bwd_dq_kernel`, on the (batch * heads, seq, head_dim) layout.
+// The layouts differ only in their (batch, head, row) strides
+// (attention_layout.cuh); the forward's fp32 (batch, heads, seq) log-sum-exp
+// and its (batch, seq) key bias are the same in both.
 //
 // Numerics follow the Pallas kernels: P = exp(s - lse) with
 // s = (q.k) * sm_scale + bias, unrounded; causal and past-the-end positions
@@ -21,7 +28,8 @@
 // once; this design recomputes it twice, 14 b h s^2 d), 16 us at 989 TF/s,
 // against ~50 MB of q, k, v, o, dO read and dq, dk, dv written, 15 us at
 // 3.35 TB/s: both bounds are close, so the kernels have to keep the tensor
-// cores fed.  In fp32 the CUDA cores bound it (67 TF/s, 0.24 ms).
+// cores fed.  At long sequences operations bound it.  In fp32 the CUDA
+// cores bound it (67 TF/s, 0.24 ms at ERNIE-base).
 //
 // Design, three launches on one stream:
 //   1. delta pre-pass: one warp per (token, head) sums dO * O in fp32 into a
@@ -37,9 +45,14 @@
 //     mma.sync m16n8k16; each warp owns 16 rows, so S, P, dP and dS stay in
 //     registers and become the A fragments of the next product as they are
 //     rounded to bf16; operands come from padded shared tiles by ldmatrix.
-//     Column tiles are 64 wide for d 64 and 32 for d 128 (registers).
+//     Column tiles are 64 wide for d 64 and 32 above (registers).
 //   * fp32: register-tiled FMAs on the CUDA cores (the tensor cores would
-//     round fp32 to TF32), dropped P and dS through shared memory.
+//     round fp32 to TF32), dropped P and dS through shared memory; column
+//     tiles 64 wide up to d 128, 32 above (shared memory).
+// Above d 128 a block writes half of the head's output columns (d / 2 of
+// them) and the grid has two blocks per row tile: two fp32 accumulators of
+// 64 x d would take d registers a thread.  Each block still computes S and
+// dP over the whole head, so above d 128 they are computed four times.
 // Not yet done: one fused kernel that recomputes S once (FA2 with a dQ
 // reduction), cp.async/TMA double buffering, wgmma.
 //
@@ -51,6 +64,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_layout.cuh"
 #include "dropout_hash.cuh"
 #include "mma_bf16.cuh"
 #include "vec.cuh"
@@ -61,6 +75,12 @@ using dropout_hash::Params;
 
 constexpr int kThreads = 128;
 constexpr int kBR = 64;  // rows per block: keys (dK/dV) or queries (dQ)
+
+// Output columns a block writes: the whole head up to d 128, half above.
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return D <= 128 ? D : D / 2;
+}
 
 struct BwdArgs {
   const void* q;
@@ -76,6 +96,7 @@ struct BwdArgs {
   void* dv;
   int seq;
   int heads;
+  Layout lay;
   float sm_scale;
   int causal;
   Params drop;
@@ -92,17 +113,16 @@ flash_bwd_delta_kernel(BwdArgs a, int64_t rows) {
   if (w >= rows) return;
   const int h = (int)(w % a.heads);
   const int64_t tok = w / a.heads;  // batch * seq + position
-  const int64_t off = tok * a.heads * D + (int64_t)h * D;
+  const int b = (int)(tok / a.seq);
+  const int pos = (int)(tok % a.seq);
+  const int64_t off = a.lay.base(b, h) + (int64_t)pos * a.lay.row;
   const T* o = static_cast<const T*>(a.o) + off;
   const T* d = static_cast<const T*>(a.dout) + off;
   float acc = 0.f;
 #pragma unroll
   for (int c = lane; c < D; c += 32) acc += to_float(o[c]) * to_float(d[c]);
   acc = warp_sum(acc);
-  if (lane == 0) {
-    const int64_t b = tok / a.seq;
-    a.delta[(b * a.heads + h) * a.seq + tok % a.seq] = acc;
-  }
+  if (lane == 0) a.delta[((int64_t)b * a.heads + h) * a.seq + pos] = acc;
 }
 
 // Where a block's column tiles start and end: dK/dV (rows = keys) skips the
@@ -168,23 +188,22 @@ __device__ __forceinline__ void load_side_values(const BwdArgs& a, int b,
 // ---------------------------------------------------------------------------
 // 2/3, fp32: register-tiled FMAs.  Thread (ty, tx) = (tid / 8, tid % 8) owns
 // rows 4 ty + i of the 64-row block; S/dP columns tx + 8 j; output columns
-// 4 tx + 32 j + e.
-
-constexpr int kBC32 = 64;  // column tile of the fp32 kernels
+// col0 + 4 tx + 32 j + e.
 
 template <int D>
 struct Fp32Tile {
-  static constexpr int kLd = D + 4;        // row stride of q/k/v/dO tiles
-  static constexpr int kLdS = kBC32 + 4;   // row stride of the P / dS tiles
+  static constexpr int kBC = D <= 128 ? 64 : 32;  // column tile
+  static constexpr int kLd = D + 4;          // row stride of q/k/v/dO tiles
+  static constexpr int kLdS = kBC + 4;       // row stride of the P / dS tiles
   static constexpr int kFloats =
-      (2 * kBR + 2 * kBC32) * kLd + 2 * kBR * kLdS + 2 * kBR + 2 * kBC32;
+      (2 * kBR + 2 * kBC) * kLd + 2 * kBR * kLdS + 2 * kBR + 2 * kBC;
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
 template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int64_t brow, int row0, int rows,
-                                              int seq, int packed, int h) {
+                                              int64_t base, int64_t row_stride,
+                                              int row0, int rows, int seq) {
   constexpr int kPerRow = D / 4;
   constexpr int ld = Fp32Tile<D>::kLd;
   for (int c = threadIdx.x; c < rows * kPerRow; c += kThreads) {
@@ -193,30 +212,35 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < seq)
       val = *reinterpret_cast<const float4*>(
-          src + (brow + row0 + r) * packed + h * D + col);
+          src + base + (int64_t)(row0 + r) * row_stride + col);
     *reinterpret_cast<float4*>(dst + r * ld + col) = val;
   }
 }
 
-// grid = (ceil(seq / 64), heads, batch).  KV: rows = keys (K, V), columns =
-// queries (Q, dO); else rows = queries (Q, dO), columns = keys (K, V).
+// grid = (ceil(seq / 64) * D / out_cols<D>(), heads, batch).  KV: rows =
+// keys (K, V), columns = queries (Q, dO); else rows = queries (Q, dO),
+// columns = keys (K, V).
 template <int D, bool KV>
 __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
   using L = Fp32Tile<D>;
+  constexpr int BC = L::kBC;
+  constexpr int NS = BC / 8;             // S/dP columns per thread
+  constexpr int DO = out_cols<D>();
+  constexpr int kSplit = D / DO;
   constexpr int ld = L::kLd;
   constexpr int lds = L::kLdS;
-  constexpr int NJ = D / 32;
+  constexpr int NJ = DO / 32;
   extern __shared__ float4 smem4[];
   float* RA = reinterpret_cast<float*>(smem4);  // K or Q
   float* RC = RA + kBR * ld;                     // V or dO
   float* CB = RC + kBR * ld;                     // Q or K
-  float* CD = CB + kBC32 * ld;                   // dO or V
-  float* PS = CD + kBC32 * ld;                   // dropped P (KV)
+  float* CD = CB + BC * ld;                      // dO or V
+  float* PS = CD + BC * ld;                      // dropped P (KV)
   float* DS = PS + kBR * lds;                    // dS
   float* rv1 = DS + kBR * lds;                   // bias (KV) or lse
   float* rv2 = rv1 + kBR;                        // delta (dQ)
   float* cv1 = rv2 + kBR;                        // lse (KV) or bias
-  float* cv2 = cv1 + kBC32;                      // delta (KV)
+  float* cv2 = cv1 + BC;                         // delta (KV)
 
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
@@ -225,15 +249,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
   const int tid = threadIdx.x;
   const int ty = tid >> 3;
   const int tx = tid & 7;
-  const int r0 = blockIdx.x * kBR;
+  const int r0 = (blockIdx.x / kSplit) * kBR;
+  const int col0 = (blockIdx.x % kSplit) * DO;  // first output column
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int packed = a.heads * D;
-  const int64_t brow = (int64_t)b * a.seq;
+  const int64_t base = a.lay.base(b, h);
+  const int64_t rs = a.lay.row;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
 
-  load_tile_f32<D>(RA, KV ? k : q, brow, r0, kBR, a.seq, packed, h);
-  load_tile_f32<D>(RC, KV ? v : dout, brow, r0, kBR, a.seq, packed, h);
+  load_tile_f32<D>(RA, KV ? k : q, base, rs, r0, kBR, a.seq);
+  load_tile_f32<D>(RC, KV ? v : dout, base, rs, r0, kBR, a.seq);
   load_side_values(a, b, h, r0, kBR, KV, rv1, rv2);
 
   float acc1[4][NJ * 4];  // dK or dQ
@@ -244,20 +269,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
     for (int c = 0; c < NJ * 4; ++c) acc1[i][c] = acc2[i][c] = 0.f;
 
   int begin, end;
-  column_range<KV>(r0, kBC32, a.seq, a.causal, begin, end);
+  column_range<KV>(r0, BC, a.seq, a.causal, begin, end);
   for (int ct = begin; ct < end; ++ct) {
-    const int c0 = ct * kBC32;
+    const int c0 = ct * BC;
     __syncthreads();  // the previous tile's products are done
-    load_tile_f32<D>(CB, KV ? q : k, brow, c0, kBC32, a.seq, packed, h);
-    load_tile_f32<D>(CD, KV ? dout : v, brow, c0, kBC32, a.seq, packed, h);
-    load_side_values(a, b, h, c0, kBC32, !KV, cv1, cv2);
+    load_tile_f32<D>(CB, KV ? q : k, base, rs, c0, BC, a.seq);
+    load_tile_f32<D>(CD, KV ? dout : v, base, rs, c0, BC, a.seq);
+    load_side_values(a, b, h, c0, BC, !KV, cv1, cv2);
     __syncthreads();
 
-    float s[4][8], dp[4][8];
+    float s[4][NS], dp[4][NS];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < NS; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < D; d += 4) {
       float4 ra[4], rc[4];
@@ -267,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
         rc[i] = *reinterpret_cast<const float4*>(RC + (ty * 4 + i) * ld + d);
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NS; ++j) {
         const float4 cb =
             *reinterpret_cast<const float4*>(CB + (tx + 8 * j) * ld + d);
         const float4 cd =
@@ -289,7 +314,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NS; ++j) {
         const int c = tx + 8 * j;
         float pd, ds;
         grad_element<KV>(a, bh, r0 + r, c0 + c, s[i][j], dp[i][j],
@@ -301,9 +326,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
     }
     __syncthreads();
 
-    // acc1 += dS . CB (dK += dS^T Q, dQ += dS K); acc2 += P_d . CD (dV).
+    // acc1 += dS . CB (dK += dS^T Q, dQ += dS K); acc2 += P_d . CD (dV),
+    // over this block's output columns.
 #pragma unroll 4
-    for (int cc = 0; cc < kBC32; ++cc) {
+    for (int cc = 0; cc < BC; ++cc) {
       float dsv[4], pdv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -312,8 +338,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float4 cb =
-            *reinterpret_cast<const float4*>(CB + cc * ld + tx * 4 + 32 * j);
+        const int col = col0 + tx * 4 + 32 * j;
+        const float4 cb = *reinterpret_cast<const float4*>(CB + cc * ld + col);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc1[i][4 * j + 0] = fmaf(dsv[i], cb.x, acc1[i][4 * j + 0]);
@@ -323,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
         }
         if (KV) {
           const float4 cd =
-              *reinterpret_cast<const float4*>(CD + cc * ld + tx * 4 + 32 * j);
+              *reinterpret_cast<const float4*>(CD + cc * ld + col);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             acc2[i][4 * j + 0] = fmaf(pdv[i], cd.x, acc2[i][4 * j + 0]);
@@ -342,15 +368,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fp32_kernel(BwdArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty * 4 + i;
     if (r >= a.seq) continue;
-    const int64_t base = (brow + r) * packed + h * D;
+    const int64_t row = base + (int64_t)r * rs + col0;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx * 4 + 32 * j;
-      *reinterpret_cast<float4*>(out1 + base + col) =
+      *reinterpret_cast<float4*>(out1 + row + col) =
           make_float4(acc1[i][4 * j], acc1[i][4 * j + 1], acc1[i][4 * j + 2],
                       acc1[i][4 * j + 3]);
       if (KV)
-        *reinterpret_cast<float4*>(out2 + base + col) =
+        *reinterpret_cast<float4*>(out2 + row + col) =
             make_float4(acc2[i][4 * j], acc2[i][4 * j + 1],
                         acc2[i][4 * j + 2], acc2[i][4 * j + 3]);
     }
@@ -374,9 +400,9 @@ struct MmaTile {
 template <int D>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
                                                const __nv_bfloat16* src,
-                                               int64_t brow, int row0,
-                                               int rows, int seq, int packed,
-                                               int h) {
+                                               int64_t base,
+                                               int64_t row_stride, int row0,
+                                               int rows, int seq) {
   constexpr int kPerRow = D / 8;
   constexpr int ld = MmaTile<D>::kLd;
   for (int c = threadIdx.x; c < rows * kPerRow; c += kThreads) {
@@ -385,17 +411,18 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < seq)
       val = *reinterpret_cast<const uint4*>(
-          src + (brow + row0 + r) * packed + h * D + col);
+          src + base + (int64_t)(row0 + r) * row_stride + col);
     *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
   }
 }
 
-// acc (16 rows x D) += X (16 rows x BC, fp32 C fragments, rounded to bf16
-// here) times the BC x D shared tile `tile`.
+// acc (16 rows x out_cols<D>()) += X (16 rows x BC, fp32 C fragments,
+// rounded to bf16 here) times columns [col0, col0 + out_cols<D>()) of the
+// BC x D shared tile `tile`.
 template <int D, int BC>
 __device__ __forceinline__ void acc_product(float (*acc)[4], float (*x)[4],
                                             const __nv_bfloat16* tile,
-                                            int lane) {
+                                            int col0, int lane) {
   constexpr int ld = MmaTile<D>::kLd;
 #pragma unroll
   for (int kk = 0; kk < BC / 16; ++kk) {
@@ -405,9 +432,9 @@ __device__ __forceinline__ void acc_product(float (*acc)[4], float (*x)[4],
     af[2] = mma_bf16::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
     af[3] = mma_bf16::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 #pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
+    for (int n = 0; n < out_cols<D>() / 8; n += 2) {
       uint32_t bf[4];
-      mma_bf16::load_b(bf, tile, ld, kk * 16, n * 8, lane);
+      mma_bf16::load_b(bf, tile, ld, kk * 16, col0 + n * 8, lane);
       mma_bf16::mma(acc[n], af, bf[0], bf[1]);
       mma_bf16::mma(acc[n + 1], af, bf[2], bf[3]);
     }
@@ -421,7 +448,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_mma_kernel(BwdArgs a) {
   constexpr int ld = L::kLd;
   constexpr int NT = BC / 8;  // 8-column n-tiles of S and dP
   constexpr int KD = D / 16;  // 16-deep k-steps over the head dim
-  constexpr int ND = D / 8;   // 8-column n-tiles of the outputs
+  constexpr int DO = out_cols<D>();
+  constexpr int kSplit = D / DO;
+  constexpr int ND = DO / 8;  // 8-column n-tiles of the outputs
   extern __shared__ float4 smem4[];
   __nv_bfloat16* RA = reinterpret_cast<__nv_bfloat16*>(smem4);  // K or Q
   __nv_bfloat16* RC = RA + kBR * ld;                             // V or dO
@@ -441,15 +470,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_mma_kernel(BwdArgs a) {
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int r0 = blockIdx.x * kBR;
+  const int r0 = (blockIdx.x / kSplit) * kBR;
+  const int col0 = (blockIdx.x % kSplit) * DO;  // first output column
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int packed = a.heads * D;
-  const int64_t brow = (int64_t)b * a.seq;
+  const int64_t base = a.lay.base(b, h);
+  const int64_t rs = a.lay.row;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
 
-  load_tile_bf16<D>(RA, KV ? k : q, brow, r0, kBR, a.seq, packed, h);
-  load_tile_bf16<D>(RC, KV ? v : dout, brow, r0, kBR, a.seq, packed, h);
+  load_tile_bf16<D>(RA, KV ? k : q, base, rs, r0, kBR, a.seq);
+  load_tile_bf16<D>(RC, KV ? v : dout, base, rs, r0, kBR, a.seq);
   load_side_values(a, b, h, r0, kBR, KV, rv1, rv2);
 
   float acc1[ND][4];  // dK or dQ
@@ -464,8 +494,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_mma_kernel(BwdArgs a) {
   for (int ct = begin; ct < end; ++ct) {
     const int c0 = ct * BC;
     __syncthreads();  // every warp is done with the previous column tile
-    load_tile_bf16<D>(CB, KV ? q : k, brow, c0, BC, a.seq, packed, h);
-    load_tile_bf16<D>(CD, KV ? dout : v, brow, c0, BC, a.seq, packed, h);
+    load_tile_bf16<D>(CB, KV ? q : k, base, rs, c0, BC, a.seq);
+    load_tile_bf16<D>(CD, KV ? dout : v, base, rs, c0, BC, a.seq);
     load_side_values(a, b, h, c0, BC, !KV, cv1, cv2);
     __syncthreads();
 
@@ -507,8 +537,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_mma_kernel(BwdArgs a) {
         dp[n][e] = ds;
       }
     }
-    acc_product<D, BC>(acc1, dp, CB, lane);        // dK += dS^T Q / dQ += dS K
-    if (KV) acc_product<D, BC>(acc2, s, CD, lane);  // dV += P_d^T dO
+    // dK += dS^T Q / dQ += dS K; dV += P_d^T dO
+    acc_product<D, BC>(acc1, dp, CB, col0, lane);
+    if (KV) acc_product<D, BC>(acc2, s, CD, col0, lane);
   }
 
   T* out1 = static_cast<T*>(KV ? a.dk : a.dq);
@@ -517,13 +548,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_mma_kernel(BwdArgs a) {
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + warp * 16 + g + half * 8;
     if (r >= a.seq) continue;
-    const int64_t base = (brow + r) * packed + h * D + 2 * t;
+    const int64_t row = base + (int64_t)r * rs + col0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(out1 + base + n * 8) =
+      *reinterpret_cast<__nv_bfloat162*>(out1 + row + n * 8) =
           __floats2bfloat162_rn(acc1[n][2 * half], acc1[n][2 * half + 1]);
       if (KV)
-        *reinterpret_cast<__nv_bfloat162*>(out2 + base + n * 8) =
+        *reinterpret_cast<__nv_bfloat162*>(out2 + row + n * 8) =
             __floats2bfloat162_rn(acc2[n][2 * half], acc2[n][2 * half + 1]);
     }
   }
@@ -534,44 +565,50 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_mma_kernel(BwdArgs a) {
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
-// Set `kernel`'s dynamic shared-memory limit once (`done` is a static of the
-// caller's instantiation, so a CUDA graph can capture later launches), then
-// launch it on the (row tile, head, batch) grid.
+// Set `kernel`'s dynamic shared-memory limit once per device (`done`, a
+// static of the caller's instantiation), then launch it on the (row tile x
+// output split, head, batch) grid.
 template <typename Kernel>
-int launch_grid(Kernel kernel, size_t smem, bool& done, const BwdArgs& a,
-                int batch, cudaStream_t stream) {
-  if (!done) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    done = true;
-  }
-  const dim3 grid((unsigned)((a.seq + kBR - 1) / kBR), (unsigned)a.heads,
-                  (unsigned)batch);
+int launch_grid(Kernel kernel, size_t smem, int split,
+                bool (&done)[kMaxDevices], const BwdArgs& a, int batch,
+                cudaStream_t stream) {
+  const int err = set_smem_limit(kernel, smem, done);
+  if (err) return err;
+  const dim3 grid((unsigned)((a.seq + kBR - 1) / kBR * split),
+                  (unsigned)a.heads, (unsigned)batch);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(const BwdArgs& a, int batch, cudaStream_t stream) {
+  constexpr int split = D / out_cols<D>();
   const int64_t rows = (int64_t)batch * a.seq * a.heads;
   flash_bwd_delta_kernel<T, D>
       <<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a, rows);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  static bool kv_done = false, dq_done = false;
+  static bool kv_done[kMaxDevices] = {}, dq_done[kMaxDevices] = {};
   if constexpr (sizeof(T) == 4) {
     err = launch_grid(flash_bwd_fp32_kernel<D, true>, Fp32Tile<D>::kBytes,
-                      kv_done, a, batch, stream);
+                      split, kv_done, a, batch, stream);
     if (err) return err;
     return launch_grid(flash_bwd_fp32_kernel<D, false>, Fp32Tile<D>::kBytes,
-                       dq_done, a, batch, stream);
+                       split, dq_done, a, batch, stream);
   }
-  err = launch_grid(flash_bwd_mma_kernel<D, true>, MmaTile<D>::kBytes,
+  err = launch_grid(flash_bwd_mma_kernel<D, true>, MmaTile<D>::kBytes, split,
                     kv_done, a, batch, stream);
   if (err) return err;
   return launch_grid(flash_bwd_mma_kernel<D, false>, MmaTile<D>::kBytes,
-                     dq_done, a, batch, stream);
+                     split, dq_done, a, batch, stream);
+}
+
+template <int D>
+int launch_dtype(int dtype, const BwdArgs& a, int batch,
+                 cudaStream_t stream) {
+  if (dtype == kF32) return launch<float, D>(a, batch, stream);
+  if (dtype == kBF16) return launch<__nv_bfloat16, D>(a, batch, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -580,18 +617,20 @@ extern "C" int flash_attention_packed_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* out, const void* dout, const void* lse, void* delta, void* dq,
     void* dk, void* dv, int batch, int seq, int heads, int head_dim,
+    int64_t batch_stride, int64_t head_stride, int64_t row_stride,
     float sm_scale, int causal, uint32_t seed, uint32_t threshold,
     float keep_scale, int dropout, int dtype, void* stream) {
   const BwdArgs a{q, k, v, static_cast<const float*>(bias), out, dout,
                   static_cast<const float*>(lse), static_cast<float*>(delta),
-                  dq, dk, dv, seq, heads, sm_scale, causal,
-                  Params{seed, threshold, keep_scale, dropout}};
+                  dq, dk, dv, seq, heads,
+                  Layout{batch_stride, head_stride, row_stride}, sm_scale,
+                  causal, Params{seed, threshold, keep_scale, dropout}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32 && head_dim == 64) return launch<float, 64>(a, batch, s);
-  if (dtype == kF32 && head_dim == 128) return launch<float, 128>(a, batch, s);
-  if (dtype == kBF16 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(a, batch, s);
-  if (dtype == kBF16 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(a, batch, s);
+  switch (head_dim) {
+    case 64: return launch_dtype<64>(dtype, a, batch, s);
+    case 128: return launch_dtype<128>(dtype, a, batch, s);
+    case 192: return launch_dtype<192>(dtype, a, batch, s);
+    case 256: return launch_dtype<256>(dtype, a, batch, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,6 +6,8 @@ wrappers, which on CPU tensors run their kernels' plain versions.
 Tolerances: fp32 1e-5 (same arithmetic, other summation order); bf16 2e-2
 relative to the largest reference value.
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,9 +147,13 @@ def test_packed_dispatch_semantic_gates():
     general = torch.zeros(b, h, s, s)
     assert tattn.flash_attention_packed(tq, tq, tq, h,
                                         attn_mask=general) is None
-    # odd 64-wide heads: the bhsd kernel's layout; plain route on CPU
-    t3 = torch.zeros(b, s, 3 * 64)
-    assert tattn.flash_attention_packed(t3, t3, t3, 3) is None
+    # layouts the packed kernel refuses (odd 64-wide heads, heads of 192
+    # or 256) return None on every device: the caller takes the split-head
+    # route, as the JAX dispatch does; nothing raises NotImplementedError
+    for heads, width in ((3, 64), (1, 64), (2, 192), (1, 256)):
+        t = torch.zeros(b, s, heads * width)
+        assert tattn.flash_attention_packed(t, t, t, heads) is None
+    assert "NotImplementedError" not in inspect.getsource(tattn)
     dropped = tattn.flash_attention_packed(tq, tq, tq, h, dropout_p=0.1,
                                            training=True)
     out = tattn.flash_attention_packed(tq, tq, tq, h, dropout_p=0.1,

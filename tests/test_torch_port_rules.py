@@ -51,7 +51,8 @@ def test_import_scan_covers_every_package_of_the_port():
                 "utils"):
         assert f"paddle_tpu_torch.{pkg}" in names, pkg
     for mod in ("serving.paged", "serving.slo", "serving.continuous",
-                "utils.monitor", "core.errors", "ops.kernels.paged_attention"):
+                "utils.monitor", "core.errors", "ops.kernels.paged_attention",
+                "ops.kernels.flash_attention"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 
@@ -104,12 +105,18 @@ def test_every_cuda_source_has_wrapped_kernels():
     declared = {}
     for mod in _kernel_modules():
         src = inspect.getsource(mod)
+        # the launch counter sits in the module that launches the kernel
+        if "build.load(" in src:
+            assert "config.record_call(" in src, mod.__name__
         for k in mod.KERNELS:
             assert isinstance(k, config.Kernel)
             assert callable(k.wrapper) and callable(k.plain)
             assert k.plain is not k.wrapper
-            # the launch counter sits in the module that launches the kernel
-            assert "config.record_call(" in src, mod.__name__
+            # ... under the kernel's own name, which the wrapper names
+            const = [n for n, v in vars(mod).items() if v == k.name
+                     and n.isupper()]
+            assert any(c in inspect.getsource(k.wrapper) for c in const), \
+                k.name
             assert k.replaces.startswith("paddle_tpu/ops/pallas/")
             jax_file = ROOT / k.replaces.split(":")[0]
             assert jax_file.exists(), k.replaces
@@ -149,7 +156,8 @@ def test_autograd_functions_run_declared_backward_kernels():
             wrapper = inspect.getsource(k.wrapper)
             assert "config.record_call(" in src
             assert any(c in wrapper for c in const), k.name
-    assert seen == 3   # attention, LayerNorm, residual + LayerNorm
+    # attention (both layouts), LayerNorm, residual + LN
+    assert seen == 3
 
 
 def test_cuda_sources_name_the_tpu_kernel_they_replace():
@@ -172,6 +180,7 @@ def test_build_targets_sm90a_into_an_ignored_directory():
 def test_import_builds_nothing():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import paddle_tpu_torch.ops.kernels.build as b\n"
+            "import paddle_tpu_torch.ops.kernels.flash_attention\n"
             "import paddle_tpu_torch.ops.kernels.flash_attention_packed\n"
             "import paddle_tpu_torch.ops.kernels.layer_norm\n"
             "import paddle_tpu_torch.ops.kernels.paged_attention\n"
