@@ -85,8 +85,35 @@ Phases (any failed check raises, so the script exits non-zero):
               prefill tokens/s, TTFT p50/p99, and the kernel's share of the
               device time over 20 decode steps of 64 rows.
 
+7. vision kernels -- rows 10 and 13 against their plain versions in fp32
+              (cuDNN's TF32 off) and bf16: the fused conv + BN + act at
+              VGG-16's fused shapes at b128 (128->128 16x16, 256->256 8x8,
+              512->512 4x4 and 2x2), a 3x3 s2 p1, a 1x1 s2 and a 7x7 s2 p3
+              conv, and every epilogue act at a small shape (fp32 within
+              1e-4 of the largest value, bf16 2e-2 of the fp32 plain
+              version); NHWC pooling at VGG-16's four 2x2/2 max pools,
+              a 3x3/2 p1 max, a 2x2/2 and a 3x3/1 p1 non-exclusive avg
+              (max bit for bit, avg within 1e-6); each case's CUDA-graph
+              and eager times beside the plain version's, the library
+              call's (cuDNN on the folded weights; PyTorch's pooling, both
+              channels-last) and the bound.
+8. static  -- static-graph inference in fp32 through the port's Program,
+              layers, Executor and DEFAULT_PIPELINE: bench_vision.py's
+              conv tower (ch 128, 32 x 32, b64) and the Paddle book's
+              vgg16_bn_drop (b128), startup from --seed, random BN
+              statistics, clone(for_test=True).  Checks: 1 / 2 (tower) and
+              10 / 4 (VGG) conv / pool kernel launches per forward, zero
+              pipeline rollbacks, golden parity of the rewrite against the
+              unrewritten program (cuDNN and torch ops; within 1e-4 of
+              each fetch's largest value), the kernels against their plain
+              versions in the rewritten program, no launches with the
+              pipeline off.  Then a profile of one forward with the
+              pipeline on and off, and images/s of Executor.run in
+              alternating blocks of runs with the pipeline on and off
+              (medians and quartile spread).
+
 Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
-``{"paged": ...}`` and
+``{"paged": ...}``, ``{"static": ...}`` and
 ``{"kernels": [...]}`` JSON lines and the card's name and power limit; the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -136,7 +163,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 64, 512, 25      # bench.py's TPU run
 # The port's kernels in a profile, by names no library kernel has (the
 # csrc/*.cu __global__ functions).
 PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)_(fp32|mma)|flash_bwd_delta|"
-                         r"ln_(fwd|bwd|partials_reduce)|paged_attn)_kernel\b")
+                         r"ln_(fwd|bwd|partials_reduce)|paged_attn|"
+                         r"conv2d_bn_act|pool2d_nhwc)_kernel\b")
 
 # Paged attention (phase 5).  Tolerances: fp32 and int8 against the plain
 # version on the same blocks with rtol = atol = 2e-5 (tests/test_paged.py's
@@ -1844,6 +1872,478 @@ def profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache):
                 rows=n)
 
 
+# -- phase 7: vision kernels (rows 10 and 13) ---------------------------------
+
+# Row 10 at its main-path shapes: VGG-16's fused convs at b128 (3x3 s1 p1),
+# a 3x3 s2 p1, a 1x1 s2 and a 7x7 s2 p3 conv, as (n, h, w, c, o, k, s, p).
+CONV_CASES = (
+    ("vgg 128->128 16x16", (128, 16, 16, 128, 128, 3, 1, 1)),
+    ("vgg 256->256 8x8", (128, 8, 8, 256, 256, 3, 1, 1)),
+    ("vgg 512->512 4x4", (128, 4, 4, 512, 512, 3, 1, 1)),
+    ("vgg 512->512 2x2", (128, 2, 2, 512, 512, 3, 1, 1)),
+    ("3x3 s2 p1 128->256 16x16", (128, 16, 16, 128, 256, 3, 2, 1)),
+    ("1x1 s2 256->512 8x8", (128, 8, 8, 256, 512, 1, 2, 0)),
+    ("7x7 s2 p3 128->128 32x32", (32, 32, 32, 128, 128, 7, 2, 3)),
+)
+CONV_ACT_SHAPE = (2, 8, 8, 128, 128, 3, 1, 1)
+# Row 13: VGG-16's four kernel-gated 2x2/2 max pools at b128 (the inputs of
+# groups 2-5), then 3x3/2 p1 max, 2x2/2 avg and 3x3/1 p1 non-exclusive avg,
+# as (mode, n, h, w, c, k, s, p).
+POOL_CASES = (
+    ("vgg max 16x16 c128", ("max", 128, 16, 16, 128, 2, 2, 0)),
+    ("vgg max 8x8 c256", ("max", 128, 8, 8, 256, 2, 2, 0)),
+    ("vgg max 4x4 c512", ("max", 128, 4, 4, 512, 2, 2, 0)),
+    ("vgg max 2x2 c512", ("max", 128, 2, 2, 512, 2, 2, 0)),
+    ("max 3x3/2 p1 32x32 c128", ("max", 32, 32, 32, 128, 3, 2, 1)),
+    ("avg 2x2/2 16x16 c256", ("avg", 128, 16, 16, 256, 2, 2, 0)),
+    ("avg 3x3/1 p1 16x16 c128", ("avg", 64, 16, 16, 128, 3, 1, 1)),
+)
+TOL_CONV_FP32_REL = 1e-4     # of the largest value: same fp32 sums, reordered
+TOL_AVG_POOL = 1e-6          # same fp32 sum in the same tap order
+# The static phase's VGG kernel launches per forward, pinned on the CPU by
+# tests/test_torch_static.py (the JAX dispatch at full width): 10 fused
+# convs (group 2's second, groups 3-5) and the 4 pools of groups 2-5; the
+# tower's 1 / 2.
+STATIC_LAUNCHES = {"vgg16_bn_drop": {"conv2d_bn_act": 10, "max_pool2d": 4},
+                   "conv_tower": {"conv2d_bn_act": 1, "max_pool2d": 2}}
+STATIC_BATCH = {"vgg16_bn_drop": 128, "conv_tower": 64}
+STATIC_REPS = 10       # runs a timed block
+STATIC_BLOCKS = 8      # blocks, alternating pipeline on / off / off / on
+TOL_STATIC_REL = 1e-4        # of each fetch's largest value
+
+
+def conv_case(cf, gen, dims, dtype, act, timed=True):
+    """Row 10 against its plain version (fp32 relative to the largest value,
+    bf16 against the fp32 plain version); with ``timed`` its times beside
+    the plain version's, cuDNN's on the folded weights (channels-last, plus
+    the act) and the bound."""
+    n, h, w, c, o, k, s, p = dims
+    x = randn(gen, (n, h, w, c), dtype)
+    wt = randn(gen, (o, c, k, k), dtype, 1.0 / math.sqrt(c * k * k))
+    a = randn(gen, (o,), torch.float32, 0.2, 1.0)
+    b = randn(gen, (o,), torch.float32, 0.5)
+    args = ((s, s), (p, p), act)
+    with torch.no_grad():
+        run = lambda: cf.conv2d_bn_act(x, wt, a, b, *args)
+        plain = lambda: cf.conv2d_bn_act_plain(x, wt, a, b, *args)
+        got = run()
+        torch.cuda.synchronize()
+        ref32 = cf.conv2d_bn_act_plain(x.float(), wt.float(), a, b, *args)
+        err = max_abs(got, plain())
+        tag = f"conv2d_bn_act n{n} {h}x{w} {c}->{o} k{k} s{s} p{p} " \
+              f"{dtag(dtype)} act={act or 'none'}"
+        r = rel_err(got, ref32)
+        if dtype == torch.float32:
+            check(r <= TOL_CONV_FP32_REL, f"{tag}: rel err {r:.3g} <= "
+                  f"{TOL_CONV_FP32_REL}")
+        else:
+            check(r <= TOL_BF16_REL, f"{tag}: rel err vs fp32 plain {r:.3g}"
+                  f" <= {TOL_BF16_REL} (max abs vs bf16 plain {err:.3g})")
+        if not timed:
+            return dict(err=err)
+        wf = (wt * a.to(dtype).reshape(-1, 1, 1, 1)).contiguous(
+            memory_format=torch.channels_last)
+        bf = b.to(dtype)
+        xc = x.permute(0, 3, 1, 2)
+        lib = lambda: cf.apply_act(torch.nn.functional.conv2d(
+            xc, wf, bf, s, p), act)
+        elt = x.element_size()
+        oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        flops, nbytes = cf.conv_cost(n, oh, ow, c, o, k, k, elt, h, w)
+        return dict(timings(run, plain, lib, nbytes, flops, dtype), err=err,
+                    flops=flops)
+
+
+def pool_case(pl, gen, dims, dtype):
+    """Row 13 against its plain version (max bit for bit, avg within
+    TOL_AVG_POOL), its times beside the plain version's, PyTorch's pooling
+    on a channels-last view and the bound."""
+    mode, n, h, w, c, k, s, p = dims
+    x = randn(gen, (n, h, w, c), dtype)
+    args = ((k, k), (s, s), (p, p))
+    fn = pl.max_pool2d_nhwc if mode == "max" else pl.avg_pool2d_nhwc
+    plain_fn = (pl.max_pool2d_nhwc_plain if mode == "max"
+                else pl.avg_pool2d_nhwc_plain)
+    run = lambda: fn(x, *args)
+    plain = lambda: plain_fn(x, *args)
+    got = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max_abs(got, ref)
+    tag = f"{mode}_pool2d n{n} {h}x{w} c{c} k{k} s{s} p{p} {dtag(dtype)}"
+    if mode == "max":
+        check(torch.equal(got, ref), f"{tag}: bit for bit the plain version")
+    else:
+        check(err <= TOL_AVG_POOL, f"{tag}: max abs err {err:.3g} <= "
+              f"{TOL_AVG_POOL}")
+    xc = x.permute(0, 3, 1, 2)
+    F = torch.nn.functional
+    lib = ((lambda: F.max_pool2d(xc, k, s, p)) if mode == "max" else
+           (lambda: F.avg_pool2d(xc, k, s, p, count_include_pad=True)))
+    oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    flops, nbytes = pl.pool_cost(n, oh, ow, c, k, k, x.element_size(), h, w)
+    return dict(timings(run, plain, lib, nbytes, flops, dtype), err=err,
+                mode=mode)
+
+
+def vision_kernel_phase(gen):
+    """Rows 10 and 13 against their plain versions at their main-path
+    shapes in fp32 (cuDNN's TF32 off) and bf16, with their times."""
+    from paddle_tpu_torch.ops.kernels import conv_fused as cf
+    from paddle_tpu_torch.ops.kernels import pooling as pl
+
+    log("[vision kernels] rows 10 and 13 against their plain versions "
+        "(fp32 without TF32: torch.backends.cudnn.allow_tf32 = False)")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, dims in CONV_CASES:
+            results[("conv", label, dtype)] = conv_case(cf, gen, dims, dtype,
+                                                        "relu")
+        for act in cf.EPILOGUE_ACTS:
+            conv_case(cf, gen, CONV_ACT_SHAPE, dtype, act, timed=False)
+        for label, dims in POOL_CASES:
+            results[("pool", label, dtype)] = pool_case(pl, gen, dims, dtype)
+    for (kind, label, dtype), r in results.items():
+        name = "conv2d_bn_act" if kind == "conv" else f"{r['mode']}_pool2d"
+        log(f"  {name} {label} {dtag(dtype)}: {r['ms']:.4f} ms (eager "
+            f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    return results
+
+
+# -- phase 8: static-graph vision inference -----------------------------------
+
+def conv_tower(static, L, nets, seed):
+    """bench_vision.py's conv tower at its TPU settings (ch 128, 32 x 32):
+    conv/BN(relu)/max-pool twice, then fc 10."""
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed
+    with static.program_guard(main, startup):
+        img = L.data("img", [3, 32, 32])
+        h = L.conv2d(img, 128, 3, padding=1)
+        h = L.batch_norm(h, act="relu", is_test=True)
+        h = L.pool2d(h, 2, "max", 2)
+        h = L.conv2d(h, 128, 3, padding=1)
+        h = L.batch_norm(h, act="relu", is_test=True)
+        h = L.pool2d(h, 2, "max", 2)
+        out = L.fc(L.flatten(h), 10)
+    return main, startup, [out.name]
+
+
+def vgg16_bn_drop(static, L, nets, seed):
+    """The Paddle book's CIFAR-10 VGG (chapter 03,
+    test_image_classification.py): five img_conv_group blocks of 64 x 2,
+    128 x 2, 256 x 3, 512 x 3, 512 x 3 filters (3 x 3, BN + ReLU, conv
+    dropouts), 2 x 2 max pools, dropout 0.5, fc 512, BN + ReLU, dropout
+    0.5, fc 512, fc 10 + softmax.  Fetches the logits and the softmax."""
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed
+
+    def block(x, filters, groups, drops):
+        return nets.img_conv_group(
+            x, conv_num_filter=[filters] * groups, pool_size=2,
+            pool_stride=2, conv_filter_size=3, conv_act="relu",
+            conv_with_batchnorm=True, conv_batchnorm_drop_rate=drops)
+
+    with static.program_guard(main, startup):
+        img = L.data("img", [3, 32, 32])
+        h = block(img, 64, 2, [0.3, 0])
+        h = block(h, 128, 2, [0.4, 0])
+        h = block(h, 256, 3, [0.4, 0.4, 0])
+        h = block(h, 512, 3, [0.4, 0.4, 0])
+        h = block(h, 512, 3, [0.4, 0.4, 0])
+        h = L.dropout(h, dropout_prob=0.5)
+        h = L.fc(h, 512, act=None)
+        h = L.batch_norm(h, act="relu")
+        h = L.dropout(h, dropout_prob=0.5)
+        h = L.fc(h, 512, act=None)
+        out = L.fc(h, 10, act="softmax")
+    logits = main.global_block().ops[-1].inputs["X"][0]
+    return main, startup, [logits, out.name]
+
+
+def bn_state(static, startup, test, rng):
+    """The startup program's parameters, with random BN statistics and
+    affine parameters (positive variances), in a fresh scope."""
+    scope = static.Scope()
+    static.Executor(DEV).run(startup, scope=scope)
+    for op in test.global_block().ops:
+        if op.type != "batch_norm":
+            continue
+        for slot, lo, hi in (("Mean", -0.5, 0.5), ("Variance", 0.5, 2.0),
+                             ("Scale", 0.5, 1.5), ("Bias", -0.5, 0.5)):
+            name = op.inputs[slot][0]
+            v = scope.find_var(name)
+            scope.set(name, torch.from_numpy(
+                rng.uniform(lo, hi, tuple(v.shape)).astype(np.float32))
+                .to(v.device))
+    return scope
+
+
+def run_static(exe, program, feed, fetches, scope):
+    return exe.run(program, feed=feed, fetch_list=fetches, scope=scope,
+                   return_numpy=False)
+
+
+def static_timings(exe, program, feed, fetches, scope, batch):
+    """Executor.run with the pipeline on and off in alternating blocks
+    (on, off, off, on, ...: host noise on a shared machine drifts), each
+    block STATIC_REPS runs after one warm run.  Per mode: the median wall
+    ms of a run (the numpy feed's copy to the card and the fetches' copies
+    back included) as images/s, the quartile spread, and the median span
+    between CUDA events around a run."""
+    walls = {"on": [], "off": []}
+    spans = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on") * (STATIC_BLOCKS // 4):
+        with opt_passes("default" if mode == "on" else ""):
+            exe.run(program, feed=feed, fetch_list=fetches, scope=scope)
+            torch.cuda.synchronize()
+            for _ in range(STATIC_REPS):
+                t0 = time.perf_counter()
+                exe.run(program, feed=feed, fetch_list=fetches, scope=scope)
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+            spans[mode].append(_events_ms(
+                lambda: run_static(exe, program, feed, fetches, scope),
+                STATIC_REPS))
+    out = {}
+    for mode in walls:
+        q1, med, q3 = np.percentile(walls[mode], [25, 50, 75])
+        out[mode] = dict(images_per_s=batch / med * 1e3, wall_ms=med,
+                         wall_iqr_ms=q3 - q1,
+                         device_span_ms=float(np.median(spans[mode])))
+    return out
+
+
+def profile_forward(exe, program, feed, fetches, scope, reps=3):
+    """Device time of one Executor.run (under the current ``opt_passes``)
+    by kind (the port's kernels, cuDNN convolutions, copies, the rest)
+    from torch.profiler, and the busy share of the run's wall time
+    (profiler overhead included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run_static(exe, program, feed, fetches, scope)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run_static(exe, program, feed, fetches, scope)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kinds = {"port kernels": 0.0, "cudnn": 0.0, "copies": 0.0, "rest": 0.0}
+    ours, top = {}, []
+    for us, count, name in device_events(prof):
+        ms = us / 1e3 / reps
+        top.append((ms, count // reps, name))
+        own = PORT_KERNEL.search(name)
+        if own:
+            kinds["port kernels"] += ms
+            ours[own.group(0)] = ours.get(own.group(0), 0.0) + ms
+        elif re.search(r"cudnn|xmma|conv|implicit|winograd|fft|nchw|nhwc",
+                       name, re.I) and "copy" not in name.lower():
+            kinds["cudnn"] += ms
+        elif "copy" in name.lower():
+            kinds["copies"] += ms
+        else:
+            kinds["rest"] += ms
+    busy = sum(kinds.values())
+    from paddle_tpu_torch.core import flags
+
+    log(f"[profile] one forward (opt_passes="
+        f"{flags.get_flag('opt_passes')!r}): device busy {busy:.3f} ms of "
+        f"{wall_ms:.3f} "
+        f"ms wall (busy share {busy / wall_ms:.3f}); "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in kinds.items()))
+    log("  port kernels: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in sorted(ours.items(),
+                                             key=lambda kv: -kv[1])))
+    for ms, count, name in sorted(top, reverse=True)[:12]:
+        log(f"  {ms:8.4f} ms  x{count:<3d} {name[:100]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+                kinds=kinds, port_kernels=ours)
+
+
+@contextlib.contextmanager
+def opt_passes(value):
+    from paddle_tpu_torch.core import flags
+
+    saved = flags.get_flag("opt_passes")
+    flags.set_flags({"opt_passes": value})
+    try:
+        yield
+    finally:
+        flags.set_flags({"opt_passes": saved})
+
+
+@contextlib.contextmanager
+def vision_plain():
+    """The vision kernels' wrappers swapped, as module attributes, for
+    their plain versions (as ``plain_wrappers`` swaps the others)."""
+    from paddle_tpu_torch.ops.kernels import conv_fused as cf
+    from paddle_tpu_torch.ops.kernels import pooling as pl
+
+    saved = (cf.conv2d_bn_act, pl.max_pool2d_nhwc, pl.avg_pool2d_nhwc)
+    cf.conv2d_bn_act = cf.conv2d_bn_act_plain
+    pl.max_pool2d_nhwc = pl.max_pool2d_nhwc_plain
+    pl.avg_pool2d_nhwc = pl.avg_pool2d_nhwc_plain
+    try:
+        yield
+    finally:
+        cf.conv2d_bn_act, pl.max_pool2d_nhwc, pl.avg_pool2d_nhwc = saved
+
+
+def static_model(name, build, seed):
+    """One program through the port's static graph in fp32: the pipeline's
+    op counts, kernel launches per forward, rollbacks, golden parity with
+    the unrewritten program, the kernels against their plain versions in
+    the rewritten program, images/s with the pipeline on and off."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import nets
+    from paddle_tpu_torch.static import passes as P
+    from paddle_tpu_torch.utils import monitor
+
+    batch = STATIC_BATCH[name]
+    main, startup, fetches = build(static, L, nets, seed)
+    test = main.clone(for_test=True)
+    rng = np.random.default_rng(seed)
+    scope = bn_state(static, startup, test, rng)
+    state = {k: scope.find_var(k).cpu().numpy() for k in scope.keys()}
+    feed = {"img": rng.standard_normal((batch, 3, 32, 32)).astype(np.float32)}
+    rewritten, report = P.PassManager(P.DEFAULT_PIPELINE).apply(
+        test, {"img"}, fetches)
+    log(f"[static] {name} b{batch} fp32: {report.to_text()}")
+    exe = static.Executor(DEV)
+    rollbacks = monitor.counter("passes.rollbacks")
+    rollbacks0 = rollbacks.value()
+    with opt_passes("default"):
+        check(exe.executed_program(test, ["img"], fetches) is not test,
+              f"{name}: the Executor runs the pipeline's rewrite")
+        run_static(exe, test, feed, fetches, scope)
+        torch.cuda.synchronize()
+        config.reset_counts()
+        outs = run_static(exe, test, feed, fetches, scope)
+        torch.cuda.synchronize()
+        counts = config.launch_counts()
+        for k, n in STATIC_LAUNCHES[name].items():
+            check(counts.get(k, 0) == n, f"{name}: {counts.get(k, 0)} {k} "
+                  f"launches per forward (want {n})")
+        check(counts.get("avg_pool2d", 0) == 0, f"{name}: no avg pools")
+        with vision_plain():
+            plain_outs = run_static(exe, test, feed, fetches, scope)
+        for f, got, ref in zip(fetches, outs, plain_outs):
+            r = rel_err(got, ref)
+            check(r <= TOL_STATIC_REL, f"{name}: fetch {f} kernels vs plain "
+                  f"versions rel err {r:.3g} <= {TOL_STATIC_REL}")
+        prof = profile_forward(exe, test, feed, fetches, scope)
+    check(all(torch.isfinite(t).all() for t in outs),
+          f"{name}: finite fetches of shapes "
+          f"{[tuple(t.shape) for t in outs]}")
+    with opt_passes(""):
+        parity = {}
+        for f in fetches:
+            ref = exe.run(test, feed=feed, fetch_list=[f], scope=scope)[0]
+            tol = TOL_STATIC_REL * float(np.abs(ref).max())
+            rep = P.golden_parity(test, rewritten, feed, [f], state=state,
+                                  rtol=0.0, atol=tol, place=DEV)
+            check(rep.ok, f"{name}: golden parity of {f}, pipeline vs "
+                  f"none: {rep.to_text()} (atol {tol:.3g})")
+            parity[f] = rep.per_fetch[f] / float(np.abs(ref).max())
+        config.reset_counts()
+        run_static(exe, test, feed, fetches, scope)
+        torch.cuda.synchronize()
+        check(not config.launch_counts(), f"{name}: no kernel launches "
+              "with the pipeline off")
+        prof_off = profile_forward(exe, test, feed, fetches, scope)
+    times = static_timings(exe, test, feed, fetches, scope, batch)
+    rolled = rollbacks.value() - rollbacks0
+    check(rolled == 0, f"{name}: {rolled} pipeline rollbacks")
+    on, off = times["on"], times["off"]
+    log(f"[static] {name}: pipeline on {on['images_per_s']:.1f} images/s "
+        f"(median {on['wall_ms']:.3f} ms wall a run, IQR "
+        f"{on['wall_iqr_ms']:.3f}; {on['device_span_ms']:.3f} ms between "
+        f"device events), off {off['images_per_s']:.1f} images/s "
+        f"({off['wall_ms']:.3f} ms, IQR {off['wall_iqr_ms']:.3f}; "
+        f"{off['device_span_ms']:.3f} ms): "
+        f"{on['images_per_s'] / off['images_per_s']:.3f}x; device busy on "
+        f"{prof['busy_ms']:.3f} ms, off {prof_off['busy_ms']:.3f} ms")
+    return counts, dict(
+        batch=batch, dtype="float32", ops_before=report.ops_before,
+        ops_after=report.ops_after,
+        passes={p.name: [p.ops_before, p.ops_after] for p in report.passes},
+        launches=counts, rollbacks=rolled, parity_rel_err=parity,
+        pipeline_on=dict(on, profile=prof),
+        pipeline_off=dict(off, profile=prof_off))
+
+
+def static_phase(seed):
+    log("[static] static-graph inference: Program, layers, Executor, "
+        "DEFAULT_PIPELINE")
+    counts, out = {}, {}
+    for name, build in (("conv_tower", conv_tower),
+                        ("vgg16_bn_drop", vgg16_bn_drop)):
+        counts[name], out[name] = static_model(name, build, seed)
+    return counts["vgg16_bn_drop"], out
+
+
+def vision_entries(vision, counts):
+    """The kernels-line entries of rows 10 and 13: fp32 at a VGG-16 shape
+    (the static phase's path), bf16 beside it, every case listed; launches
+    per VGG-16 forward of the static phase."""
+    from paddle_tpu_torch.ops.kernels import conv_fused as cf
+    from paddle_tpu_torch.ops.kernels import pooling as pl
+
+    def numbers(kind, label, prefix=""):
+        r = vision[(kind, label, torch.float32)]
+        rb = vision[(kind, label, torch.bfloat16)]
+        return {f"{prefix}max_abs_err": r["err"], f"{prefix}ms": r["ms"],
+                f"{prefix}plain_ms": r["plain_ms"],
+                f"{prefix}bound_ms": r["bound"][0],
+                f"{prefix}bound_by": r["bound"][1],
+                f"{prefix}library_ms": r["library_ms"],
+                f"{prefix}eager_ms": r["eager_ms"],
+                f"{prefix}bf16_ms": rb["ms"],
+                f"{prefix}bf16_max_abs_err": rb["err"],
+                f"{prefix}bf16_bound_ms": rb["bound"][0],
+                f"{prefix}bf16_library_ms": rb["library_ms"]}
+
+    def cases(kind, mode=None):
+        return [dict(case=label, dtype=dtag(dtype), ms=x["ms"],
+                     eager_ms=x["eager_ms"], plain_ms=x["plain_ms"],
+                     library_ms=x["library_ms"], bound_ms=x["bound"][0],
+                     bound_by=x["bound"][1], max_abs_err=x["err"])
+                for (k, label, dtype), x in vision.items()
+                if k == kind and x.get("mode", mode) == mode]
+
+    conv = {"name": cf.KERNEL, "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/kernels/csrc/{cf.SOURCE}.cu",
+            "replaces": cf.REPLACES,
+            "launches": counts.get(cf.KERNEL, 0),
+            **numbers("conv", CONV_CASES[0][0]),
+            "library": "F.conv2d (cuDNN, channels-last, TF32 off) on the "
+                       "folded weights and bias, then the act",
+            "dtype": "float32", "shape": CONV_CASES[0][0] + " b128",
+            "launches_per": "vgg16_bn_drop forward (static phase, b128)",
+            "cases": cases("conv")}
+    pool = {"name": pl.MAX_KERNEL, "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/kernels/csrc/{pl.SOURCE}.cu",
+            "replaces": pl.REPLACES,
+            "launches": counts.get(pl.MAX_KERNEL, 0),
+            **numbers("pool", POOL_CASES[0][0]),
+            "library": "F.max_pool2d on a channels-last view",
+            "dtype": "float32", "shape": POOL_CASES[0][0] + " b128",
+            "launches_per": "vgg16_bn_drop forward (static phase, b128)",
+            "cases": cases("pool", "max"),
+            pl.AVG_KERNEL: {"launches": counts.get(pl.AVG_KERNEL, 0),
+                            **numbers("pool", POOL_CASES[5][0]),
+                            "library": "F.avg_pool2d on a channels-last "
+                                       "view",
+                            "cases": cases("pool", "avg")}}
+    return [conv, pool]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1892,6 +2392,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paged = paged_kernel_phase(gen, args.seed)
     paged_launches, paged_slice = paged_slice_phase(args.seed)
+    torch.cuda.empty_cache()
+    vision = vision_kernel_phase(gen)
+    vision_counts, static_out = static_phase(args.seed)
 
     kernels = []
     for k in fap.KERNELS + ln.KERNELS:
@@ -1976,10 +2479,12 @@ def main(argv=None):
                       f"{t}_plain_ms": r["plain_ms"],
                       f"{t}_library_ms": r["library_ms"]})
     kernels.append(entry)
+    kernels += vision_entries(vision, vision_counts)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"bhsd": dict(bhsd_model, kernel_a_max_abs_err=cross)}),
           flush=True)
     print(json.dumps({"paged": paged_slice}), flush=True)
+    print(json.dumps({"static": static_out}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,5 +1,5 @@
-"""Weights from the JAX package into the port (counterpart of
-paddle_tpu/autograd ``parameters_dict``).
+"""Weights and state from the JAX package into the port (counterpart of
+paddle_tpu/autograd ``parameters_dict``; static programs' persistables).
 
 The port's parameter names are the JAX package's qualified names, and
 Linear weights keep Paddle's (in, out) layout, so conversion is a checked
@@ -77,3 +77,40 @@ def paged_toy_lm_from_jax(np_weights: Dict[str, np.ndarray], vocab: int,
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr))
     return model
+
+
+def static_state_from_jax(jax_program, jax_state: Dict[str, np.ndarray],
+                          torch_program, device=None):
+    """The port's ``static.Scope`` holding a JAX static program's
+    persistables.
+
+    ``jax_state`` is the JAX scope's ``{name: np.ndarray}``.  The two
+    packages' ``unique_name`` counters differ, so names are not matched:
+    the persistables of ``jax_program`` and ``torch_program`` (the same
+    program built with each package) are paired in creation order, and
+    each pair's shapes are checked.  ``device`` None means CUDA."""
+    from .core.device import resolve_device
+    from .static import Scope
+
+    dev = resolve_device(device)
+    src = [v for v in jax_program.list_vars() if v.persistable]
+    dst = [v for v in torch_program.list_vars() if v.persistable]
+    if len(src) != len(dst):
+        raise ValueError(f"static_state_from_jax: the JAX program has "
+                         f"{len(src)} persistables, the port's {len(dst)}")
+    scope = Scope()
+    for s, d in zip(src, dst):
+        if tuple(s.shape) != tuple(d.shape):
+            raise ValueError(f"static_state_from_jax: {s.name} has shape "
+                             f"{tuple(s.shape)}, its counterpart {d.name} "
+                             f"{tuple(d.shape)}")
+        if s.name not in jax_state:
+            raise KeyError(f"static_state_from_jax: no value for {s.name}")
+        arr = np.asarray(jax_state[s.name])
+        if tuple(arr.shape) != tuple(d.shape):
+            raise ValueError(f"static_state_from_jax: the value of {s.name} "
+                             f"has shape {arr.shape}, {d.name} expects "
+                             f"{tuple(d.shape)}")
+        scope.set(d.name, torch.from_numpy(np.array(arr)).to(
+            device=dev, dtype=d.dtype))
+    return scope

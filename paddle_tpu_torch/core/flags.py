@@ -72,6 +72,25 @@ define_flag("use_paged_attention", True, "Use the paged-attention decode "
             "a per-sequence block table, online softmax, in-kernel int8 KV "
             "dequant.  Off: the plain gather + masked softmax on every "
             "device.")
+define_flag("use_pallas_conv_fused", True, "Use the fused conv + BN + "
+            "activation CUDA kernel (ops/kernels/conv_fused.py) for the "
+            "inference fused_conv2d_bn_act op where the JAX package's shape "
+            "gate holds: the BN transform a * x + b and the activation as "
+            "an epilogue on the conv's output tiles.  Off or refused by the "
+            "gate: the weight-space fold and one cuDNN convolution.  The "
+            "JAX package's name is kept.")
+define_flag("use_pallas_pool", True, "Use the NHWC max / average pooling "
+            "CUDA kernel (ops/kernels/pooling.py) where the JAX package's "
+            "shape gate holds.  Off or refused by the gate: PyTorch's "
+            "pooling.  The JAX package's name is kept.")
+define_flag("opt_passes", "", "Graph-rewrite pass pipeline applied to "
+            "Programs on the Executor's first run of a (program, feeds, "
+            "fetches) key (static/passes.py).  Empty (default): off.  "
+            "'1'/'default': the default pipeline (constant_folding, cse, "
+            "conv+BN+act and matmul+bias+act fusion, NHWC layout "
+            "propagation, dce).  A comma list runs exactly those passes.  "
+            "A pipeline that fails its check rolls back to the original "
+            "program and counts passes.rollbacks.")
 define_flag("metrics", True, "Collect runtime telemetry into the metrics "
             "registry (utils/monitor.py).  Off (PDTPU_FLAGS_metrics=0): "
             "instrumented paths still run but record nothing.")

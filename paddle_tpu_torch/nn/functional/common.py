@@ -17,17 +17,23 @@ def linear(x, weight, bias=None):
                                                  weight.shape[-1])
 
 
-def dropout(x, p=0.5, training=True):
-    """Inverted (upscale-in-train) dropout: the identity at inference; in
+def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
+    """Dropout in the reference's two modes.  ``upscale_in_train``
+    (inverted dropout, the default): the identity at inference; in
     training, each element is kept with probability 1 - p and scaled by
-    1 / (1 - p).  The mask comes from a generator on x's device seeded from
-    the active host generator (core/random.py), as the JAX package draws it
-    from the active key stream.  A plain op, as in the JAX package."""
-    if p == 0.0 or not training:
+    1 / (1 - p).  Otherwise (``downgrade_in_infer``): kept elements are not
+    scaled in training, and inference multiplies by 1 - p.  The mask comes
+    from a generator on x's device seeded from the active host generator
+    (core/random.py), as the JAX package draws it from the active key
+    stream.  A plain op, as in the JAX package."""
+    if p == 0.0:
         return x
+    if not training:
+        return x if mode == "upscale_in_train" else x * (1.0 - p)
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout probability must be in [0, 1), got {p}")
     gen = _random.device_generator(x.device)
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))

@@ -1,11 +1,18 @@
-"""LayerNorm (counterpart of paddle_tpu/nn/functional/norm.py
-``layer_norm``).
+"""LayerNorm and BatchNorm (counterpart of paddle_tpu/nn/functional/
+norm.py ``layer_norm``, ``batch_norm``, ``bn_inference_scale_bias``).
 
 With ``use_fused_layer_norm`` on, a last-axis norm with weight and bias goes
 to kernel B (ops/kernels/layer_norm.py): the kernel on CUDA tensors, its
 plain version on CPU tensors.  Otherwise the composition below runs, as in
 the JAX package: fp32 statistics, the normalised value cast back to x's
 dtype, then scale and shift.
+
+BatchNorm has no kernel in the JAX package outside the fused training op
+(the vision training slice).  Inference folds the running statistics into
+a per-channel ``a * x + b``; training takes one-pass fp32 batch statistics
+(E[x^2] - E[x]^2) and returns the running statistics updated with
+``momentum``, as the JAX package does.  The running statistics are
+returned, never updated in place.
 """
 from __future__ import annotations
 
@@ -34,3 +41,46 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if bias is not None:
         out = out + bias
     return out
+
+
+def bn_inference_scale_bias(mean, var, weight, bias, epsilon):
+    """Inference BatchNorm folded to a per-channel ``a * x + b`` (fp32 a and
+    b): ``a = weight / sqrt(var + eps)``, ``b = bias - mean * a``.  Shared
+    by ``batch_norm`` and the fused conv op (static/ops_fused.py)."""
+    inv = 1.0 / torch.sqrt(var.float() + epsilon)
+    a = inv if weight is None else inv * weight.float()
+    b = -mean.float() * a
+    if bias is not None:
+        b = b + bias.float()
+    return a, b
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW"):
+    """Returns ``(out, new_running_mean, new_running_var)``."""
+    if data_format in ("NCHW", "NCL", "NC"):
+        axes = (0,) + tuple(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+    else:  # channels last
+        axes = tuple(range(x.dim() - 1))
+        shape = [1] * (x.dim() - 1) + [-1]
+    if training:
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        inv = 1.0 / torch.sqrt(var + epsilon)
+        a = inv if weight is None else inv * weight.float()
+        b = -mean * a
+        if bias is not None:
+            b = b + bias.float()
+        mean = mean.detach().to(running_mean.dtype)
+        var = var.detach().to(running_var.dtype)
+        new_rm = momentum * running_mean + (1 - momentum) * mean
+        new_rv = momentum * running_var + (1 - momentum) * var
+    else:
+        a, b = bn_inference_scale_bias(running_mean, running_var, weight,
+                                       bias, epsilon)
+        new_rm, new_rv = running_mean, running_var
+    out = x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+    return out, new_rm, new_rv

@@ -38,9 +38,11 @@ class Kernel:
 
 # (short tag, flag name) for every ported kernel family, sorted by tag.
 _KERNEL_FLAGS: Tuple[Tuple[str, str], ...] = (
+    ("conv", "use_pallas_conv_fused"),
     ("fa", "use_flash_attention"),
     ("ln", "use_fused_layer_norm"),
     ("pgat", "use_paged_attention"),
+    ("pool", "use_pallas_pool"),
 )
 
 _lock = threading.Lock()
@@ -67,8 +69,8 @@ def kernel_enabled(flag_name: str) -> bool:
 
 
 def fingerprint() -> str:
-    """Effective kernel set, e.g. ``tk1:fa=1,ln=1,pgat=1`` (all zero off
-    CUDA)."""
+    """Effective kernel set, e.g. ``tk1:conv=1,fa=1,ln=1,pgat=1,pool=1``
+    (all zero off CUDA)."""
     bits = ",".join(f"{tag}={int(kernel_enabled(name))}"
                     for tag, name in _KERNEL_FLAGS)
     return f"tk{_SCHEMA}:{bits}"

@@ -1,0 +1,42 @@
+"""paddle_tpu_torch.static — the static-graph (Fluid-style) programming
+model (counterpart of paddle_tpu.static).
+
+Build a Program with ``static.layers`` / ``static.nets`` under
+``program_guard``, initialise its parameters with ``Executor.run(startup)``
+and run it with ``Executor.run(main, feed, fetch_list)``.  With the
+``opt_passes`` flag at ``"default"`` the Executor runs the pass pipeline's
+rewrite (conv + BN + act fusion, NHWC layout), whose fused convolutions and
+NHWC pools take the port's CUDA kernels.
+
+Ported so far: the program model, the layers and nets that build vision
+inference programs, their op lowerings, the default pass pipeline and the
+Executor.  Still to port (ROADMAP): backward and optimizers, control flow,
+io, the program verifier and shape engine, the compile cache, memory and
+sharding checks, and the quant ops.
+"""
+from . import layers, nets
+from .executor import Executor, Scope, global_scope, scope_guard
+from .framework import (
+    Block,
+    Operator,
+    Parameter,
+    Program,
+    Variable,
+    default_main_program,
+    default_startup_program,
+    name_scope,
+    program_guard,
+    unique_name,
+)
+from .passes import (DEFAULT_PIPELINE, PassManager, available_passes,
+                     golden_parity, optimize_for_executor)
+from .registry import register_op, registered_ops
+
+data = layers.data
+
+__all__ = ["layers", "nets", "Executor", "Scope", "global_scope",
+           "scope_guard", "Block", "Operator", "Parameter", "Program",
+           "Variable", "default_main_program", "default_startup_program",
+           "name_scope", "program_guard", "unique_name", "DEFAULT_PIPELINE",
+           "PassManager", "available_passes", "golden_parity",
+           "optimize_for_executor", "register_op", "registered_ops", "data"]

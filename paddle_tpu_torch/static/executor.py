@@ -1,0 +1,301 @@
+"""Static-graph Executor: run a Program op by op on torch tensors
+(counterpart of paddle_tpu/static/executor.py).
+
+Reference parity: ``Executor::Run`` (paddle/fluid/framework/executor.cc:180)
+interprets the block sequentially, op by op, with per-op kernel dispatch;
+python side fluid/executor.py with feed/fetch injection and a prepared-
+context cache.  The JAX package traces the block into one jitted XLA
+computation instead; the port interprets it as the reference does, each
+op's lowering rule (static/registry.py) running eagerly on the Executor's
+device, so the kernel wrappers launch from the lowerings.
+
+Per ``(program, version, feed names, fetch names, opt_passes value)`` the
+Executor keeps the program it runs: the caller's, or the pass pipeline's
+rewrite of it (static/passes.py) when ``opt_passes`` is on.  State is every
+persistable variable (parameters, BN statistics): read from the scope
+before the walk, written back after it.  Random ops draw from a CPU
+``torch.Generator`` seeded from the program's ``random_seed``, the run's
+step and the op's salt, so a rewrite that keeps salts keeps draws.
+
+Not ported yet (ROADMAP): tracing into one graph, state donation, sharding
+plans, the persistent compile cache, the memory and sharding checkers,
+control-flow ops and ``backward_region``.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import errors as _errors
+from ..core import flags as _flags
+from ..core import random as _random
+from ..core.device import resolve_device
+from . import ops as _ops
+from . import ops_fused as _ops_fused  # noqa: F401 — registers lowerings
+from .framework import Program, Variable, default_main_program
+from .registry import get_lowering
+
+__all__ = ["Scope", "global_scope", "scope_guard", "Executor", "to_numpy"]
+
+# Odd 64-bit constants mixing (seed, step, salt) into a random op's seed.
+_MIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+
+
+class Scope:
+    """Name -> value store for persistables (ref framework/scope.h:46).
+
+    Hierarchical like the reference: ``new_scope()`` creates a child whose
+    lookups fall through to ancestors; writes always land in the scope they
+    are issued on.  Values are torch tensors once an Executor has written
+    them; a caller may set numpy arrays, which the Executor moves to its
+    device when it reads them."""
+
+    def __init__(self, parent: "Optional[Scope]" = None):
+        self._vars: Dict[str, Any] = {}
+        self._parent = parent
+        self._kids: List["Scope"] = []
+
+    def new_scope(self) -> "Scope":
+        kid = Scope(parent=self)
+        self._kids.append(kid)
+        return kid
+
+    @property
+    def parent(self) -> "Optional[Scope]":
+        return self._parent
+
+    def find_var(self, name: str):
+        s: Optional[Scope] = self
+        while s is not None:
+            if name in s._vars:
+                return s._vars[name]
+            s = s._parent
+        return None
+
+    def local_var(self, name: str):
+        """Lookup without falling through to ancestors."""
+        return self._vars.get(name)
+
+    def var(self, name: str):
+        return self._vars.setdefault(name, None)
+
+    def set(self, name: str, value):
+        self._vars[name] = value
+
+    def keys(self):
+        return self._vars.keys()
+
+    def drop_kids(self):
+        """ref Scope::DropKids."""
+        self._kids.clear()
+
+    def drop(self):
+        self._vars.clear()
+        self._kids.clear()
+
+
+_global_scope = Scope()
+_scope_stack = [_global_scope]
+
+
+def global_scope() -> Scope:
+    return _scope_stack[-1]
+
+
+class scope_guard:
+    """ref fluid/executor.py scope_guard."""
+
+    def __init__(self, scope: Scope):
+        self.scope = scope
+
+    def __enter__(self):
+        _scope_stack.append(self.scope)
+        return self.scope
+
+    def __exit__(self, *exc):
+        _scope_stack.pop()
+
+
+def to_numpy(value) -> np.ndarray:
+    """A scope or fetch value as a numpy array (bf16 as float32)."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return np.asarray(value)
+
+
+def _op_salt(block_idx: int, op_idx: int) -> int:
+    return block_idx * 65536 + op_idx
+
+
+def _op_generator(seed: int, step: int, salt: int) -> torch.Generator:
+    mixed = (seed * _MIX[0] + step * _MIX[1] + salt * _MIX[2]) \
+        & 0x7FFFFFFFFFFFFFFF
+    return torch.Generator().manual_seed(mixed)
+
+
+def _run_op(op, env, seed, step, salt):
+    """Execute one op's lowering on the tensors in ``env``; a random op
+    under a generator of its own."""
+    from .passes import RANDOM_OPS
+
+    lowering = get_lowering(op.type)
+    try:
+        ins = {slot: [env[n] for n in names] if names else []
+               for slot, names in op.inputs.items()}
+    except KeyError as e:
+        raise _errors.PreconditionNotMetError(
+            f"op {op.type!r} reads {e.args[0]!r}, which no earlier op "
+            "produced and the feed and scope do not hold") from None
+    if op.type in RANDOM_OPS:
+        with _random.rng_scope(_op_generator(seed, step, salt)):
+            outs = lowering(ins, op.attrs, op)
+    else:
+        outs = lowering(ins, op.attrs, op)
+    for slot, names in op.outputs.items():
+        for name, val in zip(names, outs.get(slot, [])):
+            env[name] = val
+
+
+_tokens = itertools.count(1)
+
+
+def _program_token(program) -> int:
+    """A process-unique id of a Program object (ids of collected objects
+    are reused; the token is not)."""
+    token = getattr(program, "_exec_cache_token", None)
+    if token is None:
+        token = next(_tokens)
+        program._exec_cache_token = token
+    return token
+
+
+class _Entry:
+    __slots__ = ("program", "passes", "state_names", "needs_value")
+
+    def __init__(self, program, passes, state_names, needs_value):
+        self.program = program
+        self.passes = passes
+        self.state_names = state_names
+        self.needs_value = needs_value
+
+
+class Executor:
+    """ref fluid/executor.py:474.  ``place`` is the device: None means
+    CUDA and raises where there is no card; pass ``"cpu"`` to run the
+    plain PyTorch path (each kernel wrapper then runs its plain
+    version)."""
+
+    def __init__(self, place=None):
+        self.place = resolve_device(place)
+        self._cache: Dict[tuple, _Entry] = {}
+        self._step = 0
+
+    def run(self, program=None, feed: Optional[dict] = None,
+            fetch_list: Optional[Sequence] = None,
+            scope: Optional[Scope] = None, return_numpy: bool = True):
+        """Run one step of ``program``: feeds in, the block op by op,
+        persistable outputs back to ``scope``, the fetches out (numpy
+        arrays with ``return_numpy``, else tensors on the device)."""
+        program = program or default_main_program()
+        feed = feed or {}
+        scope = scope or global_scope()
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        entry = self._entry(program, feed, fetch_names)
+
+        env: Dict[str, Any] = {}
+        missing = []
+        for n in entry.state_names:
+            v = scope.find_var(n)
+            if v is None:
+                if n in entry.needs_value:
+                    missing.append(n)
+            else:
+                env[n] = self._tensor(v)
+        if missing:
+            raise _errors.PreconditionNotMetError(
+                f"persistable variables {missing} have no value in scope — "
+                "run the startup program first (exe.run(startup_program))")
+        for k, v in feed.items():
+            env[k] = self._tensor(v)
+
+        run_program = entry.program
+        seed = run_program.random_seed or _random.draw_seed()
+        step = self._step
+        self._step += 1
+        with torch.no_grad(), _ops.device_scope(self.place):
+            for idx, op in enumerate(run_program.global_block().ops):
+                salt = op.rng_salt if op.rng_salt is not None \
+                    else _op_salt(0, idx)
+                _run_op(op, env, seed, step, salt)
+        for n in entry.state_names:
+            if n in env:
+                scope.set(n, env[n])
+        try:
+            fetches = [env[n] for n in fetch_names]
+        except KeyError as e:
+            raise KeyError(f"fetch {e.args[0]!r} is neither produced by the "
+                           "program nor fed") from None
+        if return_numpy:
+            return [to_numpy(f) for f in fetches]
+        return fetches
+
+    def executed_program(self, program, feed_names, fetch_list) -> Program:
+        """The program ``run`` executes for these feeds and fetches under
+        the current ``opt_passes`` value (the pipeline's rewrite, or
+        ``program`` itself)."""
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in fetch_list]
+        return self._entry(program, dict.fromkeys(feed_names),
+                           fetch_names).program
+
+    def close(self):
+        self._cache.clear()
+
+    # -- internals -----------------------------------------------------------
+    def _entry(self, program, feed, fetch_names) -> _Entry:
+        flag = _flags.get_flag("opt_passes")
+        key = (_program_token(program), program._version,
+               tuple(sorted(feed)), tuple(fetch_names), str(flag))
+        entry = self._cache.get(key)
+        if entry is None:
+            run_program, passes_fp = program, ""
+            if flag:
+                from . import passes as _passes
+
+                run_program, passes_fp = _passes.optimize_for_executor(
+                    program, flag, set(feed), fetch_names)
+            state_names = [v.name for v in program.list_vars()
+                           if v.persistable]
+            needs = {n for n in state_names
+                     if self._first_access(program.global_block(),
+                                           n) == "read"}
+            entry = _Entry(run_program, passes_fp, state_names, needs)
+            self._cache[key] = entry
+        return entry
+
+    def _tensor(self, value) -> torch.Tensor:
+        if isinstance(value, torch.Tensor):
+            return value if value.device == self.place \
+                else value.to(self.place)
+        arr = np.asarray(value)
+        host = torch.from_numpy(arr) if arr.flags.writeable \
+            else torch.tensor(arr)
+        return host.to(self.place)
+
+    @staticmethod
+    def _first_access(block, name: str):
+        """First access to ``name`` in execution order: 'read', 'write', or
+        None (block 0 only: the port has no control-flow ops)."""
+        for op in block.ops:
+            if name in op.input_names():
+                return "read"
+            if name in op.output_names():
+                return "write"
+        return None

@@ -47,12 +47,17 @@ def _kernel_modules():
 
 def test_import_scan_covers_every_package_of_the_port():
     names = _all_modules()
-    for pkg in ("core", "nn", "ops.kernels", "optimizer", "serving", "text",
-                "utils"):
+    for pkg in ("core", "nn", "ops.kernels", "optimizer", "serving",
+                "static", "text", "utils"):
         assert f"paddle_tpu_torch.{pkg}" in names, pkg
     for mod in ("serving.paged", "serving.slo", "serving.continuous",
                 "utils.monitor", "core.errors", "ops.kernels.paged_attention",
-                "ops.kernels.flash_attention"):
+                "ops.kernels.flash_attention", "ops.kernels.conv_fused",
+                "ops.kernels.pooling", "nn.initializer",
+                "nn.functional.conv", "nn.functional.pooling",
+                "static.framework", "static.registry", "static.layers",
+                "static.nets", "static.ops", "static.ops_fused",
+                "static.passes", "static.executor"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 
@@ -67,6 +72,29 @@ def test_paged_attention_kernel_is_declared():
     assert inspect.signature(k.plain).parameters.keys() \
         == inspect.signature(k.wrapper).parameters.keys()
     assert "config.record_call(KERNEL)" in inspect.getsource(k.wrapper)
+
+
+@pytest.mark.parametrize("module,kernels,replaces", [
+    ("conv_fused", ("conv2d_bn_act",),
+     "paddle_tpu/ops/pallas/conv_fused.py:152 conv2d_bn_act"),
+    ("pooling", ("max_pool2d", "avg_pool2d"),
+     "paddle_tpu/ops/pallas/pooling.py:91 _pool2d_nhwc"),
+])
+def test_vision_kernels_are_declared(module, kernels, replaces):
+    mod = importlib.import_module(f"paddle_tpu_torch.ops.kernels.{module}")
+    assert tuple(k.name for k in mod.KERNELS) == kernels
+    for k in mod.KERNELS:
+        assert k.source == mod.SOURCE and k.source in build.sources()
+        assert k.replaces == replaces
+        assert k.plain.__name__.endswith("_plain")
+        assert inspect.signature(k.plain).parameters.keys() \
+            == inspect.signature(k.wrapper).parameters.keys()
+        src = inspect.getsource(k.wrapper)
+        assert "config.record_call(" in src and "try:" not in src
+    # neither TPU function has a VJP: no autograd Function here
+    assert not any(isinstance(o, type)
+                   and issubclass(o, torch.autograd.Function)
+                   for o in vars(mod).values())
 
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
@@ -184,6 +212,9 @@ def test_import_builds_nothing():
             "import paddle_tpu_torch.ops.kernels.flash_attention_packed\n"
             "import paddle_tpu_torch.ops.kernels.layer_norm\n"
             "import paddle_tpu_torch.ops.kernels.paged_attention\n"
+            "import paddle_tpu_torch.ops.kernels.conv_fused\n"
+            "import paddle_tpu_torch.ops.kernels.pooling\n"
+            "import paddle_tpu_torch.static\n"
             "import paddle_tpu_torch.serving\n"
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.entry\n"
