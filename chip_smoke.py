@@ -112,9 +112,44 @@ Phases (any failed check raises, so the script exits non-zero):
               alternating blocks of runs with the pipeline on and off
               (medians and quartile spread).
 
+9. vision train -- the forward of the main (train-mode) programs under
+              DEFAULT_PIPELINE in fp32: vgg16_bn_drop (b128, its dropouts
+              on) and the conv tower with train-mode BNs (b64, no
+              dropout).  Checks: 11 / 2 launches of each of rows 11 and 12
+              (train-mode BN statistics; scale + act) per forward, the
+              fetches and every running statistic against the same run
+              with their plain versions (same seed, same dropout masks)
+              within 1e-4 of the largest value, and the tower's golden
+              parity against the unfused program.
+10. int8 kernels -- rows 11 and 12 against their plain versions in fp32
+              and bf16 at VGG-16's train-mode BN shapes at b128 (32768 x
+              128, 8192 x 256, 2048 x 512, 512 x 512) and ResNet-50's stage
+              1 at b64 (200704 x 256, beyond L2): the sums within 1e-5 of
+              the largest, two runs of row 11 bit for bit, row 12 bit for
+              bit; times beside the plain versions', torch.var_mean /
+              addcmul + relu and the bounds.  Rows 14 and 15 against their
+              plain versions (exact sums in float64) with fp32 and bf16
+              out: the int8 matmul at
+              VGG-16's 512 x 512 fc (b128) and an ERNIE-base FFN shape
+              (4096 x 768 -> 3072), the int8 conv at VGG-16's int8 convs
+              (b128), the tower's (b64), a 3x3 s2 p1 and a 7x7 s2 p3 conv;
+              every epilogue act at a small shape (piecewise-linear acts bit
+              for bit); times beside the plain versions', torch._int_mm
+              (row 14) or cuDNN on the dequantized operands (row 15,
+              context only) and the bounds.
+11. int8     -- post-training quantization (one calibration batch) and
+              QUANT_INFER_PIPELINE on the conv tower (b64) and vgg16_bn_drop
+              (b128) test programs: 1 / 0 and 10 / 2 launches of rows 15 /
+              14 per forward, the program against its plain versions and
+              against the simulate route (use_pallas_int8 off), the int8
+              error against the float program, images/s of the int8
+              program against the fp32 program under DEFAULT_PIPELINE in
+              alternating blocks, and a profile of one int8 forward.
+
 Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
-``{"paged": ...}``, ``{"static": ...}`` and
-``{"kernels": [...]}`` JSON lines and the card's name and power limit; the
+``{"paged": ...}``, ``{"static": ...}``, ``{"vision_train": ...}``,
+``{"int8": ...}`` and ``{"kernels": [...]}`` JSON lines (one kernel entry
+for each of the 15 TPU kernels) and the card's name and power limit; the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -136,7 +171,8 @@ import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 # Tolerances.  fp32: the kernel and its plain version do the same
 # arithmetic in another summation order.  bf16: relative to the largest
@@ -164,7 +200,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 64, 512, 25      # bench.py's TPU run
 # csrc/*.cu __global__ functions).
 PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)_(fp32|mma)|flash_bwd_delta|"
                          r"ln_(fwd|bwd|partials_reduce)|paged_attn|"
-                         r"conv2d_bn_act|pool2d_nhwc)_kernel\b")
+                         r"conv2d_bn_act|pool2d_nhwc|bn_stats_(partial|"
+                         r"reduce)|bn_scale_act|int8_(matmul|conv))_kernel\b")
 
 # Paged attention (phase 5).  Tolerances: fp32 and int8 against the plain
 # version on the same blocks with rtol = atol = 2e-5 (tests/test_paged.py's
@@ -2086,17 +2123,19 @@ def run_static(exe, program, feed, fetches, scope):
                    return_numpy=False)
 
 
-def static_timings(exe, program, feed, fetches, scope, batch):
-    """Executor.run with the pipeline on and off in alternating blocks
-    (on, off, off, on, ...: host noise on a shared machine drifts), each
-    block STATIC_REPS runs after one warm run.  Per mode: the median wall
+def interleaved_timings(exe, runs, feed, fetches, batch):
+    """Executor.run of two (program, scope, opt_passes) runs in alternating
+    blocks (a, b, b, a, ...: host noise on a shared machine drifts), each
+    block STATIC_REPS runs after one warm run.  Per run: the median wall
     ms of a run (the numpy feed's copy to the card and the fetches' copies
     back included) as images/s, the quartile spread, and the median span
     between CUDA events around a run."""
-    walls = {"on": [], "off": []}
-    spans = {"on": [], "off": []}
-    for mode in ("on", "off", "off", "on") * (STATIC_BLOCKS // 4):
-        with opt_passes("default" if mode == "on" else ""):
+    a, b = runs
+    walls = {k: [] for k in runs}
+    spans = {k: [] for k in runs}
+    for mode in (a, b, b, a) * (STATIC_BLOCKS // 4):
+        program, scope, passes = runs[mode]
+        with opt_passes(passes):
             exe.run(program, feed=feed, fetch_list=fetches, scope=scope)
             torch.cuda.synchronize()
             for _ in range(STATIC_REPS):
@@ -2113,6 +2152,13 @@ def static_timings(exe, program, feed, fetches, scope, batch):
                          wall_iqr_ms=q3 - q1,
                          device_span_ms=float(np.median(spans[mode])))
     return out
+
+
+def static_timings(exe, program, feed, fetches, scope, batch):
+    """The pipeline on and off (``interleaved_timings``)."""
+    return interleaved_timings(exe, {"on": (program, scope, "default"),
+                                     "off": (program, scope, "")},
+                               feed, fetches, batch)
 
 
 def profile_forward(exe, program, feed, fetches, scope, reps=3):
@@ -2344,6 +2390,675 @@ def vision_entries(vision, counts):
     return [conv, pool]
 
 
+# -- phase 9: train-mode vision forward (rows 11 and 12) -----------------------
+
+# Rows 11 and 12 at their main-path shapes: the (rows, C) of VGG-16's
+# train-mode BNs that the gate passes at b128 (groups 2-5), and one
+# cold-cache shape beyond the 50 MB L2 (ResNet-50's stage 1 at b64: 64 x 56
+# x 56 rows of 256 channels, 205 MB in fp32).
+BN_CASES = (
+    ("vgg 16x16 c128 b128", (32768, 128)),
+    ("vgg 8x8 c256 b128", (8192, 256)),
+    ("vgg 4x4 c512 b128", (2048, 512)),
+    ("vgg 2x2 c512 b128", (512, 512)),
+    ("resnet50 stage1 c256 b64 (cold)", (200704, 256)),
+)
+# Row 11 against its plain version: the same fp32 sums in another order,
+# relative to the largest sum.  Row 12 multiplies and adds without FMA
+# contraction, as the plain version does: bit for bit.
+TOL_BN_STATS_REL = 1e-5
+# Launches of each of rows 11 and 12 per train-mode forward, pinned on the
+# CPU by tests/test_torch_bn_train.py (the JAX dispatch at full width: the
+# BNs of groups 2-5); the conv-BN tower's 2.
+VISION_TRAIN_LAUNCHES = {"vgg16_bn_drop": 11, "conv_bn_tower": 2}
+VISION_TRAIN_BATCH = {"vgg16_bn_drop": 128, "conv_bn_tower": 64}
+# The train-mode forward with rows 11-12 against the same program with their
+# plain versions (same seed, same dropout masks): the batch statistics'
+# fp32 sums in another order, carried through 13 normalised layers;
+# relative to each fetch's and each running statistic's largest value.
+TOL_VISION_TRAIN_REL = 1e-4
+
+
+def bn_case(bt, gen, rows, c, dtype, timed=True):
+    """Rows 11 and 12 against their plain versions (row 11 twice, bit for
+    bit); with ``timed`` their times beside the plain versions', the
+    library calls' (``torch.var_mean``; ``torch.addcmul`` then
+    ``torch.relu``) and the bounds."""
+    x = randn(gen, (rows, c), dtype, 2.0, 0.5)
+    gamma = randn(gen, (c,), torch.float32, 0.2, 1.0)
+    beta = randn(gen, (c,), torch.float32, 0.5)
+    tag = f"{rows} x {c} {dtag(dtype)}"
+    with torch.no_grad():
+        s, ss = bt.batch_stats(x)
+        torch.cuda.synchronize()
+        ps, pss = bt.batch_stats_plain(x)
+        err = max(rel_err(s, ps), rel_err(ss, pss))
+        check(err <= TOL_BN_STATS_REL, f"{bt.STATS_KERNEL} {tag}: sums rel "
+              f"err {err:.3g} <= {TOL_BN_STATS_REL}")
+        s2, ss2 = bt.batch_stats(x)
+        check(torch.equal(s, s2) and torch.equal(ss, ss2),
+              f"{bt.STATS_KERNEL} {tag}: two runs agree bit for bit")
+        mean = s / rows
+        var = torch.clamp(ss / rows - mean * mean, min=0.0)
+        a = gamma * torch.rsqrt(var + 1e-5)
+        b = beta - mean * a
+        y = bt.scale_act(x, a, b, "relu")
+        torch.cuda.synchronize()
+        check(torch.equal(y, bt.scale_act_plain(x, a, b, "relu")),
+              f"{bt.SCALE_KERNEL} {tag} relu: bit for bit the plain version")
+        check(torch.equal(bt.scale_act(x, a, b, ""),
+                          bt.scale_act_plain(x, a, b, "")),
+              f"{bt.SCALE_KERNEL} {tag} no act: bit for bit the plain "
+              f"version")
+        if not timed:
+            return None
+        elt = x.element_size()
+        ad, bd = a.to(dtype), b.to(dtype)
+        stats = dict(timings(lambda: bt.batch_stats(x),
+                             lambda: bt.batch_stats_plain(x),
+                             lambda: torch.var_mean(x, dim=0),
+                             *reversed(bt.stats_cost(rows, c, elt)), dtype),
+                     err=max(max_abs(s, ps), max_abs(ss, pss)))
+        scale = dict(timings(lambda: bt.scale_act(x, a, b, "relu"),
+                             lambda: bt.scale_act_plain(x, a, b, "relu"),
+                             lambda: torch.relu(torch.addcmul(bd, x, ad)),
+                             *reversed(bt.scale_cost(rows, c, elt)), dtype),
+                     err=max_abs(y, bt.scale_act_plain(x, a, b, "relu")))
+    return stats, scale
+
+
+@contextlib.contextmanager
+def bn_plain():
+    """Rows 11 and 12 swapped, as module attributes, for their plain
+    versions."""
+    from paddle_tpu_torch.ops.kernels import bn_act_train as bt
+
+    saved = (bt.batch_stats, bt.scale_act)
+    bt.batch_stats, bt.scale_act = bt.batch_stats_plain, bt.scale_act_plain
+    try:
+        yield
+    finally:
+        bt.batch_stats, bt.scale_act = saved
+
+
+def conv_bn_tower(static, L, nets, seed):
+    """The conv tower with train-mode BNs (conv/BN(relu)/max-pool twice,
+    fc 10; ch 128, 32 x 32) and no dropout."""
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed
+    with static.program_guard(main, startup):
+        img = L.data("img", [3, 32, 32])
+        h = L.conv2d(img, 128, 3, padding=1)
+        h = L.batch_norm(h, act="relu")
+        h = L.pool2d(h, 2, "max", 2)
+        h = L.conv2d(h, 128, 3, padding=1)
+        h = L.batch_norm(h, act="relu")
+        h = L.pool2d(h, 2, "max", 2)
+        out = L.fc(L.flatten(h), 10)
+    return main, startup, [out.name]
+
+
+def bn_stat_names(program):
+    return [n for op in program.global_block().ops if op.type == "batch_norm"
+            for n in op.inputs["Mean"] + op.inputs["Variance"]]
+
+
+def copy_scope(static, scope):
+    new = static.Scope()
+    for k in scope.keys():
+        new.set(k, scope.find_var(k).clone())
+    return new
+
+
+def vision_train_model(name, build, seed):
+    """One main (train-mode) program forward under DEFAULT_PIPELINE in
+    fp32: launches of rows 11 and 12 per forward; the fetches and running
+    statistics against the same run with their plain versions; golden
+    parity with the pipeline off (programs without dropout); the forward's
+    device span and a profile."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.kernels import bn_act_train as bt
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import nets
+    from paddle_tpu_torch.static import passes as P
+
+    batch = VISION_TRAIN_BATCH[name]
+    main, startup, fetches = build(static, L, nets, seed)
+    # a nonzero program seed: with 0 the Executor draws one for each run,
+    # and the two runs below would draw different dropout masks
+    main.random_seed = seed + 1
+    rng = np.random.default_rng(seed)
+    scope0 = static.Scope()
+    static.Executor(DEV).run(startup, scope=scope0)
+    feed = {"img": rng.standard_normal((batch, 3, 32, 32)).astype(np.float32)}
+    want = VISION_TRAIN_LAUNCHES[name]
+    stats = bn_stat_names(main)
+    with opt_passes("default"):
+        runs = {}
+        for mode in ("kernels", "plain"):
+            scope = copy_scope(static, scope0)
+            exe = static.Executor(DEV)      # step 0: the same dropout masks
+            ctx = bn_plain() if mode == "plain" else contextlib.nullcontext()
+            config.reset_counts()
+            with ctx:
+                outs = run_static(exe, main, feed, fetches, scope)
+                torch.cuda.synchronize()
+            runs[mode] = (outs, scope, config.launch_counts())
+        counts = runs["kernels"][2]
+        fused = [op for op in exe.executed_program(
+            main, ["img"], fetches).global_block().ops
+            if op.type == "fused_conv2d_bn_act"]
+        check(fused and not any(op.attrs["is_test"] for op in fused),
+              f"{name}: {len(fused)} train-mode fused convs run")
+        for k in (bt.STATS_KERNEL, bt.SCALE_KERNEL):
+            check(counts.get(k, 0) == want, f"{name}: {counts.get(k, 0)} "
+                  f"{k} launches per forward (want {want})")
+            check(runs["plain"][2].get(k, 0) == 0,
+                  f"{name}: no {k} launch with the plain versions")
+        err = {}
+        for f, got, ref in zip(fetches, runs["kernels"][0], runs["plain"][0]):
+            err[f] = rel_err(got, ref)
+            check(torch.isfinite(got).all() and err[f] <=
+                  TOL_VISION_TRAIN_REL, f"{name}: fetch {f} "
+                  f"{tuple(got.shape)} kernels vs plain versions rel err "
+                  f"{err[f]:.3g} <= {TOL_VISION_TRAIN_REL}")
+        stat_err = 0.0
+        for n in stats:
+            got = runs["kernels"][1].find_var(n)
+            ref = runs["plain"][1].find_var(n)
+            check(not torch.equal(ref, scope0.find_var(n)),
+                  f"{name}: running statistic {n} updated")
+            stat_err = max(stat_err, rel_err(got, ref))
+        check(stat_err <= TOL_VISION_TRAIN_REL, f"{name}: {len(stats)} "
+              f"running statistics, kernels vs plain versions rel err "
+              f"{stat_err:.3g} <= {TOL_VISION_TRAIN_REL}")
+        scope = runs["kernels"][1]
+        span = _events_ms(lambda: run_static(exe, main, feed, fetches, scope),
+                          STATIC_REPS)
+        with bn_plain():
+            plain_span = _events_ms(
+                lambda: run_static(exe, main, feed, fetches, scope),
+                STATIC_REPS)
+        prof = profile_forward(exe, main, feed, fetches, scope)
+    out = dict(batch=batch, dtype="float32", launches=counts,
+               fetch_rel_err=err, running_stats=len(stats),
+               running_stats_rel_err=stat_err, forward_span_ms=span,
+               plain_forward_span_ms=plain_span, profile=prof)
+    if name == "conv_bn_tower":
+        rewritten, _ = P.PassManager(P.DEFAULT_PIPELINE).apply(
+            main, {"img"}, fetches)
+        state = {k: scope0.find_var(k).cpu().numpy() for k in scope0.keys()}
+        with opt_passes(""):
+            rep = P.golden_parity(main, rewritten, feed, fetches, state=state,
+                                  rtol=TOL_VISION_TRAIN_REL,
+                                  atol=TOL_VISION_TRAIN_REL / 10, place=DEV)
+        check(rep.ok, f"{name}: golden parity, pipeline (rows 11-12) vs "
+              f"none (batch_norm + relu): {rep.to_text()}")
+        out["golden_parity"] = dict(max_abs_err=rep.max_abs_err,
+                                    state_max_err=rep.state_max_err)
+    log(f"[vision train] {name} b{batch}: forward {span:.3f} ms between "
+        f"device events with rows 11-12, {plain_span:.3f} ms with their "
+        f"plain versions; fetch rel err {max(err.values()):.3g}, running "
+        f"statistics {stat_err:.3g}")
+    return counts, out
+
+
+def vision_train_phase(seed):
+    """The train-mode forward of VGG-16 and the conv-BN tower."""
+    log("[vision train] train-mode forward under DEFAULT_PIPELINE")
+    counts, out = {}, {}
+    for name, build in (("vgg16_bn_drop", vgg16_bn_drop),
+                        ("conv_bn_tower", conv_bn_tower)):
+        counts[name], out[name] = vision_train_model(name, build, seed)
+    return counts["vgg16_bn_drop"], out
+
+
+# -- phase 10: int8 kernels (rows 14 and 15) -----------------------------------
+
+# Row 14 at VGG-16's 512 x 512 fcs at b128 and an ERNIE-base FFN shape
+# (4096 tokens x 768 -> 3072), as (m, k, n); row 15 at VGG-16's int8 convs
+# at b128, the tower's second conv at b64, a 3x3 s2 p1 and a 7x7 s2 p3
+# conv, as (n, h, w, c, o, k, s, p).
+INT8_MM_CASES = (
+    ("vgg fc 512->512 b128", (128, 512, 512)),
+    ("ernie-base ffn 768->3072 4096 rows", (4096, 768, 3072)),
+)
+INT8_MM_ACT_SHAPE = (40, 256, 256)
+INT8_CONV_CASES = (
+    ("vgg 128->128 16x16 b128", (128, 16, 16, 128, 128, 3, 1, 1)),
+    ("vgg 256->256 8x8 b128", (128, 8, 8, 256, 256, 3, 1, 1)),
+    ("vgg 512->512 4x4 b128", (128, 4, 4, 512, 512, 3, 1, 1)),
+    ("vgg 512->512 2x2 b128", (128, 2, 2, 512, 512, 3, 1, 1)),
+    ("tower 128->128 16x16 b64", (64, 16, 16, 128, 128, 3, 1, 1)),
+    ("3x3 s2 p1 128->256 16x16 b128", (128, 16, 16, 128, 256, 3, 2, 1)),
+    ("7x7 s2 p3 128->128 32x32 b32", (32, 32, 32, 128, 128, 7, 2, 3)),
+)
+INT8_CONV_ACT_SHAPE = (2, 7, 9, 128, 128, 3, 1, 1)
+# Kernel against plain version: both sum exactly and apply the epilogue as
+# the same two fp32 roundings, so the piecewise-linear acts agree bit for
+# bit; sigmoid and tanh differ by the ulps of expf / tanhf against
+# PyTorch's (relative to the largest value; bf16: one rounding flip).
+TOL_INT8_REL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
+LINEAR_ACTS = ("", "relu", "relu6")
+
+
+def int8_operands(gen, x_shape, w_shape, n_out):
+    x = torch.randint(-127, 128, x_shape, generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, w_shape, generator=gen, dtype=torch.int8)
+    scale = torch.rand(n_out, generator=gen) * 1e-4 + 1e-5
+    bias = torch.randn(n_out, generator=gen) * 0.5
+    return x.to(DEV), w.to(DEV), scale.to(DEV), bias.to(DEV)
+
+
+def int8_check(name, tag, got, ref, dtype, act):
+    r = rel_err(got, ref)
+    if act in LINEAR_ACTS:
+        check(torch.equal(got, ref), f"{name} {tag}: bit for bit the plain "
+              f"version")
+    else:
+        check(r <= TOL_INT8_REL[dtype], f"{name} {tag}: rel err {r:.3g} <= "
+              f"{TOL_INT8_REL[dtype]}")
+    return max_abs(got, ref)
+
+
+def int8_mm_case(i8, gen, dims, dtype, act, timed=True):
+    """Row 14 against its plain version (exact sums: float64 on the card);
+    with ``timed`` its times beside the plain version's, ``torch._int_mm``'s
+    product alone, and the bound."""
+    m, k, n = dims
+    x, w, scale, bias = int8_operands(gen, (m, k), (k, n), n)
+    run = lambda: i8.int8_matmul_dequant(x, w, scale, bias, act, dtype)
+    plain = lambda: i8.int8_matmul_dequant_plain(x, w, scale, bias, act,
+                                                 dtype)
+    got = run()
+    torch.cuda.synchronize()
+    err = int8_check(i8.MATMUL_KERNEL, f"{m}x{k} @ {k}x{n} {dtag(dtype)} "
+                     f"act={act or 'none'}", got, plain(), dtype, act)
+    if not timed:
+        return None
+    ops, nbytes = i8.matmul_cost(m, n, k, got.element_size())
+    return dict(timings(run, plain, lambda: torch._int_mm(x, w), nbytes,
+                        ops, torch.int8), err=err, ops=ops)
+
+
+def int8_conv_case(i8, gen, dims, dtype, act, timed=True):
+    """Row 15 against its plain version; with ``timed`` its times beside the
+    plain version's and the bound.  No single PyTorch call computes an int8
+    convolution: cuDNN's convolution on the dequantized operands
+    (channels-last, in the output type, TF32 off) is timed as context."""
+    n, h, w, c, o, k, s, p = dims
+    x, wq, scale, bias = int8_operands(gen, (n, h, w, c), (o, c, k, k), o)
+    args = ((s, s), (p, p), act, dtype)
+    run = lambda: i8.int8_conv2d_dequant(x, wq, scale, bias, *args)
+    plain = lambda: i8.int8_conv2d_dequant_plain(x, wq, scale, bias, *args)
+    got = run()
+    torch.cuda.synchronize()
+    err = int8_check(i8.CONV_KERNEL, f"n{n} {h}x{w} {c}->{o} k{k} s{s} p{p} "
+                     f"{dtag(dtype)} act={act or 'none'}", got, plain(),
+                     dtype, act)
+    if not timed:
+        return None
+    oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    ops, nbytes = i8.conv_cost(n, oh, ow, c, o, k, k, h, w,
+                               got.element_size())
+    xf = x.permute(0, 3, 1, 2).to(dtype) * 0.01
+    wf = (wq.to(dtype) * 0.01).contiguous(memory_format=torch.channels_last)
+    bf = bias.to(dtype)
+    cudnn = lambda: torch.nn.functional.conv2d(xf, wf, bf, s, p)
+    return dict(timings(run, plain, None, nbytes, ops, torch.int8), err=err,
+                ops=ops, cudnn_dequant_ms=time_ms(cudnn))
+
+
+def int8_kernel_phase(gen):
+    """Rows 11 and 12 against their plain versions at their shapes in fp32
+    and bf16; rows 14 and 15 at theirs, fp32 and bf16 out, every act at a
+    small shape."""
+    from paddle_tpu_torch.ops.kernels import bn_act_train as bt
+    from paddle_tpu_torch.ops.kernels import int8 as i8
+
+    log("[int8 kernels] rows 11, 12, 14 and 15 against their plain "
+        "versions")
+    bn_cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (rows, c) in BN_CASES:
+            bn_cases[(label, dtype)] = bn_case(bt, gen, rows, c, dtype)
+        bn_case(bt, gen, 8 * 3, 384, dtype, timed=False)   # a ragged grid
+    for (label, dtype), (st, sc) in bn_cases.items():
+        for k, r in ((bt.STATS_KERNEL, st), (bt.SCALE_KERNEL, sc)):
+            log(f"  {k} {label} {dtag(dtype)}: {r['ms']:.4f} ms (eager "
+                f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                f"library {r['library_ms']:.4f} ms, bound "
+                f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, dims in INT8_MM_CASES:
+            results[("matmul", label, dtype)] = int8_mm_case(
+                i8, gen, dims, dtype, "relu")
+        for label, dims in INT8_CONV_CASES:
+            results[("conv", label, dtype)] = int8_conv_case(
+                i8, gen, dims, dtype, "relu")
+        for act in i8.EPILOGUE_ACTS:
+            int8_mm_case(i8, gen, INT8_MM_ACT_SHAPE, dtype, act, timed=False)
+            int8_conv_case(i8, gen, INT8_CONV_ACT_SHAPE, dtype, act,
+                           timed=False)
+    for (kind, label, dtype), r in results.items():
+        lib = (f"torch._int_mm {r['library_ms']:.4f} ms" if kind == "matmul"
+               else f"cuDNN on dequantized operands (context) "
+                    f"{r['cudnn_dequant_ms']:.4f} ms")
+        log(f"  int8 {kind} {label} {dtag(dtype)} out: {r['ms']:.4f} ms "
+            f"(eager {r['eager_ms']:.4f} ms; {r['ops'] / r['ms'] / 1e9:.1f} "
+            f"TOPS), plain {r['plain_ms']:.4f} ms, {lib}, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return bn_cases, results
+
+
+# -- phase 11: int8 static inference -------------------------------------------
+
+# Launches of rows 15 / 14 per int8 forward, pinned on the CPU by
+# tests/test_torch_int8.py (the JAX dispatch at full width): the tower's
+# second conv; VGG-16's 10 convs of C, O % 128 and its two 512 x 512 fcs.
+INT8_LAUNCHES = {
+    "conv_tower": {"int8_conv2d_dequant": 1, "int8_matmul_dequant": 0},
+    "vgg16_bn_drop": {"int8_conv2d_dequant": 10, "int8_matmul_dequant": 2}}
+# The int8 program with rows 14-15 against the same program with their
+# plain versions: exact sums and the same epilogue in both, bit for bit up
+# to the order of cuDNN's float convolutions elsewhere in the program.
+TOL_INT8_PLAIN_REL = 1e-6
+# The kernel route against the simulate route (use_pallas_int8 off: the
+# fake-quant values through cuDNN's fp32 convolution or cuBLAS): the same
+# int8 grid, exact sums against fp32 ones.  Each quant op of a program is
+# held on the inputs the kernel route gave it, and one quantized fc is held
+# end to end, to the reference's rtol = atol = 1e-4 for one fc
+# (tests/test_pallas_vision.py:333), relative to the op's largest output.
+# Whole programs are not compared: the next layer's quantization moves a
+# value that lies an fp32 rounding from a rounding boundary by one level,
+# and over VGG-16's 16 quantized layers that reaches ~1% of the largest
+# logit (on the CPU, scaling the input by 1 + 1e-6 moves the int8 logits
+# by 1.1% at b32); the two routes' program-level difference is printed.
+TOL_INT8_OP_REL = 1e-4
+TOL_INT8_FC = 1e-4
+INT8_FC_BATCH = 128
+
+
+@contextlib.contextmanager
+def int8_plain():
+    from paddle_tpu_torch.ops.kernels import int8 as i8
+
+    saved = (i8.int8_matmul_dequant, i8.int8_conv2d_dequant)
+    i8.int8_matmul_dequant = i8.int8_matmul_dequant_plain
+    i8.int8_conv2d_dequant = i8.int8_conv2d_dequant_plain
+    try:
+        yield
+    finally:
+        i8.int8_matmul_dequant, i8.int8_conv2d_dequant = saved
+
+
+def int8_ops_against_simulate(exe, program, feed, fetches, scope):
+    """Run ``program`` recording each quant op's inputs and output, then
+    hold each output against the simulate route (use_pallas_int8 off) on
+    the same inputs.  Returns (ops, ops on the kernel route, worst rel err
+    of an op's output relative to its largest value)."""
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.static import registry
+
+    real = {t: registry._REGISTRY[t] for t in ("quant_conv2d", "quant_mul")}
+    records = []
+
+    def recorder(t):
+        def lowering(ins, attrs, op):
+            n0 = sum(config.launch_counts().values())
+            outs = real[t](ins, attrs, op)
+            kernel = sum(config.launch_counts().values()) > n0
+            records.append((t, ins, attrs, op, outs, kernel))
+            return outs
+        return lowering
+
+    registry._REGISTRY.update({t: recorder(t) for t in real})
+    try:
+        run_static(exe, program, feed, fetches, scope)
+    finally:
+        registry._REGISTRY.update(real)
+    worst = 0.0
+    with int8_flag(False):
+        for t, ins, attrs, op, outs, _ in records:
+            slot = "Output" if t == "quant_conv2d" else "Out"
+            sim = real[t](ins, attrs, op)[slot][0]
+            worst = max(worst, rel_err(outs[slot][0], sim))
+    return len(records), sum(r[-1] for r in records), worst
+
+
+@contextlib.contextmanager
+def int8_flag(on):
+    from paddle_tpu_torch.core import flags
+
+    saved = flags.get_flag("use_pallas_int8")
+    flags.set_flags({"use_pallas_int8": on})
+    try:
+        yield
+    finally:
+        flags.set_flags({"use_pallas_int8": saved})
+
+
+def int8_model(name, build, seed):
+    """One program through PTQ (one calibration batch) and
+    QUANT_INFER_PIPELINE in fp32: quant op counts, launches of rows 15 / 14
+    per forward, the kernel route against its plain versions and against
+    the simulate route, the int8 error against the float program, images/s
+    of the int8 and fp32 programs, and a profile of one int8 forward."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.slim import PostTrainingQuantization
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import nets
+    from paddle_tpu_torch.static import passes as P
+
+    batch = STATIC_BATCH[name]
+    main, startup, fetches = build(static, L, nets, seed)
+    fp32_prog = main.clone(for_test=True)
+    qprog = main.clone(for_test=True)
+    rng = np.random.default_rng(seed)
+    scope = bn_state(static, startup, qprog, rng)
+    fp32_scope = copy_scope(static, scope)
+    feed = {"img": rng.standard_normal((batch, 3, 32, 32)).astype(np.float32)}
+    exe = static.Executor(DEV)
+    with opt_passes(""):
+        fp32_out = run_static(exe, fp32_prog, feed, fetches, fp32_scope)
+        t0 = time.perf_counter()
+        PostTrainingQuantization(
+            exe, program=qprog, feed_names=["img"],
+            batch_generator=lambda: iter([feed]), batch_nums=1,
+            scope=scope).quantize()
+        ptq_s = time.perf_counter() - t0
+        rewritten, report = P.PassManager(P.QUANT_INFER_PIPELINE).apply(
+            qprog, {"img"}, fetches)
+        types = [op.type for op in rewritten.global_block().ops]
+        quant_ops = {t: types.count(t) for t in ("quant_conv2d", "quant_mul")}
+        log(f"[int8] {name} b{batch}: PTQ {ptq_s:.2f} s; "
+            f"{report.to_text()}; {quant_ops}")
+        run_static(exe, rewritten, feed, fetches, scope)
+        torch.cuda.synchronize()
+        config.reset_counts()
+        outs = run_static(exe, rewritten, feed, fetches, scope)
+        torch.cuda.synchronize()
+        counts = config.launch_counts()
+        for k, n in INT8_LAUNCHES[name].items():
+            check(counts.get(k, 0) == n, f"{name}: {counts.get(k, 0)} {k} "
+                  f"launches per int8 forward (want {n})")
+        check(all(torch.isfinite(t).all() for t in outs),
+              f"{name}: finite int8 fetches of shapes "
+              f"{[tuple(t.shape) for t in outs]}")
+        with int8_plain():
+            plain_outs = run_static(exe, rewritten, feed, fetches, scope)
+        with int8_flag(False):
+            config.reset_counts()
+            sim_outs = run_static(exe, rewritten, feed, fetches, scope)
+            torch.cuda.synchronize()
+            check(not any(k.startswith("int8") for k in
+                          config.launch_counts()),
+                  f"{name}: no int8 launch on the simulate route")
+        errs = {}
+        for f, got, ref, sim, flt in zip(fetches, outs, plain_outs, sim_outs,
+                                         fp32_out):
+            e_plain, e_sim = rel_err(got, ref), rel_err(got, sim)
+            e_int8 = rel_err(got, flt)
+            check(e_plain <= TOL_INT8_PLAIN_REL, f"{name}: fetch {f} kernels "
+                  f"vs plain versions rel err {e_plain:.3g} <= "
+                  f"{TOL_INT8_PLAIN_REL}")
+            errs[f] = dict(vs_plain=e_plain, vs_simulate=e_sim,
+                           int8_rel_err=e_int8)
+        n_ops, n_kernel, op_err = int8_ops_against_simulate(
+            exe, rewritten, feed, fetches, scope)
+        want = sum(INT8_LAUNCHES[name].values())
+        check(n_kernel == want and op_err <= TOL_INT8_OP_REL,
+              f"{name}: {n_ops} quant ops ({n_kernel} on the kernels) "
+              f"against the simulate route on the same inputs: rel err "
+              f"{op_err:.3g} <= {TOL_INT8_OP_REL}")
+        prof = profile_forward(exe, rewritten, feed, fetches, scope)
+    times = interleaved_timings(
+        exe, {"int8": (rewritten, scope, ""),
+              "fp32": (fp32_prog, fp32_scope, "default")},
+        feed, fetches, batch)
+    q, f = times["int8"], times["fp32"]
+    log(f"[int8] {name}: int8 {q['images_per_s']:.1f} images/s (median "
+        f"{q['wall_ms']:.3f} ms a run, IQR {q['wall_iqr_ms']:.3f}; "
+        f"{q['device_span_ms']:.3f} ms between device events), fp32 with "
+        f"DEFAULT_PIPELINE {f['images_per_s']:.1f} images/s "
+        f"({f['wall_ms']:.3f} ms, IQR {f['wall_iqr_ms']:.3f}; "
+        f"{f['device_span_ms']:.3f} ms): "
+        f"{q['images_per_s'] / f['images_per_s']:.3f}x; int8 rel err vs the "
+        f"float program {errs[fetches[0]]['int8_rel_err']:.4g}")
+    return counts, dict(
+        batch=batch, dtype="float32", ptq_s=ptq_s, quant_ops=quant_ops,
+        ops_before=report.ops_before, ops_after=report.ops_after,
+        launches=counts, errors=errs, op_vs_simulate_rel_err=op_err,
+        int8=dict(q, profile=prof), fp32=f,
+        vs_fp32=q["images_per_s"] / f["images_per_s"])
+
+
+def int8_fc_check(seed):
+    """The reference's fc check on the card: fc 128 -> 128 + relu at b128,
+    PTQ'd; its quant_mul on row 14 against the simulate route within
+    rtol = atol = TOL_INT8_FC, and within the PTQ error bound of the float
+    program (5% of the largest value + 1e-3)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.slim import PostTrainingQuantization
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import passes as P
+
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with static.program_guard(main, startup):
+        x = L.data("x", [128])
+        y = L.fc(x, 128, act="relu")
+    scope = static.Scope()
+    exe = static.Executor(DEV)
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.default_rng(seed).standard_normal(
+        (INT8_FC_BATCH, 128)).astype(np.float32)}
+    with opt_passes(""):
+        float_out = exe.run(main, feed=feed, fetch_list=[y], scope=scope)[0]
+        PostTrainingQuantization(
+            exe, program=main, feed_names=["x"],
+            batch_generator=lambda: iter([feed]), batch_nums=1,
+            scope=scope).quantize()
+        rewritten, _ = P.PassManager(("quant_infer",)).apply(
+            main, {"x"}, [y.name])
+        sim = exe.run(main, feed=feed, fetch_list=[y.name], scope=scope)[0]
+        config.reset_counts()
+        got = exe.run(rewritten, feed=feed, fetch_list=[y.name],
+                      scope=scope)[0]
+        launched = config.launch_counts().get("int8_matmul_dequant", 0)
+    check(launched == 1, f"fc 128 -> 128 b{INT8_FC_BATCH}: {launched} "
+          f"int8_matmul_dequant launch")
+    err = float(np.abs(got - sim).max())
+    check(np.allclose(got, sim, rtol=TOL_INT8_FC, atol=TOL_INT8_FC),
+          f"fc 128 -> 128 b{INT8_FC_BATCH}: row 14 route vs simulate route "
+          f"max abs err {err:.3g} within rtol = atol = {TOL_INT8_FC}")
+    scale = float(np.abs(float_out).max())
+    ptq = float(np.abs(got - float_out).max())
+    check(ptq <= 0.05 * scale + 1e-3, f"fc 128 -> 128: int8 vs float max "
+          f"abs err {ptq:.3g} <= 5% of {scale:.3g} + 1e-3")
+    return dict(vs_simulate_max_abs_err=err, vs_float_max_abs_err=ptq)
+
+
+def int8_phase(seed):
+    log("[int8] int8 static inference: PostTrainingQuantization, "
+        "QUANT_INFER_PIPELINE, Executor")
+    counts, out = {}, {"fc128": int8_fc_check(seed)}
+    for name, build in (("conv_tower", conv_tower),
+                        ("vgg16_bn_drop", vgg16_bn_drop)):
+        counts[name], out[name] = int8_model(name, build, seed)
+    return counts["vgg16_bn_drop"], out
+
+
+def new_entries(bn_cases, train_counts, int8_cases, int8_counts):
+    """The kernels-line entries of rows 11, 12, 14 and 15: fp32 at the
+    first main-path case, bf16 beside it, every case listed; launches per
+    VGG-16 forward of the [vision train] (rows 11-12) and [int8] (rows
+    14-15) phases."""
+    from paddle_tpu_torch.ops.kernels import bn_act_train as bt
+    from paddle_tpu_torch.ops.kernels import int8 as i8
+
+    def entry(name, source, replaces, r, rb, launches, per, shape, library,
+              cases):
+        return {"name": name, "route": "cuda",
+                "source": f"paddle_tpu_torch/ops/kernels/csrc/{source}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+                "library": library, "eager_ms": r["eager_ms"],
+                "dtype": "float32", "shape": shape,
+                "bf16_ms": rb["ms"], "bf16_max_abs_err": rb["err"],
+                "bf16_bound_ms": rb["bound"][0],
+                "bf16_library_ms": rb["library_ms"],
+                "launches_per": per, "cases": cases}
+
+    def cases(results, pick):
+        return [dict(case=label, dtype=dtag(dtype), ms=x["ms"],
+                     eager_ms=x["eager_ms"], plain_ms=x["plain_ms"],
+                     library_ms=x["library_ms"], bound_ms=x["bound"][0],
+                     bound_by=x["bound"][1], max_abs_err=x["err"],
+                     **({"cudnn_dequant_ms": x["cudnn_dequant_ms"]}
+                        if "cudnn_dequant_ms" in x else {}))
+                for label, dtype, x in pick(results)]
+
+    first = BN_CASES[0][0]
+    out = []
+    for i, (name, replaces, lib) in enumerate((
+            (bt.STATS_KERNEL, bt.STATS_REPLACES, "torch.var_mean(x, dim=0)"),
+            (bt.SCALE_KERNEL, bt.SCALE_REPLACES,
+             "torch.addcmul(b, x, a) then torch.relu"))):
+        out.append(entry(
+            name, bt.SOURCE, replaces, bn_cases[(first, torch.float32)][i],
+            bn_cases[(first, torch.bfloat16)][i],
+            train_counts.get(name, 0),
+            "vgg16_bn_drop train-mode forward ([vision train], b128)",
+            first, lib,
+            cases(bn_cases, lambda res: [(lab, dt, x[i]) for (lab, dt), x
+                                         in res.items()])))
+    for kind, name, source, replaces, lib, first in (
+            ("conv", i8.CONV_KERNEL, i8.CONV_SOURCE, i8.CONV_REPLACES,
+             "none (no PyTorch call convolves int8; cudnn_dequant_ms is "
+             "cuDNN on the dequantized operands, for context)",
+             INT8_CONV_CASES[0][0]),
+            ("matmul", i8.MATMUL_KERNEL, i8.MATMUL_SOURCE, i8.MATMUL_REPLACES,
+             "torch._int_mm (the int32 product alone)",
+             INT8_MM_CASES[0][0])):
+        r = int8_cases[(kind, first, torch.float32)]
+        rb = int8_cases[(kind, first, torch.bfloat16)]
+        e = entry(name, source, replaces, r, rb, int8_counts.get(name, 0),
+                  "vgg16_bn_drop int8 forward ([int8], b128)", first, lib,
+                  cases(int8_cases, lambda res: [
+                      (lab, dt, x) for (k, lab, dt), x in res.items()
+                      if k == kind]))
+        if kind == "conv":
+            e["cudnn_dequant_ms"] = r["cudnn_dequant_ms"]
+        out.append(e)
+    return out
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2395,6 +3110,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     vision = vision_kernel_phase(gen)
     vision_counts, static_out = static_phase(args.seed)
+    torch.cuda.empty_cache()
+    train_counts, vision_train = vision_train_phase(args.seed)
+    torch.cuda.empty_cache()
+    bn_cases, int8_cases = int8_kernel_phase(gen)
+    int8_counts, int8_out = int8_phase(args.seed)
 
     kernels = []
     for k in fap.KERNELS + ln.KERNELS:
@@ -2480,11 +3200,16 @@ def main(argv=None):
                       f"{t}_library_ms": r["library_ms"]})
     kernels.append(entry)
     kernels += vision_entries(vision, vision_counts)
+    kernels += new_entries(bn_cases, train_counts, int8_cases, int8_counts)
+    check(len(kernels) == 15, f"the kernels line lists {len(kernels)} "
+          f"kernels, one for each of the 15 TPU kernels")
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"bhsd": dict(bhsd_model, kernel_a_max_abs_err=cross)}),
           flush=True)
     print(json.dumps({"paged": paged_slice}), flush=True)
     print(json.dumps({"static": static_out}), flush=True)
+    print(json.dumps({"vision_train": vision_train}), flush=True)
+    print(json.dumps({"int8": int8_out}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

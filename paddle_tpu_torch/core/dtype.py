@@ -1,6 +1,11 @@
 """Dtype names (counterpart of paddle_tpu/core/dtype.py), mapped onto
 torch dtypes.  Models serve in float32 or bfloat16; the static graph's
-variables also name integer and bool types."""
+variables also name integer and bool types.
+
+As in the JAX package, which runs with x64 off, the names "float64" and
+"int64" resolve to their 32-bit types (``resolve`` does the same for a
+torch dtype): a program that declares or is fed 64-bit values computes in
+32 bits."""
 from __future__ import annotations
 
 import torch
@@ -14,16 +19,22 @@ _NAME_TO_DTYPE = {
     "bfloat16": torch.bfloat16,
     "bf16": torch.bfloat16,
     "float16": torch.float16,
-    "float64": torch.float64,
+    "float64": torch.float32,
+    "fp64": torch.float32,
     "int8": torch.int8,
+    "int16": torch.int16,
     "int32": torch.int32,
-    "int64": torch.int64,
+    "int64": torch.int32,
+    "uint8": torch.uint8,
     "bool": torch.bool,
 }
 _DTYPE_TO_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                   torch.float16: "float16", torch.float64: "float64",
-                  torch.int8: "int8", torch.int32: "int32",
-                  torch.int64: "int64", torch.bool: "bool"}
+                  torch.int8: "int8", torch.int16: "int16",
+                  torch.int32: "int32", torch.int64: "int64",
+                  torch.uint8: "uint8", torch.bool: "bool"}
+# 64-bit types and the 32-bit types they resolve to (x64 off)
+_X32 = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 _default_dtype = torch.float32
 
@@ -38,6 +49,13 @@ def convert_dtype(dtype):
         return _NAME_TO_DTYPE[name]
     except KeyError:
         raise ValueError(f"Unknown dtype name: {dtype!r}") from None
+
+
+def resolve(dtype) -> torch.dtype:
+    """The dtype a value of ``dtype`` computes in: 64-bit types resolve to
+    their 32-bit counterparts, as in the JAX package with x64 off."""
+    d = convert_dtype(dtype)
+    return _X32.get(d, d)
 
 
 def dtype_name(dtype) -> str:

@@ -77,12 +77,22 @@ define_flag("use_pallas_conv_fused", True, "Use the fused conv + BN + "
             "inference fused_conv2d_bn_act op where the JAX package's shape "
             "gate holds: the BN transform a * x + b and the activation as "
             "an epilogue on the conv's output tiles.  Off or refused by the "
-            "gate: the weight-space fold and one cuDNN convolution.  The "
-            "JAX package's name is kept.")
+            "gate: the weight-space fold and one cuDNN convolution.  In "
+            "training mode the flag selects the batch-statistics and scale "
+            "+ act kernels (ops/kernels/bn_act_train.py) after the library "
+            "conv.  The JAX package's name is kept.")
 define_flag("use_pallas_pool", True, "Use the NHWC max / average pooling "
             "CUDA kernel (ops/kernels/pooling.py) where the JAX package's "
             "shape gate holds.  Off or refused by the gate: PyTorch's "
             "pooling.  The JAX package's name is kept.")
+define_flag("use_pallas_int8", True, "Run the quant_conv2d / quant_mul "
+            "ops (static/ops_fused.py) on the int8 CUDA kernels (ops/"
+            "kernels/int8.py) where the JAX package's shape gate holds: "
+            "int8 operands, int32 sums, an fp32 per-channel dequant "
+            "epilogue.  Off or refused by the gate: the simulate route "
+            "(fixed-scale fake quant + the float op), bit for bit the "
+            "program before the quant_infer rewrite.  The JAX package's "
+            "name is kept.")
 define_flag("opt_passes", "", "Graph-rewrite pass pipeline applied to "
             "Programs on the Executor's first run of a (program, feeds, "
             "fetches) key (static/passes.py).  Empty (default): off.  "

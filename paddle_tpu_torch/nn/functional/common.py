@@ -25,15 +25,19 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
     scaled in training, and inference multiplies by 1 - p.  The mask comes
     from a generator on x's device seeded from the active host generator
     (core/random.py), as the JAX package draws it from the active key
-    stream.  A plain op, as in the JAX package."""
+    stream.  At p = 1 training returns zeros in both modes, as the JAX
+    package's all-false mask does.  A plain op, as in the JAX package."""
     if p == 0.0:
         return x
     if not training:
         return x if mode == "upscale_in_train" else x * (1.0 - p)
-    if not 0.0 <= p < 1.0:
-        raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"dropout probability must be in [0, 1], got {p}")
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if p == 1.0:
+        return torch.where(torch.zeros(x.shape, dtype=torch.bool,
+                                       device=x.device), x, zero)
     gen = _random.device_generator(x.device)
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
-    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
-                                               device=x.device))
+    return torch.where(keep, kept, zero)

@@ -7,11 +7,16 @@ plain version on CPU tensors.  Otherwise the composition below runs, as in
 the JAX package: fp32 statistics, the normalised value cast back to x's
 dtype, then scale and shift.
 
-BatchNorm has no kernel in the JAX package outside the fused training op
-(the vision training slice).  Inference folds the running statistics into
-a per-channel ``a * x + b``; training takes one-pass fp32 batch statistics
-(E[x^2] - E[x]^2) and returns the running statistics updated with
-``momentum``, as the JAX package does.  The running statistics are
+BatchNorm has no kernel in the JAX package outside the fused training op.
+Inference folds the running statistics into a per-channel ``a * x + b``;
+training takes one-pass fp32 batch statistics (E[x^2] - E[x]^2) and
+returns the running statistics updated with ``momentum``, as the JAX
+package does.  ``batch_norm_act`` is training-mode ``act(batch_norm(x))``
+as one unit (the training half of the fused conv op): with
+``use_pallas_conv_fused`` on and the JAX gate ``train_supported`` holding,
+the batch-statistics and scale + act kernels of
+ops/kernels/bn_act_train.py (their plain versions on CPU tensors);
+otherwise ``batch_norm`` and the activation.  The running statistics are
 returned, never updated in place.
 """
 from __future__ import annotations
@@ -19,7 +24,9 @@ from __future__ import annotations
 import torch
 
 from ...core import flags
+from ...ops.kernels import bn_act_train as _bn_train
 from ...ops.kernels import layer_norm as _fused
+from . import activation as _act_mod
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -83,4 +90,39 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                                        bias, epsilon)
         new_rm, new_rv = running_mean, running_var
     out = x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+    return out, new_rm, new_rv
+
+
+def _use_fused_bn_act(x, act, data_format) -> bool:
+    """The flag and the JAX package's gate of the fused train-mode BN +
+    act kernels."""
+    return (bool(flags.get_flag("use_pallas_conv_fused"))
+            and _bn_train.train_supported(x, act, data_format))
+
+
+def batch_norm_act(x, running_mean, running_var, weight=None, bias=None,
+                   momentum=0.9, epsilon=1e-5, act="", data_format="NHWC"):
+    """Training-mode ``act(batch_norm(x))`` as one unit.  Returns ``(out,
+    new_running_mean, new_running_var)``; the batch statistics enter the
+    running ones detached."""
+    if _use_fused_bn_act(x, act, data_format):
+        c = x.shape[-1]
+        gamma = torch.ones(c, device=x.device) if weight is None else weight
+        beta = torch.zeros(c, device=x.device) if bias is None else bias
+        out, mean, var = _bn_train.fused_bn_act_train(x, gamma, beta,
+                                                      float(epsilon), act)
+        mean = mean.detach().to(running_mean.dtype)
+        var = var.detach().to(running_var.dtype)
+        new_rm = momentum * running_mean + (1 - momentum) * mean
+        new_rv = momentum * running_var + (1 - momentum) * var
+        return out, new_rm, new_rv
+    out, new_rm, new_rv = batch_norm(
+        x, running_mean, running_var, weight=weight, bias=bias,
+        training=True, momentum=momentum, epsilon=epsilon,
+        data_format=data_format)
+    if act:
+        # paddle op names vs functional names: hard_swish -> hardswish
+        fn = getattr(_act_mod, act, None) \
+            or getattr(_act_mod, act.replace("_", ""))
+        out = fn(out)
     return out, new_rm, new_rv

@@ -40,6 +40,7 @@ class Kernel:
 _KERNEL_FLAGS: Tuple[Tuple[str, str], ...] = (
     ("conv", "use_pallas_conv_fused"),
     ("fa", "use_flash_attention"),
+    ("int8", "use_pallas_int8"),
     ("ln", "use_fused_layer_norm"),
     ("pgat", "use_paged_attention"),
     ("pool", "use_pallas_pool"),
@@ -69,7 +70,8 @@ def kernel_enabled(flag_name: str) -> bool:
 
 
 def fingerprint() -> str:
-    """Effective kernel set, e.g. ``tk1:conv=1,fa=1,ln=1,pgat=1,pool=1``
+    """Effective kernel set, e.g.
+    ``tk1:conv=1,fa=1,int8=1,ln=1,pgat=1,pool=1``
     (all zero off CUDA)."""
     bits = ",".join(f"{tag}={int(kernel_enabled(name))}"
                     for tag, name in _KERNEL_FLAGS)

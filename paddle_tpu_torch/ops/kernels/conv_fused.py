@@ -21,7 +21,7 @@ wrapper transposes w to (kh, kw, C, O) per call, as the JAX wrapper does.
 
 The JAX function has no VJP, so neither has this one: a call with grad
 enabled on an input that requires grad raises.  The training-mode
-kernels (``_batch_stats``, ``scale_act``) come with the training slice.
+kernels (``_batch_stats``, ``scale_act``) are in ``bn_act_train.py``.
 """
 from __future__ import annotations
 
@@ -137,9 +137,8 @@ def _no_grad_check(name, *tensors):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} has no backward (nor has the TPU kernel it replaces); "
-            f"training through the fused conv comes with the vision "
-            f"training slice (rows 11-12, conv_fused._batch_stats / "
-            f"scale_act)")
+            f"the training-mode fused conv runs the library conv and "
+            f"bn_act_train.fused_bn_act_train")
 
 
 def _check(x, w, a, b, stride, padding, act):

@@ -11,7 +11,9 @@
 // wrapper does), a and b fp32 (O,), the sum in fp32 and the output NHWC in
 // x's dtype.  Acts: none, relu, relu6, sigmoid, tanh, gelu (erf), silu.
 // Zero padding is a bounds check on each input row; the JAX wrapper's
-// padded copy of x (a TPU block-shape artefact) is not made.
+// padded copy of x (a TPU block-shape artefact) is not made.  The pixel
+// addressing and the A-tile copies are conv_tile.cuh's, shared with the
+// int8 convolution.
 //
 // Implicit GEMM: M = n * Ho * Wo output pixels, N = O channels, K = kh * kw
 // * C.  A CTA of 4 warps owns a 64-pixel x 128-channel output tile and
@@ -40,20 +42,30 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act.cuh"
+#include "conv_tile.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
+using conv_tile::kBM;       // output pixels per CTA
+using conv_tile::kKBytes;   // channel bytes per K tile
+using conv_tile::kThreads;  // 4 warps
+using conv_tile::RowInfo;
+using conv_tile::Shape;
+using conv_tile::cp_async16;
+using conv_tile::cp_async_commit;
+using conv_tile::cp_async_wait;
+
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
-constexpr int kBM = 64;        // output pixels per CTA
 constexpr int kBN = 128;       // output channels per CTA
-constexpr int kKBytes = 64;    // channel bytes per K tile
-constexpr int kThreads = 128;  // 4 warps
 constexpr int kStages = 3;
 
-enum Act { kNone = 0, kRelu, kRelu6, kSigmoid, kTanh, kGelu, kSilu };
+using epilogue_act::apply_act;
+using epilogue_act::kNone;
+using epilogue_act::kSilu;
 
 template <typename T>
 struct Tile {
@@ -66,81 +78,18 @@ struct Tile {
   static constexpr int kStage = kA + kB;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   mma_bf16::smem_addr(smem)),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float apply_act(float v, int act) {
-  switch (act) {
-    case kRelu:
-      return fmaxf(v, 0.0f);
-    case kRelu6:
-      return fminf(fmaxf(v, 0.0f), 6.0f);
-    case kSigmoid:
-      return 1.0f / (1.0f + expf(-v));
-    case kTanh:
-      return tanhf(v);
-    case kGelu:
-      return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-    case kSilu:
-      return v / (1.0f + expf(-v));
-    default:
-      return v;
-  }
-}
-
-struct Shape {
-  int n, h, w, c, o, kh, kw, sh, sw, ph, pw, ho, wo;
-  int64_t m;  // n * ho * wo
-};
-
-// The two A rows a thread copies per K tile: their image, output row and
-// column (or image -1 past the last pixel), fixed for the whole K loop.
-struct RowInfo {
-  int img[2], oy[2], ox[2];
-};
-
 template <typename T>
 __device__ __forceinline__ void load_tile(T* stage, const T* x, const T* wk,
                                           const Shape& s, const RowInfo& ri,
                                           int kt, int n0) {
   using Cfg = Tile<T>;
-  constexpr int kChunksA = kKBytes / 16;  // 16-byte chunks in an A row
   const int tid = threadIdx.x;
   const int c_tiles = s.c / Cfg::kBK;
   const int tap = kt / c_tiles;
   const int c0 = (kt - tap * c_tiles) * Cfg::kBK;
   const int i = tap / s.kw, j = tap - (tap / s.kw) * s.kw;
-  T* As = stage;
   T* Bs = stage + Cfg::kA;
-  const int chunk = tid % kChunksA;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int r = tid / kChunksA + q * (kThreads / kChunksA);
-    const int y = ri.oy[q] * s.sh - s.ph + i;
-    const int xx = ri.ox[q] * s.sw - s.pw + j;
-    const bool ok = ri.img[q] >= 0 && y >= 0 && y < s.h && xx >= 0 &&
-                    xx < s.w;
-    const T* src = x;
-    if (ok)
-      src = x + (((int64_t)ri.img[q] * s.h + y) * s.w + xx) * s.c + c0 +
-            chunk * (16 / (int)sizeof(T));
-    cp_async16(As + r * Cfg::kLdA + chunk * (16 / (int)sizeof(T)), src,
-               ok ? 16 : 0);
-  }
+  conv_tile::load_a<T>(stage, Cfg::kLdA, x, s, ri, i, j, c0);
   constexpr int kChunksB = kBN * (int)sizeof(T) / 16;  // chunks in a B row
   constexpr int kPer = Cfg::kBK * kChunksB / kThreads;
   const T* wrow = wk + ((int64_t)tap * s.c + c0) * s.o + n0;
@@ -225,21 +174,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n0 = blockIdx.y * kBN;
   const int tid = threadIdx.x;
 
-  RowInfo ri;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int64_t p = m0 + tid / (kKBytes / 16) + q * (kThreads * 16 / kKBytes);
-    if (p < s.m) {
-      const int64_t hw = (int64_t)s.ho * s.wo;
-      ri.img[q] = (int)(p / hw);
-      const int rem = (int)(p - (int64_t)ri.img[q] * hw);
-      ri.oy[q] = rem / s.wo;
-      ri.ox[q] = rem - ri.oy[q] * s.wo;
-    } else {
-      ri.img[q] = -1;
-      ri.oy[q] = ri.ox[q] = 0;
-    }
-  }
+  const RowInfo ri = conv_tile::row_info(s, m0);
 
   const int k_tiles = s.kh * s.kw * (s.c / Cfg::kBK);
 #pragma unroll
@@ -345,18 +280,11 @@ extern "C" int conv2d_bn_act(const void* x, const void* wk, const void* a,
                              int ph, int pw, int act, int dtype,
                              void* stream) {
   const int bk = dtype == kBF16 ? Tile<__nv_bfloat16>::kBK : Tile<float>::kBK;
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || c % bk != 0 || o <= 0 ||
-      o % kBN != 0 || kh <= 0 || kw <= 0 || sh <= 0 || sw <= 0 || ph < 0 ||
-      pw < 0 || h + 2 * ph < kh || w + 2 * pw < kw || act < kNone ||
-      act > kSilu)
-    return (int)cudaErrorInvalidValue;
   Shape s;
-  s.n = n; s.h = h; s.w = w; s.c = c; s.o = o; s.kh = kh; s.kw = kw;
-  s.sh = sh; s.sw = sw; s.ph = ph; s.pw = pw;
-  s.ho = (h + 2 * ph - kh) / sh + 1;
-  s.wo = (w + 2 * pw - kw) / sw + 1;
-  s.m = (int64_t)n * s.ho * s.wo;
-  if ((s.m + kBM - 1) / kBM > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (!conv_tile::make_shape(s, n, h, w, c, o, kh, kw, sh, sw, ph, pw, bk,
+                             kBN) ||
+      act < kNone || act > kSilu)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);

@@ -109,8 +109,8 @@ def _check(name, x, kernel, stride, padding):
                          f"padding {padding} on {h}x{w}")
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError(
-            f"{name} has no backward (nor has the TPU kernel it replaces); "
-            f"training through it comes with the vision training slice")
+            f"{name} has no backward (nor has the TPU kernel it replaces);"
+            f" a program with a backward keeps its pools NCHW")
     if x.device.type == "cpu":
         return
     if x.device.type != "cuda":

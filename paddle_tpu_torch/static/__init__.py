@@ -9,10 +9,11 @@ rewrite (conv + BN + act fusion, NHWC layout), whose fused convolutions and
 NHWC pools take the port's CUDA kernels.
 
 Ported so far: the program model, the layers and nets that build vision
-inference programs, their op lowerings, the default pass pipeline and the
-Executor.  Still to port (ROADMAP): backward and optimizers, control flow,
-io, the program verifier and shape engine, the compile cache, memory and
-sharding checks, and the quant ops.
+programs, their op lowerings (train-mode BN included), the default pass
+pipeline, the int8 ``QUANT_INFER_PIPELINE`` for programs quantized by
+``slim.PostTrainingQuantization``, and the Executor.  Still to port
+(ROADMAP): backward and optimizers, control flow, io, the program verifier
+and shape engine, the compile cache, and memory and sharding checks.
 """
 from . import layers, nets
 from .executor import Executor, Scope, global_scope, scope_guard
@@ -28,8 +29,8 @@ from .framework import (
     program_guard,
     unique_name,
 )
-from .passes import (DEFAULT_PIPELINE, PassManager, available_passes,
-                     golden_parity, optimize_for_executor)
+from .passes import (DEFAULT_PIPELINE, QUANT_INFER_PIPELINE, PassManager,
+                     available_passes, golden_parity, optimize_for_executor)
 from .registry import register_op, registered_ops
 
 data = layers.data
@@ -38,5 +39,6 @@ __all__ = ["layers", "nets", "Executor", "Scope", "global_scope",
            "scope_guard", "Block", "Operator", "Parameter", "Program",
            "Variable", "default_main_program", "default_startup_program",
            "name_scope", "program_guard", "unique_name", "DEFAULT_PIPELINE",
+           "QUANT_INFER_PIPELINE",
            "PassManager", "available_passes", "golden_parity",
            "optimize_for_executor", "register_op", "registered_ops", "data"]

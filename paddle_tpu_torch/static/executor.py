@@ -29,12 +29,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import dtype as _dtype
 from ..core import errors as _errors
 from ..core import flags as _flags
 from ..core import random as _random
 from ..core.device import resolve_device
 from . import ops as _ops
 from . import ops_fused as _ops_fused  # noqa: F401 — registers lowerings
+from . import ops_tail as _ops_tail  # noqa: F401 — registers lowerings
 from .framework import Program, Variable, default_main_program
 from .registry import get_lowering
 
@@ -222,8 +224,12 @@ class Executor:
             raise _errors.PreconditionNotMetError(
                 f"persistable variables {missing} have no value in scope — "
                 "run the startup program first (exe.run(startup_program))")
+        block = program.global_block()
         for k, v in feed.items():
-            env[k] = self._tensor(v)
+            # each feed in its data variable's dtype (64-bit resolved to
+            # 32, as in the JAX package with x64 off)
+            env[k] = self._tensor(v, block.var(k).dtype
+                                  if block.has_var(k) else None)
 
         run_program = entry.program
         seed = run_program.random_seed or _random.draw_seed()
@@ -280,14 +286,17 @@ class Executor:
             self._cache[key] = entry
         return entry
 
-    def _tensor(self, value) -> torch.Tensor:
-        if isinstance(value, torch.Tensor):
-            return value if value.device == self.place \
-                else value.to(self.place)
-        arr = np.asarray(value)
-        host = torch.from_numpy(arr) if arr.flags.writeable \
-            else torch.tensor(arr)
-        return host.to(self.place)
+    def _tensor(self, value, dtype=None) -> torch.Tensor:
+        """``value`` on the Executor's device in ``dtype`` (None: its own
+        dtype, 64-bit types resolved to 32-bit)."""
+        if not isinstance(value, torch.Tensor):
+            arr = np.asarray(value)
+            value = torch.from_numpy(arr) if arr.flags.writeable \
+                else torch.tensor(arr)
+        dtype = _dtype.resolve(dtype if dtype is not None else value.dtype)
+        if value.device == self.place and value.dtype == dtype:
+            return value
+        return value.to(device=self.place, dtype=dtype)
 
     @staticmethod
     def _first_access(block, name: str):

@@ -10,19 +10,34 @@ paddle_tpu/static/ops_fused.py).
   on CUDA tensors, its plain version on CPU tensors.  Otherwise BN is
   folded into the filter (``w' = w * a`` per output channel, ``b' =
   conv_bias * a + b``) and cuDNN runs one convolution, followed by the
-  activation op.  Training mode (``is_test=False``) raises: it needs the
-  BN-statistics kernels of the vision training slice.
+  activation op.  Training mode (``is_test=False``) runs the library
+  conv, then ``nn.functional.norm.batch_norm_act`` (the batch-statistics
+  and scale + act kernels where the flag and ``train_supported`` hold),
+  and writes the running statistics to ``MeanOut`` / ``VarianceOut``.
 - ``fused_matmul_bias_act``: mul -> elementwise_add(1-D bias) -> act.
-
-The quant ops (``quant_conv2d`` / ``quant_mul``) come with the int8 slice.
+- ``quant_conv2d`` / ``quant_mul``: the int8 inference ops the
+  ``quant_infer`` pass makes from PTQ artifacts.  Where the
+  ``use_pallas_int8`` flag, a per-output-channel ``weight_scale`` and the
+  JAX gate (``conv_supported`` / ``matmul_supported``) hold, the input is
+  quantized to int8 (the fixed-scale lowering's rounding), the weight's
+  int8 grid recovered as ``round(w / step_w)`` (both per call, as in the
+  JAX package), and the int8 kernel (ops/kernels/int8.py) sums in int32
+  with the fp32 dequant and act as its epilogue.  Otherwise the simulate
+  route replays the registered fixed-scale lowering and the float op: bit
+  for bit the program before the rewrite.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from ..core import flags
 from ..nn import functional as F
-from ..nn.functional.norm import bn_inference_scale_bias
+from ..nn.functional.norm import batch_norm_act, bn_inference_scale_bias
 from ..ops.kernels import conv_fused as _cf
+from ..ops.kernels import int8 as _int8
 from .ops import _one, matmul_2d
+from .ops_tail import qmax as _qmax
 from .registry import get_lowering, register_op
 
 
@@ -74,12 +89,18 @@ def _fused_conv2d_bn_act(ins, attrs, op):
         else _pair(raw_padding)
 
     if not attrs.get("is_test", True):
-        raise NotImplementedError(
-            "fused_conv2d_bn_act in training mode (is_test=False) needs the "
-            "BN-statistics and scale+act kernels (conv_fused._batch_stats "
-            "and scale_act, rows 11-12), which come with the vision "
-            "training slice; clone the program with for_test=True to run "
-            "inference")
+        # training: the library conv, then the fused BN statistics + scale
+        # + act with the running-stat outputs
+        out = F.conv2d(x, w, bias=conv_bias, stride=stride,
+                       padding=raw_padding, dilation=dilation, groups=groups,
+                       data_format=data_format)
+        y, new_rm, new_rv = batch_norm_act(
+            out, _one(ins, "Mean"), _one(ins, "Variance"),
+            weight=_one(ins, "Scale"), bias=_one(ins, "BnBias"),
+            momentum=attrs.get("momentum", 0.9),
+            epsilon=attrs.get("epsilon", 1e-5), act=act,
+            data_format=data_format)
+        return {"Output": [y], "MeanOut": [new_rm], "VarianceOut": [new_rv]}
 
     a, b = bn_inference_scale_bias(
         _one(ins, "Mean"), _one(ins, "Variance"),
@@ -100,6 +121,104 @@ def _fused_conv2d_bn_act(ins, attrs, op):
                    padding=raw_padding, dilation=dilation, groups=groups,
                    data_format=data_format)
     return {"Output": [_apply_act(out, act, attrs, op)]}
+
+
+def _quantize_int8(x, scale, qmax):
+    """Symmetric quantization with the fixed-scale lowering's rounding:
+    ``round(clip(x / scale, -1, 1) * qmax)`` as int8, contiguous."""
+    return (x / scale).clamp(-1.0, 1.0).mul(qmax).round() \
+        .to(torch.int8).contiguous()
+
+
+def _simulate_qdq(x, in_scale, in_bits, op):
+    """The simulate route's input: the registered fixed-scale fake-quant
+    lowering the quant_infer pass removed, replayed as it is."""
+    return get_lowering("fake_quantize_dequantize_fixed_scale")(
+        {"X": [x]}, {"bit_length": in_bits, "scale": in_scale}, op)["Out"][0]
+
+
+def _int8_spec(shape):
+    """A shape-and-dtype stand-in for the quantized input, for the gates."""
+    return torch.empty(tuple(shape), dtype=torch.int8, device="meta")
+
+
+@register_op("quant_conv2d")
+def _quant_conv2d(ins, attrs, op):
+    x = _one(ins, "Input")
+    w = _one(ins, "Filter")
+    bias = _one(ins, "Bias")
+    act = attrs.get("act", "")
+    data_format = attrs.get("data_format", "NCHW")
+    stride = _pair(attrs.get("strides", 1))
+    dilation = _pair(attrs.get("dilations", 1))
+    groups = attrs.get("groups", 1)
+    raw_padding = attrs.get("paddings", 0)
+    padding = raw_padding if isinstance(raw_padding, str) \
+        else _pair(raw_padding)
+    in_scale = float(attrs["in_scale"])
+    in_bits = int(attrs.get("in_bits", 8))
+    w_scale = torch.tensor(attrs["weight_scale"], dtype=torch.float32,
+                           device=x.device)                   # (O,)
+    w_bits = int(attrs.get("weight_bits", 8))
+
+    if (isinstance(padding, tuple) and data_format == "NHWC"
+            and w_scale.shape[0] == w.shape[0]
+            and flags.get_flag("use_pallas_int8")
+            and _int8.conv_supported(_int8_spec(x.shape), tuple(w.shape),
+                                     stride, padding, dilation, groups, act,
+                                     data_format)):
+        qm_in, qm_w = _qmax(in_bits), _qmax(w_bits)
+        x_q = _quantize_int8(x, in_scale, qm_in)
+        # the weight in the scope is int8-simulated (q / qmax * scale with
+        # q integral), so dividing by the step recovers the int8 grid point
+        step_w = w_scale / qm_w
+        w_q = torch.round(w / step_w.reshape(-1, 1, 1, 1)).to(torch.int8)
+        out = _int8.int8_conv2d_dequant(
+            x_q, w_q, (in_scale / qm_in) * step_w,
+            bias=None if bias is None else bias.float(), stride=stride,
+            padding=padding, act=act, out_dtype=x.dtype)
+        return {"Output": [out]}
+
+    xq = _simulate_qdq(x, in_scale, in_bits, op)
+    out = F.conv2d(xq, w, bias=bias, stride=stride, padding=raw_padding,
+                   dilation=dilation, groups=groups, data_format=data_format)
+    return {"Output": [_apply_act(out, act, attrs, op)]}
+
+
+@register_op("quant_mul")
+def _quant_mul(ins, attrs, op):
+    x, y = _one(ins, "X"), _one(ins, "Y")
+    act = attrs.get("act", "")
+    xd = attrs.get("x_num_col_dims", 1)
+    yd = attrs.get("y_num_col_dims", 1)
+    xs, ys = tuple(x.shape), tuple(y.shape)
+    in_scale = float(attrs["in_scale"])
+    in_bits = int(attrs.get("in_bits", 8))
+    w_scale = torch.tensor(attrs["weight_scale"], dtype=torch.float32,
+                           device=x.device)                   # (out,)
+    w_bits = int(attrs.get("weight_bits", 8))
+    x2_shape = (int(np.prod(xs[:xd])), int(np.prod(xs[xd:])))
+    y2_shape = (int(np.prod(ys[:yd])), int(np.prod(ys[yd:])))
+
+    # per-channel scales line up with the flattened output only when the
+    # weight's quant axis is its flattened minor axis
+    if (w_scale.shape[0] == y2_shape[1]
+            and flags.get_flag("use_pallas_int8")
+            and _int8.matmul_supported(_int8_spec(x2_shape), y2_shape,
+                                       act)):
+        qm_in, qm_w = _qmax(in_bits), _qmax(w_bits)
+        x_q = _quantize_int8(x.reshape(x2_shape), in_scale, qm_in)
+        step_w = w_scale / qm_w
+        w_q = torch.round(y.reshape(y2_shape) / step_w[None, :]) \
+            .to(torch.int8)
+        out2 = _int8.int8_matmul_dequant(
+            x_q, w_q, (in_scale / qm_in) * step_w, act=act,
+            out_dtype=x.dtype)
+        return {"Out": [out2.reshape(xs[:xd] + ys[yd:])]}
+
+    xq = _simulate_qdq(x, in_scale, in_bits, op)
+    out = matmul_2d(xq, y, xd, yd)
+    return {"Out": [_apply_act(out, act, attrs, op)]}
 
 
 @register_op("fused_matmul_bias_act")

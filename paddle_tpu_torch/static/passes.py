@@ -6,7 +6,9 @@ common-subexpression and dead-op elimination, the fusion family
 (conv_bn_fuse_pass.cc, fc_fuse_pass.cc) and layout transfer.  The passes
 pay off at the Program level: fewer ops to run, the conv + BN + act
 pattern collapsed into one op the fused kernel serves, and an NHWC layout
-chosen before the convolutions run.
+chosen before the convolutions run.  ``QUANT_INFER_PIPELINE`` folds the
+artifacts of post-training quantization into the int8 ops
+``quant_conv2d`` / ``quant_mul`` (``quant_infer``) before the layout pass.
 
 The rewrite contract:
 
@@ -46,7 +48,8 @@ from .framework import Block, Operator, Program
 
 __all__ = [
     "PassManager", "PassContext", "PassReport", "PipelineReport",
-    "ParityReport", "Diagnostic", "DEFAULT_PIPELINE", "available_passes",
+    "ParityReport", "Diagnostic", "DEFAULT_PIPELINE",
+    "QUANT_INFER_PIPELINE", "available_passes",
     "pipeline_from_flag", "optimize_for_executor", "golden_parity",
     "verify_rewrite", "use_def_chains", "liveness", "is_pure",
     "RANDOM_OPS", "CONTROL_FLOW_OPS",
@@ -446,8 +449,7 @@ class FuseConvBNAct(Pass):
     The fused op keeps the ``MeanOut``/``VarianceOut`` running-stat writes
     of a training batch_norm (which alias ``Mean``/``Variance`` in place,
     as layers.batch_norm emits them) and records ``is_test``/``momentum``;
-    its lowering (static/ops_fused.py) serves inference and raises for
-    training until the vision training slice."""
+    its lowering (static/ops_fused.py) serves both modes."""
 
     name = "fuse_conv_bn_act"
 
@@ -616,12 +618,101 @@ class FuseMatmulBiasAct(Pass):
             block.remove_op(dead)
 
 
+class QuantInfer(Pass):
+    """PTQ artifacts => int8 inference ops: a ``conv2d`` / ``mul`` carrying
+    ``weight_scale`` attrs (left by the static PostTrainingQuantization,
+    slim/quant_static.py) whose activation input comes through a
+    ``fake_quantize_dequantize_fixed_scale`` op becomes ``quant_conv2d`` /
+    ``quant_mul`` with the input scale in its attrs; the qdq op is deleted
+    when nothing else reads it.  A trailing attr-free activation the int8
+    epilogue takes is absorbed.  The rewritten ops' lowerings
+    (static/ops_fused.py) run the int8 kernels (ops/kernels/int8.py) where
+    gated, else a simulate route that replays the removed fake-quant +
+    float op bit for bit.  Not in the default pipeline: quantized inference
+    opts in through ``QUANT_INFER_PIPELINE`` or ``opt_passes``."""
+
+    name = "quant_infer"
+
+    # op type -> (activation slot, output slot, quant op type)
+    _TARGETS = {"conv2d": ("Input", "Output", "quant_conv2d"),
+                "mul": ("X", "Out", "quant_mul")}
+    # acts the int8 kernels take as epilogue (ops/kernels/int8.EPILOGUE_ACTS)
+    _ACTS = frozenset({"relu", "relu6", "sigmoid", "tanh"})
+
+    def run(self, program, ctx):
+        block = program.global_block()
+        if any(op.type == "backward_region" for op in block.ops):
+            return {"changed": False, "fused": 0}   # inference-only rewrite
+        rewritten = 0
+        while True:
+            match = self._find(block, ctx)
+            if match is None:
+                break
+            self._apply(block, *match)
+            rewritten += 1
+        return {"changed": rewritten > 0, "fused": rewritten}
+
+    def _find(self, block, ctx):
+        defs, uses = use_def_chains(block)
+        for idx, op in enumerate(block.ops):
+            spec = self._TARGETS.get(op.type)
+            if spec is None or "weight_scale" not in op.attrs:
+                continue
+            aslot, oslot, _qtype = spec
+            a_name = op.inputs.get(aslot, [None])[0]
+            if a_name is None:
+                continue
+            d = defs.get(a_name, ())
+            if len(d) != 1:
+                continue
+            q_idx = d[0][0]
+            qdq = block.ops[q_idx]
+            if (qdq.type != "fake_quantize_dequantize_fixed_scale"
+                    or q_idx >= idx or "scale" not in qdq.attrs):
+                continue
+            # the qdq op is removable only when this op is its sole reader
+            removable = (len(uses.get(a_name, ())) == 1
+                         and not ctx.protected(block, a_name))
+            out_name = op.outputs.get(oslot, [None])[0]
+            k = None
+            act = ""
+            o_use = _single_def_use(defs, uses, out_name) \
+                if out_name and not ctx.protected(block, out_name) else None
+            if o_use is not None and o_use[1] == "X":
+                cand = block.ops[o_use[0]]
+                if (o_use[0] > idx and cand.type in self._ACTS
+                        and not cand.attrs
+                        and len(cand.outputs.get("Out", ())) == 1):
+                    k, act = o_use[0], cand.type
+            return idx, q_idx, removable, k, act
+        return None
+
+    def _apply(self, block, idx, q_idx, removable, k, act):
+        op, qdq = block.ops[idx], block.ops[q_idx]
+        aslot, oslot, qtype = self._TARGETS[op.type]
+        ins = dict(op.inputs)
+        ins[aslot] = list(qdq.inputs["X"])
+        outs = {s: list(names) for s, names in op.outputs.items()}
+        if k is not None:
+            outs[oslot] = [block.ops[k].outputs["Out"][0]]
+        attrs = dict(op.attrs)
+        attrs["in_scale"] = float(qdq.attrs["scale"])
+        attrs["in_bits"] = int(qdq.attrs.get("bit_length", 8))
+        attrs["act"] = act
+        block.replace_op(idx, qtype, ins, outs, attrs)
+        _m_quant_ops.inc(op=op.type)
+        for dead in sorted([x for x in (k, q_idx if removable else None)
+                            if x is not None], reverse=True):
+            block.remove_op(dead)
+
+
 _NCHW_TO_NHWC = (0, 2, 3, 1)
 _NHWC_TO_NCHW = (0, 3, 1, 2)
 # 4-D ops whose lowerings take data_format (ops.py _conv2d/_pool2d,
-# ops_fused._fused_conv2d_bn_act)
+# ops_fused._fused_conv2d_bn_act / _quant_conv2d)
 _LAYOUT_OPS = {"conv2d": ("Input", "Output"),
                "fused_conv2d_bn_act": ("Input", "Output"),
+               "quant_conv2d": ("Input", "Output"),
                "pool2d": ("X", "Out")}
 # value-wise single-input ops a transpose can sink through unchanged
 _SINKABLE = frozenset({
@@ -865,11 +956,17 @@ _PASSES_SCHEMA = 1  # bump on any semantics change
 
 _REGISTRY: Dict[str, Pass] = {p.name: p for p in (
     ConstantFolding(), CSE(), FuseConvBNAct(), FuseMatmulBiasAct(),
-    LayoutNHWC(), DCE(),
+    QuantInfer(), LayoutNHWC(), DCE(),
 )}
 
 DEFAULT_PIPELINE = ("constant_folding", "cse", "fuse_conv_bn_act",
                     "fuse_matmul_bias_act", "layout_nhwc", "dce")
+
+# the opt-in pipeline for PTQ-calibrated inference programs: fold the quant
+# artifacts into int8 ops first, then lay out NHWC (quant_conv2d is in
+# _LAYOUT_OPS) and sweep the orphaned qdq chains
+QUANT_INFER_PIPELINE = ("constant_folding", "cse", "quant_infer",
+                        "fuse_matmul_bias_act", "layout_nhwc", "dce")
 
 
 def available_passes() -> List[str]:
@@ -891,6 +988,10 @@ _m_ops_fused = _monitor.counter(
 _m_pipeline_ms = _monitor.histogram(
     "passes.pipeline_ms", "Wall-clock of one pipeline application "
     "(clone + passes + verification).")
+_m_quant_ops = _monitor.counter(
+    "quant.ops_rewritten", "float ops rewritten to int8 quant ops by the "
+    "quant_infer pass, labeled by the original op type.",
+    labelnames=("op",))
 
 
 @dataclass

@@ -287,7 +287,8 @@ def test_functional_layer_norm_flag_paths_agree():
 def test_kernel_fingerprint_off_cuda():
     if torch.cuda.is_available():
         pytest.skip("fingerprint bits are 1 where a CUDA device is present")
-    assert config.fingerprint() == "tk1:conv=0,fa=0,ln=0,pgat=0,pool=0"
+    assert config.fingerprint() == \
+        "tk1:conv=0,fa=0,int8=0,ln=0,pgat=0,pool=0"
 
 
 def test_gelu_linear_match_jax():

@@ -5,7 +5,9 @@
   declares its kernels, each with a plain PyTorch version and a launch
   counter;
 * every ``torch.autograd.Function`` of a kernel module runs a declared
-  backward kernel, which has its own plain version and launch counter;
+  backward kernel, which has its own plain version and launch counter,
+  unless the module names the JAX VJP it repeats in torch
+  (``PLAIN_BACKWARD``) and that VJP reaches no Pallas kernel;
 * nothing is built at import time.
 """
 import importlib
@@ -48,7 +50,7 @@ def _kernel_modules():
 def test_import_scan_covers_every_package_of_the_port():
     names = _all_modules()
     for pkg in ("core", "nn", "ops.kernels", "optimizer", "serving",
-                "static", "text", "utils"):
+                "slim", "static", "text", "utils"):
         assert f"paddle_tpu_torch.{pkg}" in names, pkg
     for mod in ("serving.paged", "serving.slo", "serving.continuous",
                 "utils.monitor", "core.errors", "ops.kernels.paged_attention",
@@ -57,7 +59,9 @@ def test_import_scan_covers_every_package_of_the_port():
                 "nn.functional.conv", "nn.functional.pooling",
                 "static.framework", "static.registry", "static.layers",
                 "static.nets", "static.ops", "static.ops_fused",
-                "static.passes", "static.executor"):
+                "static.passes", "static.executor", "static.ops_tail",
+                "ops.kernels.bn_act_train", "ops.kernels.int8", "slim.quant",
+                "slim.quant_static"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 
@@ -95,6 +99,34 @@ def test_vision_kernels_are_declared(module, kernels, replaces):
     assert not any(isinstance(o, type)
                    and issubclass(o, torch.autograd.Function)
                    for o in vars(mod).values())
+
+
+@pytest.mark.parametrize("module,kernels,replaces", [
+    ("bn_act_train", ("bn_batch_stats", "bn_scale_act"),
+     ("paddle_tpu/ops/pallas/conv_fused.py:234 _batch_stats",
+      "paddle_tpu/ops/pallas/conv_fused.py:251 scale_act")),
+    ("int8", ("int8_matmul_dequant", "int8_conv2d_dequant"),
+     ("paddle_tpu/ops/pallas/int8.py:92 int8_matmul_dequant",
+      "paddle_tpu/ops/pallas/int8.py:166 int8_conv2d_dequant")),
+])
+def test_training_and_int8_kernels_are_declared(module, kernels, replaces):
+    mod = importlib.import_module(f"paddle_tpu_torch.ops.kernels.{module}")
+    assert tuple(k.name for k in mod.KERNELS) == kernels
+    assert tuple(k.replaces for k in mod.KERNELS) == replaces
+    for k in mod.KERNELS:
+        assert k.source in build.sources()
+        text = build.sources()[k.source].read_text()
+        assert k.replaces.split()[-1] in text
+        assert k.replaces.split()[0].split(":")[0].split("/")[-1] in text
+        assert k.plain.__name__.endswith("_plain")
+        assert inspect.signature(k.plain).parameters.keys() \
+            == inspect.signature(k.wrapper).parameters.keys()
+        src = inspect.getsource(k.wrapper)
+        assert "config.record_call(" in src and "try:" not in src
+        # each TPU line named is the function's own def
+        path, line = k.replaces.split()[0].split(":")
+        jax_line = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert jax_line.startswith(f"def {k.replaces.split()[-1]}(")
 
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
@@ -157,7 +189,7 @@ def test_every_cuda_source_has_wrapped_kernels():
 
 
 def test_autograd_functions_run_declared_backward_kernels():
-    seen = 0
+    seen = plain_seen = 0
     for mod in _kernel_modules():
         src = inspect.getsource(mod)
         by_wrapper = {k.wrapper.__name__: k for k in mod.KERNELS}
@@ -166,12 +198,28 @@ def test_autograd_functions_run_declared_backward_kernels():
                     and issubclass(obj, torch.autograd.Function)
                     and obj.__module__ == mod.__name__):
                 continue
-            seen += 1
             fwd = inspect.getsource(obj.forward)
             bwd = inspect.getsource(obj.backward)
             calls = lambda text: [k for n, k in by_wrapper.items()
                                   if re.search(rf"\b{n}\(", text)]
             fwd_k, bwd_k = calls(fwd), calls(bwd)
+            plain_vjp = getattr(mod, "PLAIN_BACKWARD", None)
+            if plain_vjp is not None:
+                # the JAX VJP is plain jnp math: a torch backward, no kernel
+                path, rest = plain_vjp.split(":")
+                line, name = rest.split()
+                lines = (ROOT / path).read_text().splitlines()
+                assert lines[int(line) - 1].startswith(f"def {name}(")
+                body = []
+                for text in lines[int(line):]:
+                    if text and not text[0].isspace():
+                        break
+                    body.append(text)
+                assert "pallas_call" not in "\n".join(body)
+                assert fwd_k and not bwd_k, obj.__name__
+                plain_seen += 1
+                continue
+            seen += 1
             assert len(fwd_k) == 1 and len(bwd_k) == 1, obj.__name__
             k = bwd_k[0]
             assert k.name != fwd_k[0].name
@@ -184,8 +232,8 @@ def test_autograd_functions_run_declared_backward_kernels():
             wrapper = inspect.getsource(k.wrapper)
             assert "config.record_call(" in src
             assert any(c in wrapper for c in const), k.name
-    # attention (both layouts), LayerNorm, residual + LN
-    assert seen == 3
+    # attention (both layouts), LayerNorm, residual + LN; train-mode BN
+    assert seen == 3 and plain_seen == 1
 
 
 def test_cuda_sources_name_the_tpu_kernel_they_replace():
@@ -214,6 +262,9 @@ def test_import_builds_nothing():
             "import paddle_tpu_torch.ops.kernels.paged_attention\n"
             "import paddle_tpu_torch.ops.kernels.conv_fused\n"
             "import paddle_tpu_torch.ops.kernels.pooling\n"
+            "import paddle_tpu_torch.ops.kernels.bn_act_train\n"
+            "import paddle_tpu_torch.ops.kernels.int8\n"
+            "import paddle_tpu_torch.slim\n"
             "import paddle_tpu_torch.static\n"
             "import paddle_tpu_torch.serving\n"
             "import paddle_tpu_torch.optimizer\n"

@@ -19,8 +19,12 @@ the kernel gates pass on the same ops as at full width.
   fetch's largest magnitude, the state carried over by
   ``convert.static_state_from_jax`` with random BN statistics.
 * Pipeline on against off (``golden_parity``) within the same tolerance;
-  rollbacks are counted; training-mode fused convs raise; constant folding
-  and CSE fold and merge the same ops as the JAX passes.
+  rollbacks are counted; constant folding and CSE fold and merge the same
+  ops as the JAX passes.
+* The main (train-mode) VGG program runs the fused conv's training route,
+  and with its dropout rates at 0 matches the JAX Executor; a float64
+  feed runs in float32 as in the JAX package; ``dropout`` at p = 1
+  returns zeros.
 """
 import jax
 import jax.numpy as jnp
@@ -398,15 +402,107 @@ def test_pv011_refuses_a_rewrite_that_drops_a_fetch():
         TP.verify_rewrite(tmain, broken, ["img"], [tout.name])
 
 
-def test_training_mode_fused_conv_raises(opt_passes):
+def test_training_mode_fused_conv_raises(tpu_gate, opt_passes):
+    """The train-mode fused conv used to raise; now the VGG main program
+    (not cloned for test) runs under DEFAULT_PIPELINE with its dropouts,
+    and with its dropout rates set to 0 in both packages (the port's masks
+    cannot match jax.random) its fetches and every running statistic match
+    the JAX Executor's within REL_TOL of their largest magnitude."""
+    jmain, jstart, jout = vgg16_bn_drop(JAX, **VGG_NARROW)
     tmain, tstart, tout = vgg16_bn_drop(TORCH, **VGG_NARROW)
+    opt_passes("default")
+    x = np.random.default_rng(9).standard_normal((4, 3, 32, 32)) \
+        .astype(np.float32)
     scope = tstatic.Scope()
     exe = tstatic.Executor("cpu")
     exe.run(tstart, scope=scope)
-    opt_passes("default")
-    x = np.zeros((2, 3, 32, 32), np.float32)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        exe.run(tmain, feed={"img": x}, fetch_list=[tout], scope=scope)
+    out, = exe.run(tmain, feed={"img": x}, fetch_list=[tout], scope=scope)
+    assert out.shape == (4, 10) and np.isfinite(out).all()
+    fused = [op for op in exe.executed_program(
+        tmain, ["img"], [tout]).global_block().ops
+        if op.type == "fused_conv2d_bn_act"]
+    assert len(fused) == 13 and not any(op.attrs["is_test"] for op in fused)
+
+    for prog in (jmain, tmain):
+        for op in prog.global_block().ops:
+            if op.type == "dropout":
+                op.attrs["dropout_prob"] = 0.0
+        prog.bump_version()
+    state = _jax_state(jstart, seed=10)
+    jscope = jstatic.Scope()
+    for k, v in state.items():
+        jscope.set(k, jnp.asarray(v))
+    refs = jstatic.Executor().run(jmain, feed={"img": x},
+                                  fetch_list=_fetches(jmain, jout),
+                                  scope=jscope)
+    tscope = convert.static_state_from_jax(jmain, state, tmain, "cpu")
+    gots = tstatic.Executor("cpu").run(tmain, feed={"img": x},
+                                       fetch_list=_fetches(tmain, tout),
+                                       scope=tscope)
+    for got, ref in zip(gots, refs):
+        err = np.abs(got - ref).max() / np.abs(ref).max()
+        assert err <= REL_TOL, err
+    stats = [[n for op in p.global_block().ops if op.type == "batch_norm"
+              for n in op.inputs["Mean"] + op.inputs["Variance"]]
+             for p in (jmain, tmain)]
+    assert len(stats[0]) == len(stats[1]) == 28
+    for jn, tn in zip(*stats):
+        ref = np.asarray(jscope.find_var(jn))
+        err = np.abs(tscope.find_var(tn).numpy() - ref).max() \
+            / np.abs(ref).max()
+        assert err <= REL_TOL, (tn, err)
+
+
+def _conv_fc_program(pkg):
+    static, L, _ = pkg
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = 3
+    with static.program_guard(main, startup):
+        img = L.data("img", [3, 8, 8])
+        h = L.conv2d(img, 4, 3, padding=1, act="relu")
+        out = L.fc(L.flatten(h), 5)
+    return main, startup, out
+
+
+def test_float64_feed_runs_in_float32_as_in_jax():
+    jmain, jstart, jout = _conv_fc_program(JAX)
+    tmain, _, tout = _conv_fc_program(TORCH)
+    state = _jax_state(jstart, seed=1)
+    x = np.random.default_rng(2).standard_normal((2, 3, 8, 8))  # float64
+    assert x.dtype == np.float64
+    jscope = jstatic.Scope()
+    for k, v in state.items():
+        jscope.set(k, jnp.asarray(v))
+    ref, = jstatic.Executor().run(jmain, feed={"img": x}, fetch_list=[jout],
+                                  scope=jscope)
+    tscope = convert.static_state_from_jax(jmain, state, tmain, "cpu")
+    got, = tstatic.Executor("cpu").run(tmain, feed={"img": x},
+                                       fetch_list=[tout], scope=tscope)
+    assert got.dtype == np.asarray(ref).dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    # a declared int64 data variable resolves to int32, as in the JAX package
+    from paddle_tpu_torch.core import dtype as tdtype
+    assert tdtype.convert_dtype("int64") == torch.int32
+    assert tdtype.resolve(torch.float64) == torch.float32
+
+
+def test_dropout_p1_returns_zeros_as_in_jax():
+    from paddle_tpu.nn import functional as JF
+    from paddle_tpu_torch.nn import functional as TF
+
+    x = np.random.default_rng(3).standard_normal((4, 6)).astype(np.float32)
+    for mode in ("upscale_in_train", "downgrade_in_infer"):
+        ref = np.asarray(JF.dropout(jnp.asarray(x), p=1.0, mode=mode))
+        got = TF.dropout(torch.from_numpy(x), p=1.0, mode=mode).numpy()
+        assert np.array_equal(got, ref) and not got.any()
+    # the static op reaches it too
+    main, startup = tstatic.Program(), tstatic.Program()
+    with tstatic.program_guard(main, startup):
+        v = TL.data("v", [6])
+        out = TL.dropout(v, dropout_prob=1.0)
+    got, = tstatic.Executor("cpu").run(main, feed={"v": x}, fetch_list=[out],
+                                       scope=tstatic.Scope())
+    assert got.shape == x.shape and not got.any()
 
 
 def test_missing_state_raises_precondition_not_met():

@@ -342,12 +342,12 @@ def test_wrappers_refuse_inputs_that_require_grad():
     x = torch.randn(1, 4, 4, 128, requires_grad=True)
     w = torch.randn(128, 128, 3, 3)
     a, b = torch.ones(128), torch.zeros(128)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="has no backward"):
         tcf.conv2d_bn_act(x, w, a, b, (1, 1), (1, 1), "relu")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="has no backward"):
         tcf.conv2d_bn_act(x.detach(), w.requires_grad_(), a, b)
     for fn in (tpool.max_pool2d_nhwc, tpool.avg_pool2d_nhwc):
-        with pytest.raises(NotImplementedError, match="training slice"):
+        with pytest.raises(NotImplementedError, match="has no backward"):
             fn(x, (2, 2), (2, 2), (0, 0))
     with torch.no_grad():
         assert tcf.conv2d_bn_act(x, w, a, b).shape == (1, 2, 2, 128)
