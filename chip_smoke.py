@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (any failed check raises, so the script exits non-zero):
 
 1. build   -- nvcc builds every kernel source under
-              paddle_tpu_torch/ops/kernels/csrc/ for sm_90a, all at once.
+              paddle_tpu_torch/ops/kernels/csrc/ for sm_90a, all at once;
+              ptxas's register and spill lines are printed, and the count of
+              HGMMA (wgmma) instructions cuobjdump finds in each attention
+              library, which must be nonzero.
 2. kernels -- each kernel against its plain PyTorch version on the card at
               the ERNIE-base shapes (b 8, s 512, h 12, d 64, rows 4096 of
               dim 768) in fp32 and bf16: the forwards of attention (A),
@@ -51,8 +54,10 @@ Phases (any failed check raises, so the script exits non-zero):
               fp32 and bf16 at ERNIE-base's attention (b8 h12 s512 d64,
               ragged keys, dropout 0 and 0.1), GPT-2 XL's (b2 h25 s1024
               d64, causal), LLaMA-2-7B's (b1 h32 s4096 d128, causal),
-              Gemma-7B's (b1 h16 s2048 d256) and d192 (b2 h3 s256, dropout
-              0 and 0.1); (b) the ERNIE-base fp32 case at dropout 0.1
+              Gemma-7B's (b1 h16 s2048 d256), d192 (b2 h3 s256) and the
+              wide heads d320 and d512 (b2 h2 s256, d512 causal; ragged
+              keys, dropout 0 and 0.1), each backward run twice and held bit
+              for bit; (b) the ERNIE-base fp32 case at dropout 0.1
               against kernel A on the same inputs in packed layout (out,
               lse, dq, dk, dv within 1e-4: one mask key); (c) each case's
               times beside the plain version, SDPA (backend named) and the
@@ -198,7 +203,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 64, 512, 25      # bench.py's TPU run
 
 # The port's kernels in a profile, by names no library kernel has (the
 # csrc/*.cu __global__ functions).
-PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)_(fp32|mma)|flash_bwd_delta|"
+PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)(_dkdv|_dq)?_(fp32|wgmma)|flash_bwd_delta|"
                          r"ln_(fwd|bwd|partials_reduce)|paged_attn|"
                          r"conv2d_bn_act|pool2d_nhwc|bn_stats_(partial|"
                          r"reduce)|bn_scale_act|int8_(matmul|conv))_kernel\b")
@@ -1066,7 +1071,8 @@ def train_phase(seed):
 # (label, b, h, s, d, causal, key lengths (None: all s), dropout rates): the
 # (b, h, s, d) kernels at ERNIE-base's attention, GPT-2 XL's 25 heads of 64
 # (causal), LLaMA-2-7B's 32 heads of 128 at 4096 (causal), Gemma-7B's 16
-# heads of 256, and heads of 192 at a small size.
+# heads of 256, and heads of 192, 320 and 512 (the column-split route above
+# 256) at a small size.
 BHSD_CASES = (
     ("ERNIE-base", 8, 12, 512, 64, False,
      (512, 480, 300, 37, 512, 128, 200, 450), (0.0, RATE)),
@@ -1074,6 +1080,8 @@ BHSD_CASES = (
     ("LLaMA-2-7B", 1, 32, 4096, 128, True, None, (0.0,)),
     ("Gemma-7B", 1, 16, 2048, 256, False, None, (0.0,)),
     ("d192", 2, 3, 256, 192, False, (256, 100), (0.0, RATE)),
+    ("d320", 2, 2, 256, 320, False, (256, 100), (0.0, RATE)),
+    ("d512", 2, 2, 256, 512, True, (256, 180), (0.0, RATE)),
 )
 TOL_KERNEL_A = 1e-4   # fp32: (b, h, s, d) kernels vs kernel A, same inputs
 BHSD_TRAIN_STEPS = 5
@@ -1112,6 +1120,11 @@ def bhsd_case(fa, gen, b, h, s, d, dtype, causal, lengths, rate, tag,
                                           f32[3], *bargs)
     bwd_err = max(compare(f"{tag} d{name}", fa.KERNEL_BWD, g, r, r32, dtype)
                   for name, g, r, r32 in zip("qkv", grads, refs, refs32))
+    again = fa.flash_attention_bwd(q, k, v, bias, out, lse, do, *bargs)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"{tag}: a second backward on the same inputs gives the same dq, "
+          f"dk, dv bit for bit")
     return dict(q=q, k=k, v=v, do=do, bias=bias, fargs=fargs, bargs=bargs,
                 out=out, lse=lse, grads=grads, err=err, bwd_err=bwd_err)
 
@@ -3087,6 +3100,13 @@ def main(argv=None):
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for name in (fa.SOURCE, fa.SOURCE_BWD):
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"),
+             "-sass", str(build.library_path(name))],
+            capture_output=True, text=True, check=True).stdout
+        n = len(re.findall(r"\bHGMMA\b", sass))
+        check(n > 0, f"{name}: {n} HGMMA (wgmma) instructions in its SASS")
 
     gen = torch.Generator().manual_seed(args.seed)
     results = kernel_phase(gen)

@@ -28,31 +28,60 @@
 // Masked (causal) scores are -1e30 as in the TPU kernels; key positions past
 // the end of a ragged sequence are dropped (exp gives exactly 0).  With
 // dropout, l sums the undropped P and P * keep / (1 - rate) enters the PV
-// product (softmax-then-dropout, as the Pallas kernels).
+// product (softmax-then-dropout, as the Pallas kernels).  The bf16 kernel
+// takes the exponentials in base 2 (scores pre-multiplied by log2 e) with
+// ex2.approx.ftz, which differs from base e by rounding and by flushing
+// values below 2^-126 to zero.
 //
 // What bounds it on the H100.  At the ERNIE-base shape (b 8, s 512, h 12,
 // d 64) the least time is set by bytes in bf16 (25 MB of q, k, v and o at
 // 3.35 TB/s, 7.5 us, against 6.4 GFLOP at 989 TF/s, 6.5 us) and by
 // operations in fp32 (67 TF/s outside the tensor cores, 96 us); at long
-// sequences (s 2048-4096) by operations in both types.  The kernel has to
-// keep the arithmetic units busy while it streams K/V, and re-reads K/V once
-// per 64-row query tile (from L2).
+// sequences (s 2048-4096) by operations in both types: LLaMA-2-7B's causal
+// s 4096 d 128 is 137 GFLOP, 0.139 ms at the tensor cores' peak.  So the
+// bf16 kernel has to keep the tensor cores busy while K/V stream in.
 //
-// Design: one block of 128 threads per (64-row query tile, head, batch), a
-// loop over K/V tiles with the online softmax, no materialised score matrix.
-// Head widths 64, 128, 192 and 256.  Two paths:
-//   * bf16: QK^T and PV on the tensor cores with mma.sync m16n8k16 (see
-//     flash_fwd_mma_kernel below);
-//   * fp32: register-tiled fp32 FMAs on the CUDA cores (the tensor cores
-//     would round fp32 operands to TF32): Q, K, V staged in shared memory
-//     as fp32, each thread a 4 x (tile/8) tile of S and a 4 x d/8 tile of O,
-//     the score tile through shared memory for the row softmax.
-// Above d 128 the K/V tile is 32 keys, not 64, and the bf16 path reads its
-// Q fragments from shared memory for every K/V tile instead of keeping them
-// in registers: the 64 x d fp32 accumulator of O takes d / 2 registers a
-// thread, which leaves no room for either.  Shared memory above 48 KB is
-// dynamic (set once per kernel).
-// Not yet done: cp.async/TMA double buffering of K/V and wgmma.
+// Design, bf16 (flash_fwd_wgmma_kernel): one CTA of 384 threads per
+// (128-row query tile, head, batch) -- warpgroup 0 the producer, warpgroups
+// 1 and 2 the consumers of 64 query rows each.
+//   * Loads: TMA (cp.async.bulk.tensor) from one 4-d tensor map per operand
+//     over (head_dim, seq, heads, batch), built by the C entry from the
+//     pointers and the layout's strides, so both layouts and ragged ends
+//     (rows past seq read as zeros) come from the same map.  The producer's
+//     warp 0 loads Q once, then keeps a ring of K/V stages in flight with
+//     mbarrier full/empty pairs, and writes each stage's key bias (times
+//     log2 e, read a tile ahead) beside it.  setmaxnreg gives the producer
+//     40 registers and the consumers 232.
+//   * S = Q K^T: wgmma m64nBKk16, both operands in shared memory, K-major
+//     (d is contiguous in q and k), 128-byte swizzle; d in 64-wide boxes.
+//   * The online softmax runs on the accumulator in registers (the mma.sync
+//     C layout per 8 columns, hopper.cuh).
+//   * O += P V: wgmma m64n64k16 per 64 output columns with P from registers
+//     (rounded to bf16 as the A fragments) and V MN-major from shared memory.
+//   * Key tiles: 128 keys up to d 128, 64 above (the 64 x d fp32 O
+//     accumulator is d / 2 registers a consumer thread).  Under causal
+//     masking the grid launches the longest query tiles first.
+//   * Heads wider than 256 stream Q with K in 64-column boxes (Q does not
+//     fit in shared memory beside the ring) and split the output columns:
+//     each CTA computes S over the whole head and writes 256 of the d
+//     output columns; grid x = head * ceil(d / 256) + slice.
+//   * With Q resident the two consumers take turns to issue their products
+//     (named barriers 1 and 2, FlashAttention-3's ping-pong), so one's
+//     softmax runs while the other's products hold the tensor cores.
+//   Measured and not kept (PERF.md, section 6): issuing tile j + 1's Q K^T
+//   behind tile j's P V within a consumer; 64-key tiles at d 128 and
+//   32-key tiles at d 192-256 (deeper rings).  Not done: a persistent grid.
+//
+// Design, fp32 (flash_fwd_fp32_kernel): register-tiled fp32 FMAs on the
+// CUDA cores (the tensor cores would round fp32 operands to TF32), one block
+// of 128 threads per (64-row query tile, head, batch): Q, K, V staged in
+// shared memory as fp32, each thread a 4 x (tile/8) tile of S and a
+// 4 x d/8 tile of O, the score tile through shared memory for the row
+// softmax.  Head widths 64-256 in one piece (32-key tiles above d 128);
+// wider heads in 128-column chunks: the block reloads Q and K chunk by chunk
+// for each key tile and writes 128 output columns (grid x = query tile *
+// ceil(d / 128) + slice).  Shared memory above 48 KB is dynamic (set once
+// per kernel).
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the entry returns cudaGetLastError() after the launch.
@@ -64,21 +93,26 @@
 
 #include "attention_layout.cuh"
 #include "dropout_hash.cuh"
-#include "mma_bf16.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using dropout_hash::Params;
 
-constexpr int kBQ = 64;       // query rows per block
+constexpr int kBQ = 64;       // query rows per fp32 block
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// Key rows per K/V tile: 64, or 32 above d 128 (registers, shared memory).
+// Key rows per fp32 K/V tile: 64, or 32 above d 128 (shared memory).
 template <int D>
 __host__ __device__ constexpr int key_tile() {
   return D <= 128 ? 64 : 32;
 }
+
+// fp32 head widths above 256 go in chunks of this many columns.
+constexpr int kWideChunk = 128;
 
 template <int D>
 struct Tile {
@@ -96,36 +130,40 @@ struct Tile {
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
-// Copy rows [row0, row0 + rows) of one head (starting at element `base`)
-// into an fp32 shared tile with row stride ld; rows past seq are zero.
-template <int D>
+// Copy columns [col0, col0 + D) of rows [row0, row0 + rows) of one head
+// (starting at element `base`) into an fp32 shared tile with row stride ld;
+// rows past seq and (WIDE) columns past head_dim are zero.
+template <int D, bool WIDE>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           int64_t base, int64_t row_stride,
-                                          int row0, int rows, int seq) {
+                                          int row0, int rows, int seq,
+                                          int col0, int head_dim) {
   constexpr int kPerRow = D / 4;  // 16-byte chunks per row
   constexpr int ld = Tile<D>::kLd;
   for (int c = threadIdx.x; c < rows * kPerRow; c += kThreads) {
     const int r = c / kPerRow;
     const int col = (c % kPerRow) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < seq)
+    if (row0 + r < seq && (!WIDE || col0 + col < head_dim))
       val = *reinterpret_cast<const float4*>(
-          src + base + (int64_t)(row0 + r) * row_stride + col);
+          src + base + (int64_t)(row0 + r) * row_stride + col0 + col);
     *reinterpret_cast<float4*>(dst + r * ld + col) = val;
   }
 }
 
-// fp32 inputs: grid = (ceil(seq / 64), heads, batch), block = 128 threads.
-template <int D>
+// fp32 inputs: grid = (ceil(seq / 64) * ceil(head_dim / D), heads, batch),
+// block = 128 threads.  D is the head width, or the chunk width of a wider
+// head (WIDE).
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_fp32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ bias,
                       float* __restrict__ out, float* __restrict__ lse,
-                      int seq, int heads, Layout lay, float sm_scale,
-                      int causal, Params drop) {
+                      int seq, int heads, int head_dim, Layout lay,
+                      float sm_scale, int causal, Params drop) {
   using L = Tile<D>;
   constexpr int BK = L::kBK;
   constexpr int NS = BK / 8;  // S columns per thread
@@ -142,8 +180,11 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
   float* As = smem + L::kAlpha;
   float* Ls = smem + L::kL;
 
+  // Chunks of the QK^T reduction = output slices (1 up to d 256).
+  const int nchunks = WIDE ? (head_dim + D - 1) / D : 1;
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = (blockIdx.x / nchunks) * kBQ;
+  const int col0 = (blockIdx.x % nchunks) * D;  // first output column
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int64_t base = lay.base(b, h);
@@ -166,7 +207,8 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < NJ * 4; ++c) o[i][c] = 0.f;
 
-  load_tile<D>(Qs, q, base, lay.row, q0, kBQ, seq);
+  if (nchunks == 1)
+    load_tile<D, WIDE>(Qs, q, base, lay.row, q0, kBQ, seq, 0, head_dim);
 
   int num_kv = (seq + BK - 1) / BK;
   if (causal) {
@@ -176,12 +218,6 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
 
   for (int kt = 0; kt < num_kv; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's PV product is done with Ks/Vs/Ss
-    load_tile<D>(Ks, k, base, lay.row, k0, BK, seq);
-    load_tile<D>(Vs, v, base, lay.row, k0, BK, seq);
-    if (tid < BK)
-      Bs[tid] = (k0 + tid < seq) ? bias[brow + k0 + tid] : 0.f;
-    __syncthreads();
 
     // S = Q K^T * scale + bias, masked.
     {
@@ -190,24 +226,38 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < NS; ++j) acc[i][j] = 0.f;
+      for (int ch = 0; ch < nchunks; ++ch) {
+        __syncthreads();  // the previous products are done with the tiles
+        if (nchunks > 1)
+          load_tile<D, WIDE>(Qs, q, base, lay.row, q0, kBQ, seq, ch * D,
+                             head_dim);
+        load_tile<D, WIDE>(Ks, k, base, lay.row, k0, BK, seq, ch * D, head_dim);
+        if (ch == 0) {
+          load_tile<D, WIDE>(Vs, v, base, lay.row, k0, BK, seq, col0, head_dim);
+          if (tid < BK)
+            Bs[tid] = (k0 + tid < seq) ? bias[brow + k0 + tid] : 0.f;
+        }
+        __syncthreads();
 #pragma unroll 4
-      for (int d = 0; d < D; d += 4) {
-        float4 qv[4];
+        for (int d = 0; d < D; d += 4) {
+          float4 qv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          qv[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * ld + d);
+          for (int i = 0; i < 4; ++i)
+            qv[i] =
+                *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * ld + d);
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const float4 kv =
-              *reinterpret_cast<const float4*>(Ks + (tx + 8 * j) * ld + d);
+          for (int j = 0; j < NS; ++j) {
+            const float4 kv =
+                *reinterpret_cast<const float4*>(Ks + (tx + 8 * j) * ld + d);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float a = acc[i][j];
-            a = fmaf(qv[i].x, kv.x, a);
-            a = fmaf(qv[i].y, kv.y, a);
-            a = fmaf(qv[i].z, kv.z, a);
-            a = fmaf(qv[i].w, kv.w, a);
-            acc[i][j] = a;
+            for (int i = 0; i < 4; ++i) {
+              float a = acc[i][j];
+              a = fmaf(qv[i].x, kv.x, a);
+              a = fmaf(qv[i].y, kv.y, a);
+              a = fmaf(qv[i].z, kv.z, a);
+              a = fmaf(qv[i].w, kv.w, a);
+              acc[i][j] = a;
+            }
           }
         }
       }
@@ -292,7 +342,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
   const float l_safe = fmaxf(l_i, 1e-30f);
   if (half == 0) {
     Ls[srow] = l_safe;
-    if (q0 + srow < seq)
+    if (q0 + srow < seq && col0 == 0)
       lse[((int64_t)b * heads + h) * seq + q0 + srow] = m_i + logf(l_safe);
   }
   __syncthreads();
@@ -301,9 +351,10 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
     const int r = ty * 4 + i;
     if (q0 + r >= seq) continue;
     const float l = Ls[r];
-    float* orow = out + base + (int64_t)(q0 + r) * lay.row;
+    float* orow = out + base + (int64_t)(q0 + r) * lay.row + col0;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
+      if (WIDE && col0 + tx * 4 + 32 * j >= head_dim) continue;
       *reinterpret_cast<float4*>(orow + tx * 4 + 32 * j) =
           make_float4(o[i][4 * j] / l, o[i][4 * j + 1] / l,
                       o[i][4 * j + 2] / l, o[i][4 * j + 3] / l);
@@ -312,276 +363,412 @@ flash_fwd_fp32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the products on the tensor cores.
-//
-// Same block decomposition and numerics; the 64 x BK score tile and the
-// P V product run as mma.sync m16n8k16 (bf16 operands, fp32 accumulators).
-// Each of the 4 warps owns 16 query rows, so S, P and O stay in registers
-// and the row softmax needs only shuffles within a quad of lanes.  Q, K and
-// V tiles sit in shared memory as bf16 rows padded by 16 bytes (conflict-
-// free ldmatrix); the operand fragments come through ldmatrix (.trans for
-// V).  P is rounded to bf16 when it is packed into the A fragments of the
-// P V product; l sums the unrounded fp32 P.
+// bf16: warp-specialised wgmma + TMA (see the header note).
 
-template <int D>
-struct MmaTile {
-  static constexpr int kBK = key_tile<D>();
-  static constexpr bool kQInRegs = D <= 128;  // Q fragments kept in registers
-  static constexpr int kLd = D + 8;  // bf16 row stride (16-byte pad)
-  static constexpr size_t kBytes =
-      sizeof(__nv_bfloat16) * (size_t)(kBQ + 2 * kBK) * kLd +
-      sizeof(float) * kBK;
+constexpr int kWgThreads = 384;    // producer warpgroup + 2 consumers
+constexpr int kWgBQ = 128;         // query rows per CTA (64 per consumer)
+constexpr int kSliceCols = 256;    // output columns per CTA above d 256
+constexpr int kSmemBudget = 200 * 1024;
+
+// Shared-memory plan of one instantiation: BK keys a tile, NC 64-wide
+// boxes of the head held resident for Q (0: Q streams with K, the route
+// above d 256), NV 64-column boxes of output (V) a CTA.
+template <int BK, int NC, int NV>
+struct FwdPlan {
+  static constexpr bool kStream = NC == 0;
+  static constexpr int kBox = BK * hopper::kBoxRowBytes;     // K or V box
+  static constexpr int kQBox = kWgBQ * hopper::kBoxRowBytes;  // Q box
+  static constexpr int kQBytes = kStream ? 0 : NC * kQBox;
+  static constexpr int kStage =
+      kStream ? (kQBox + kBox > NV * kBox ? kQBox + kBox : NV * kBox)
+              : (NC + NV) * kBox;
+  static constexpr int kStagesFit = (kSmemBudget - kQBytes) / kStage;
+  static constexpr int kStages = kStagesFit < 4 ? kStagesFit : 4;
+  static constexpr int kBias = kQBytes + kStages * kStage;   // BK floats each
+  static constexpr int kBars = kBias + kStages * BK * 4;
+  // + the Q barrier, full and empty per stage; + 1024 to align the base
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kStages >= 2, "the ring needs two stages");
 };
 
-// Copy rows [row0, row0 + rows) of one head (starting at element `base`)
-// into a bf16 shared tile with row stride ld; rows past seq are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int64_t base,
-    int64_t row_stride, int row0, int rows, int seq) {
-  constexpr int kPerRow = D / 8;  // 16-byte chunks per row
-  constexpr int ld = MmaTile<D>::kLd;
-  for (int c = threadIdx.x; c < rows * kPerRow; c += kThreads) {
-    const int r = c / kPerRow;
-    const int col = (c % kPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const uint4*>(
-          src + base + (int64_t)(row0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
-  }
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
-// grid = (ceil(seq / 64), heads, batch), block = 128 threads (4 warps).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     int seq, int heads, Layout lay, float sm_scale,
-                     int causal, Params drop) {
-  using L = MmaTile<D>;
-  constexpr int BK = L::kBK;
-  constexpr int ld = L::kLd;
-  constexpr int NT = BK / 8;   // 8-key n-tiles of S
-  constexpr int KD = D / 16;   // 16-wide k-steps over the head dim
-  constexpr int ND = D / 8;    // 8-wide n-tiles of O
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Ks = Qs + kBQ * ld;
-  __nv_bfloat16* Vs = Ks + BK * ld;
-  float* Bs = reinterpret_cast<float*>(Vs + BK * ld);
+// grid = (heads * slices, ceil(seq / 128), batch), block = 384 threads.
+template <int BK, int NC, int NV>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const float* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int seq, int heads,
+                       int head_dim, Layout lay, float scale_log2, int causal,
+                       Params drop) {
+  using P = FwdPlan<BK, NC, NV>;
+  constexpr int ST = P::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* bias_s = reinterpret_cast<float*>(smem + P::kBias);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P::kBars);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row within 8
-  const int t = lane & 3;   // fragment column pair
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
+  const int nsplit = P::kStream ? (head_dim + kSliceCols - 1) / kSliceCols : 1;
+  const int h = blockIdx.x / nsplit;
+  const int split = blockIdx.x % nsplit;
   const int b = blockIdx.z;
-  const int64_t base = lay.base(b, h);
-  const int64_t brow = (int64_t)b * seq;           // bias row
-  const uint32_t bh = (uint32_t)(b * heads + h);  // dropout stream key
-  // This thread's two query rows (fragment rows g and g + 8 of the warp).
-  const int qrow0 = q0 + warp * 16 + g;
-  const int qrow1 = qrow0 + 8;
+  const int nq = (seq + kWgBQ - 1) / kWgBQ;
+  const int q0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * kWgBQ;
+  const int col0 = split * kSliceCols;
+  const int nc = P::kStream ? head_dim / hopper::kBoxCols : NC;
+  const int nv = P::kStream ? min(NV, (head_dim - col0) / hopper::kBoxCols)
+                            : NV;
+  const int kend = causal ? min(seq, q0 + kWgBQ) : seq;
+  const int ntiles = (kend + BK - 1) / BK;
 
-  load_tile_bf16<D>(Qs, q, base, lay.row, q0, kBQ, seq);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int i = 0; i < ST; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, 2);  // one arrival per consumer
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
 
-  // Q fragments for the warp's 16 rows: kept for every K/V tile up to d 128,
-  // else one k-step at a time from shared memory.
-  uint32_t qf[L::kQInRegs ? KD : 1][4];
-  if constexpr (L::kQInRegs) {
+  if (threadIdx.x < 128) {
+    // ---- producer: warp 0 issues the loads and writes the key bias ----
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::prefetch_map(&qmap);
+        hopper::prefetch_map(&kmap);
+        hopper::prefetch_map(&vmap);
+        if constexpr (!P::kStream) {
+          hopper::mbar_expect_tx(qbar, NC * P::kQBox);
+          for (int c = 0; c < NC; ++c)
+            hopper::tma_load_4d(smem + c * P::kQBox, &qmap, qbar, c * 64, q0,
+                                h, b);
+        }
+      }
+      int st = 0;
+      uint32_t ph = 0;
+      // A tile's key bias, read one tile ahead of its stage.
+      constexpr int NB = (BK + 31) / 32;
+      auto load_bias = [&](float (&bv)[NB], int k0) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-      mma_bf16::load_a(qf[kk], Qs, ld, warp * 16, kk * 16, lane);
-  }
-
-  float o[ND][4];
+        for (int x = 0; x < NB; ++x) {
+          const int i = lane + 32 * x;
+          bv[x] = i < BK && k0 + i < seq
+                      ? bias[(int64_t)b * seq + k0 + i] * kLog2e
+                      : 0.f;
+        }
+      };
+      float bv[NB], bnext[NB] = {};
+      load_bias(bv, 0);
+      for (int j = 0; j < ntiles; ++j) {
+        const int k0 = j * BK;
+        if (j + 1 < ntiles) load_bias(bnext, k0 + BK);
+        if constexpr (P::kStream) {
+          for (int c = 0; c < nc; ++c) {
+            hopper::mbar_wait(empty + st, ph ^ 1);
+            if (lane == 0) {
+              uint8_t* stage = smem + st * P::kStage;
+              hopper::mbar_expect_tx(full + st, P::kQBox + P::kBox);
+              hopper::tma_load_4d(stage, &qmap, full + st, c * 64, q0, h, b);
+              hopper::tma_load_4d(stage + P::kQBox, &kmap, full + st, c * 64,
+                                  k0, h, b);
+            }
+            if (++st == ST) { st = 0; ph ^= 1; }
+          }
+        }
+        // the V (and, Q resident, K) stage with its bias
+        hopper::mbar_wait(empty + st, ph ^ 1);
+        float* bs = bias_s + st * BK;
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;  // running max of rows qrow0, qrow1
-  float l0 = 0.f, l1 = 0.f;          // this thread's partial row sums
-
-  int num_kv = (seq + BK - 1) / BK;
-  if (causal) {
-    const int last = min(q0 + kBQ, seq) - 1;
-    num_kv = min(num_kv, last / BK + 1);
-  }
-
-  for (int kt = 0; kt < num_kv; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D>(Ks, k, base, lay.row, k0, BK, seq);
-    load_tile_bf16<D>(Vs, v, base, lay.row, k0, BK, seq);
-    if (tid < BK) Bs[tid] = (k0 + tid < seq) ? bias[brow + k0 + tid] : 0.f;
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x BK keys.
-    float s[NT][4];
+        for (int x = 0; x < (BK + 31) / 32; ++x)
+          if (lane + 32 * x < BK) bs[lane + 32 * x] = bv[x];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t* a = qf[L::kQInRegs ? kk : 0];
-      if constexpr (!L::kQInRegs)
-        mma_bf16::load_a(a, Qs, ld, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t bf[4];  // K^T for keys n*8.. and n*8+8..
-        mma_bf16::load_b_t(bf, Ks, ld, n * 8, kk * 16, lane);
-        mma_bf16::mma(s[n], a, bf[0], bf[1]);
-        mma_bf16::mma(s[n + 1], a, bf[2], bf[3]);
+        for (int x = 0; x < NB; ++x) bv[x] = bnext[x];
+        __syncwarp();
+        if (lane == 0) {
+          uint8_t* stage = smem + P::kQBytes + st * P::kStage;
+          hopper::mbar_expect_tx(full + st,
+                                 (P::kStream ? nv : NC + NV) * P::kBox);
+          if constexpr (!P::kStream)
+            for (int c = 0; c < NC; ++c)
+              hopper::tma_load_4d(stage + c * P::kBox, &kmap, full + st,
+                                  c * 64, k0, h, b);
+          uint8_t* vs = stage + (P::kStream ? 0 : NC * P::kBox);
+          for (int c = 0; c < nv; ++c)
+            hopper::tma_load_4d(vs + c * P::kBox, &vmap, full + st,
+                                col0 + c * 64, k0, h, b);
+        }
+        if (++st == ST) { st = 0; ph ^= 1; }
       }
     }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    hopper::reg_alloc<232>();
+    const int ct = threadIdx.x - 128;
+    const int cw = ct >> 7;          // consumer warpgroup
+    const int lt = ct & 127;
+    const int warp = lt >> 5;
+    const int lane = lt & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int wq0 = q0 + cw * 64;    // the warpgroup's first query row
+    const int r0 = wq0 + warp * 16 + g;
+    const int r1 = r0 + 8;
+    const uint32_t bh = (uint32_t)(b * heads + h);
+    const uint32_t sbase = hopper::smem_u32(smem);
 
-    // Scale, bias, masks; the tile's row max.
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    float o[NV][32];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int v = 0; v < NV; ++v)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        const int kpos = k0 + c;
-        const int qpos = (e < 2) ? qrow0 : qrow1;
-        float x = s[n][e] * sm_scale + Bs[c];
-        if (causal && qpos < kpos) x = kNegInf;
-        if (kpos >= seq) x = -INFINITY;
-        s[n][e] = x;
+      for (int i = 0; i < 32; ++i) o[v][i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units)
+    float l0 = 0.f, l1 = 0.f;          // this thread's partial row sums
+
+    // Q resident: the consumers take turns to issue their products (named
+    // barriers 1 and 2), so one's softmax runs while the other's products
+    // hold the tensor cores; consumer 0 goes first.
+    if constexpr (!P::kStream) {
+      if (cw == 1) hopper::bar_arrive(1, 256);
+      hopper::mbar_wait(qbar, 0);
+    }
+    int st = 0;
+    uint32_t ph = 0;
+    for (int j = 0; j < ntiles; ++j) {
+      const int k0 = j * BK;
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+      if constexpr (!P::kStream) {
+        hopper::mbar_wait(full + st, ph);
+        const uint32_t kst = sbase + P::kQBytes + st * P::kStage;
+        hopper::bar_sync(1 + cw, 256);  // this consumer's turn to issue
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hopper::wgmma_ss<BK>(
+                s, sbase + c * P::kQBox + cw * 64 * 128 + kk * 32,
+                kst + c * P::kBox + kk * 32);
+        hopper::wgmma_commit();
+        hopper::bar_arrive(2 - cw, 256);  // the other consumer's turn
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+      } else {
+        for (int c = 0; c < nc; ++c) {
+          hopper::mbar_wait(full + st, ph);
+          const uint32_t qst = sbase + st * P::kStage;
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hopper::wgmma_ss<BK>(s, qst + cw * 64 * 128 + kk * 32,
+                                 qst + P::kQBox + kk * 32);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(s);
+          if (lt == 0) hopper::mbar_arrive(empty + st);
+          if (++st == ST) { st = 0; ph ^= 1; }
+        }
+        hopper::mbar_wait(full + st, ph);
       }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
+
+      // Scale, bias, masks (base-2 units); the tile's row max.
+      const float* bs = bias_s + st * BK;
+      const bool masked =
+          k0 + BK > seq || (causal && k0 + BK - 1 > wq0);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * a0 + sum0;
-    l1 = l1 * a1 + sum1;
-    if (drop.on) {  // l summed the undropped P; PV takes the dropped one
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < BK / 8; ++n) {
+        const float2 bv = *reinterpret_cast<const float2*>(bs + 8 * n + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-          const int qpos = (e < 2) ? qrow0 : qrow1;
-          s[n][e] = dropout_hash::keep(drop.seed, bh, qpos, kpos,
-                                       drop.threshold)
-                        ? s[n][e] * drop.scale
-                        : 0.f;
+          float x = fmaf(s[4 * n + e], scale_log2, (e & 1) ? bv.y : bv.x);
+          if (masked) {
+            const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+            const int qpos = (e < 2) ? r0 : r1;
+            if (causal && qpos < kpos) x = kNegInf;
+            if (kpos >= seq) x = -INFINITY;
+          }
+          s[4 * n + e] = x;
         }
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= a0;
-      o[n][1] *= a0;
-      o[n][2] *= a1;
-      o[n][3] *= a1;
-    }
-
-    // O += P V, P rounded to bf16 in the A fragments.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = mma_bf16::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = mma_bf16::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = mma_bf16::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = mma_bf16::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t bf[4];  // V for keys kk*16.., dims n*8.. and n*8+8..
-        mma_bf16::load_b(bf, Vs, ld, kk * 16, n * 8, lane);
-        mma_bf16::mma(o[n], pf, bf[0], bf[1]);
-        mma_bf16::mma(o[n + 1], pf, bf[2], bf[3]);
+        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
       }
-    }
-  }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = hopper::exp2_ftz(m0 - mn0);
+      const float a1 = hopper::exp2_ftz(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        s[4 * n] = hopper::exp2_ftz(s[4 * n] - mn0);
+        s[4 * n + 1] = hopper::exp2_ftz(s[4 * n + 1] - mn0);
+        s[4 * n + 2] = hopper::exp2_ftz(s[4 * n + 2] - mn1);
+        s[4 * n + 3] = hopper::exp2_ftz(s[4 * n + 3] - mn1);
+        sum0 += s[4 * n] + s[4 * n + 1];
+        sum1 += s[4 * n + 2] + s[4 * n + 3];
+      }
+      l0 = l0 * a0 + sum0;
+      l1 = l1 * a1 + sum1;
+      if (drop.on) {  // l summed the undropped P; PV takes the dropped one
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+            const int qpos = (e < 2) ? r0 : r1;
+            s[4 * n + e] = dropout_hash::keep(drop.seed, bh, qpos, kpos,
+                                              drop.threshold)
+                               ? s[4 * n + e] * drop.scale
+                               : 0.f;
+          }
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[v][4 * n] *= a0;
+          o[v][4 * n + 1] *= a0;
+          o[v][4 * n + 2] *= a1;
+          o[v][4 * n + 3] *= a1;
+        }
 
-  // Row sums across the quad, then O / l and LSE.
+      // O += P V, P rounded to bf16 in the register A fragments.
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
-  if (t == 0) {
-    float* lrow = lse + ((int64_t)b * heads + h) * seq;
-    if (qrow0 < seq) lrow[qrow0] = m0 + logf(ls0);
-    if (qrow1 < seq) lrow[qrow1] = m1 + logf(ls1);
-  }
-  __nv_bfloat16* orow0 = out + base + (int64_t)qrow0 * lay.row;
-  __nv_bfloat16* orow1 = out + base + (int64_t)qrow1 * lay.row;
+      for (int kk = 0; kk < BK / 16; ++kk) hopper::a_fragment(pa[kk], s, kk);
+      const uint32_t vst = sbase + P::kQBytes + st * P::kStage +
+                           (P::kStream ? 0 : NC * P::kBox);
+      if (!P::kStream) hopper::bar_sync(1 + cw, 256);
+      hopper::wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (qrow0 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(orow0 + col) =
-          __floats2bfloat162_rn(o[n][0] / ls0, o[n][1] / ls0);
-    if (qrow1 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(orow1 + col) =
-          __floats2bfloat162_rn(o[n][2] / ls1, o[n][3] / ls1);
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          if (!P::kStream || v < nv)
+            hopper::wgmma_rs64(o[v], pa[kk],
+                               hopper::desc_sw128(vst + v * P::kBox +
+                                                  kk * 16 * 128));
+      hopper::wgmma_commit();
+      if (!P::kStream) hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int v = 0; v < NV; ++v) hopper::fence_regs(o[v]);
+      if (lt == 0) hopper::mbar_arrive(empty + st);
+      if (++st == ST) { st = 0; ph ^= 1; }
+    }
+
+    // Row sums across the quad, then O / l and LSE.
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
+    if (t == 0 && split == 0) {
+      float* lrow = lse + ((int64_t)b * heads + h) * seq;
+      if (r0 < seq) lrow[r0] = m0 * kLn2 + logf(ls0);
+      if (r1 < seq) lrow[r1] = m1 * kLn2 + logf(ls1);
+    }
+    // O / l of the consumer's rows, staged in shared memory (both
+    // consumers are done with it) and written in 16-byte rows.
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[v][4 * n] = o[v][4 * n] / ls0;
+        o[v][4 * n + 1] = o[v][4 * n + 1] / ls0;
+        o[v][4 * n + 2] = o[v][4 * n + 2] / ls1;
+        o[v][4 * n + 3] = o[v][4 * n + 3] / ls1;
+      }
+    hopper::bar_sync(3, 256);
+    __nv_bfloat16* buf =
+        reinterpret_cast<__nv_bfloat16*>(smem) + cw * 64 * (NV * 64 + 8);
+    hopper::store_tile_bf16<NV>(
+        o, P::kStream ? nv : NV, buf,
+        out + lay.base(b, h) + (int64_t)wq0 * lay.row + col0, lay.row,
+        seq - wq0, 4 + cw, lt);
   }
 }
+
+// ---------------------------------------------------------------------------
 
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
-// Launch `kernel` with `smem` bytes of dynamic shared memory, its limit
-// set once per device (`smem_set`, a static of the caller's instantiation).
-template <typename T, typename Kernel>
-int launch_with(Kernel kernel, size_t smem, bool (&smem_set)[kMaxDevices],
-                const void* q, const void* k, const void* v,
-                const void* bias, void* out, void* lse, int batch, int seq,
-                int heads, Layout lay, float sm_scale, int causal,
-                Params drop, cudaStream_t stream) {
-  const int err = set_smem_limit(kernel, smem, smem_set);
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;
+  void* out;
+  float* lse;
+  int batch, seq, heads, head_dim;
+  Layout lay;
+  float sm_scale;
+  int causal;
+  Params drop;
+};
+
+template <int D, bool WIDE = false>
+int launch_fp32(const Args& a, cudaStream_t stream) {
+  static bool done[kMaxDevices] = {};
+  auto kernel = flash_fwd_fp32_kernel<D, WIDE>;
+  const int err = set_smem_limit(kernel, Tile<D>::kBytes, done);
   if (err) return err;
-  const dim3 grid((unsigned)((seq + kBQ - 1) / kBQ), (unsigned)heads,
-                  (unsigned)batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), static_cast<float*>(lse), seq, heads, lay,
-      sm_scale, causal, drop);
+  const int nchunks = WIDE ? (a.head_dim + D - 1) / D : 1;
+  const dim3 grid((unsigned)((a.seq + kBQ - 1) / kBQ * nchunks),
+                  (unsigned)a.heads, (unsigned)a.batch);
+  kernel<<<grid, kThreads, Tile<D>::kBytes, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.bias, static_cast<float*>(a.out),
+      a.lse, a.seq, a.heads, a.head_dim, a.lay, a.sm_scale, a.causal,
+      a.drop);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch(int dtype, const void* q, const void* k, const void* v,
-           const void* bias, void* out, void* lse, int batch, int seq,
-           int heads, Layout lay, float sm_scale, int causal, Params drop,
-           cudaStream_t stream) {
-  static bool fp32_set[kMaxDevices] = {}, bf16_set[kMaxDevices] = {};
-  if (dtype == kF32)
-    return launch_with<float>(flash_fwd_fp32_kernel<D>, Tile<D>::kBytes,
-                              fp32_set, q, k, v, bias, out, lse, batch, seq,
-                              heads, lay, sm_scale, causal, drop, stream);
-  if (dtype == kBF16)
-    return launch_with<__nv_bfloat16>(flash_fwd_mma_kernel<D>,
-                                      MmaTile<D>::kBytes, bf16_set, q, k, v,
-                                      bias, out, lse, batch, seq, heads, lay,
-                                      sm_scale, causal, drop, stream);
-  return (int)cudaErrorInvalidValue;
+template <int BK, int NC, int NV>
+int launch_wgmma(const Args& a, cudaStream_t stream) {
+  using P = FwdPlan<BK, NC, NV>;
+  static bool done[kMaxDevices] = {};
+  auto kernel = flash_fwd_wgmma_kernel<BK, NC, NV>;
+  int err = set_smem_limit(kernel, P::kBytes, done);
+  if (err) return err;
+  CUtensorMap qm, km, vm;
+  const Layout& l = a.lay;
+  if ((err = hopper::make_map(&qm, a.q, a.head_dim, a.seq, a.heads, a.batch,
+                              l.row, l.head, l.batch, kWgBQ)) ||
+      (err = hopper::make_map(&km, a.k, a.head_dim, a.seq, a.heads, a.batch,
+                              l.row, l.head, l.batch, BK)) ||
+      (err = hopper::make_map(&vm, a.v, a.head_dim, a.seq, a.heads, a.batch,
+                              l.row, l.head, l.batch, BK)))
+    return err;
+  const int nsplit =
+      P::kStream ? (a.head_dim + kSliceCols - 1) / kSliceCols : 1;
+  const dim3 grid((unsigned)(a.heads * nsplit),
+                  (unsigned)((a.seq + kWgBQ - 1) / kWgBQ), (unsigned)a.batch);
+  kernel<<<grid, kWgThreads, P::kBytes, stream>>>(
+      qm, km, vm, a.bias, static_cast<__nv_bfloat16*>(a.out), a.lse, a.seq,
+      a.heads, a.head_dim, a.lay, a.sm_scale * kLog2e, a.causal, a.drop);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -593,21 +780,28 @@ extern "C" int flash_attention_packed_fwd(
     float sm_scale, int causal, uint32_t seed, uint32_t threshold,
     float keep_scale, int dropout, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Params drop{seed, threshold, keep_scale, dropout};
-  const Layout lay{batch_stride, head_stride, row_stride};
-  switch (head_dim) {
-    case 64:
-      return launch<64>(dtype, q, k, v, bias, out, lse, batch, seq, heads,
-                        lay, sm_scale, causal, drop, s);
-    case 128:
-      return launch<128>(dtype, q, k, v, bias, out, lse, batch, seq, heads,
-                         lay, sm_scale, causal, drop, s);
-    case 192:
-      return launch<192>(dtype, q, k, v, bias, out, lse, batch, seq, heads,
-                         lay, sm_scale, causal, drop, s);
-    case 256:
-      return launch<256>(dtype, q, k, v, bias, out, lse, batch, seq, heads,
-                         lay, sm_scale, causal, drop, s);
+  const Args a{q, k, v, static_cast<const float*>(bias), out,
+               static_cast<float*>(lse), batch, seq, heads, head_dim,
+               Layout{batch_stride, head_stride, row_stride}, sm_scale,
+               causal, Params{seed, threshold, keep_scale, dropout}};
+  if (head_dim <= 0 || head_dim % 64) return (int)cudaErrorInvalidValue;
+  if (dtype == kF32) {
+    switch (head_dim) {
+      case 64: return launch_fp32<64>(a, s);
+      case 128: return launch_fp32<128>(a, s);
+      case 192: return launch_fp32<192>(a, s);
+      case 256: return launch_fp32<256>(a, s);
+      default: return launch_fp32<kWideChunk, true>(a, s);
+    }
+  }
+  if (dtype == kBF16) {
+    switch (head_dim) {
+      case 64: return launch_wgmma<128, 1, 1>(a, s);
+      case 128: return launch_wgmma<128, 2, 2>(a, s);
+      case 192: return launch_wgmma<64, 3, 3>(a, s);
+      case 256: return launch_wgmma<64, 4, 4>(a, s);
+      default: return launch_wgmma<64, 0, 4>(a, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

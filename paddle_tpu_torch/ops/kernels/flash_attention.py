@@ -10,10 +10,17 @@ C entries take, so
 * ``csrc/flash_attention_packed_fwd.cu`` replaces ``_flash_forward`` too:
   online-softmax attention with an additive fp32 (batch, seq) key bias,
   causal masking, in-kernel dropout and the fp32 (batch, heads, seq)
-  log-sum-exp, for head widths 64, 128, 192 and 256;
+  log-sum-exp;
 * ``csrc/flash_attention_packed_bwd.cu`` replaces ``_flash_backward``: the
-  delta pre-pass, then dK/dV over key tiles and dQ over query tiles,
-  recomputed from the LSE with the dropout mask replayed.
+  delta pre-pass, then the gradients recomputed from the LSE with the
+  dropout mask replayed.
+
+Both take every head width ``supported`` admits (a multiple of 64), as the
+JAX kernel does; ``tile_plan`` says how each width is cut.  In bf16 they
+are warp-specialised ``wgmma`` kernels fed by TMA; the backward runs a
+dK/dV kernel over key tiles and a dQ kernel over query tiles, so no sum
+crosses CTAs and two runs agree bit for bit.  In fp32 they run on the
+CUDA cores.
 
 The wrappers pass each operand's own strides, so the split-head route's
 transposed views of the (b, s, h*d) projections go to the kernels as they
@@ -29,6 +36,7 @@ raises for anything else.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -44,14 +52,14 @@ SOURCE_BWD = "flash_attention_packed_bwd"
 REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:172 _flash_forward"
 REPLACES_BWD = "paddle_tpu/ops/pallas/flash_attention.py:295 _flash_backward"
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 192, 256)    # what the CUDA kernels take
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def supported(seq_len: int, head_dim: int) -> bool:
     """The shapes the JAX package sends to its kernel: 64-aligned head
-    widths and a sequence of whole 128-row blocks.  On CUDA the kernels
-    take head widths up to 256 and raise above."""
+    widths and a sequence of whole 128-row blocks.  The CUDA kernels take
+    every such head width (above 256 they split the output columns across
+    CTAs, ``tile_plan``) and any sequence length."""
     return head_dim % 64 == 0 and seq_len % 128 == 0 and seq_len >= 128
 
 
@@ -209,6 +217,51 @@ def _launch(name, source, tensors, batch, seq, heads, head_dim, strides,
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the CUDA kernels cut one head (the C entries' dispatch, kept
+    here so it can be checked without a card).  Forward: ``fwd_rows``
+    query rows and ``fwd_keys`` keys a tile; ``fwd_slices`` CTAs split a
+    head's output columns, each computing S over the whole head;
+    ``fwd_stream``: Q streams with K instead of staying in shared memory.
+    Backward, dK/dV pass: ``bwd_rows`` keys a CTA, ``bwd_cols`` queries a
+    tile, ``bwd_slices`` output slices; dQ pass: ``dq_keys`` keys a tile,
+    ``dq_slices`` output slices."""
+    fwd_rows: int
+    fwd_keys: int
+    fwd_slices: int
+    fwd_stream: bool
+    bwd_rows: int
+    bwd_cols: int
+    bwd_slices: int
+    dq_keys: int
+    dq_slices: int
+
+
+def tile_plan(head_dim: int, dtype) -> TilePlan:
+    """The tiles of ``head_dim`` (a positive multiple of 64) in ``dtype``
+    (float32: CUDA-core kernels; bfloat16: wgmma kernels)."""
+    d = head_dim
+    if dtype == torch.bfloat16:
+        wide = 1 if d <= 256 else -(-d // 256)   # 256-column slices
+        return TilePlan(fwd_rows=128, fwd_keys=128 if d <= 128 else 64,
+                        fwd_slices=wide, fwd_stream=d > 256,
+                        bwd_rows=128 if d <= 128 else 64, bwd_cols=64,
+                        bwd_slices=wide,
+                        dq_keys={64: 128, 256: 32}.get(d, 64),
+                        dq_slices=wide)
+    if d <= 256:
+        cols = 64 if d <= 128 else 32
+        slices = 1 if d <= 128 else 2
+        return TilePlan(fwd_rows=64, fwd_keys=cols, fwd_slices=1,
+                        fwd_stream=False, bwd_rows=64, bwd_cols=cols,
+                        bwd_slices=slices, dq_keys=cols, dq_slices=slices)
+    wide = -(-d // 128)           # 128-column chunks, one slice each
+    return TilePlan(fwd_rows=64, fwd_keys=64, fwd_slices=wide,
+                    fwd_stream=True, bwd_rows=64, bwd_cols=64,
+                    bwd_slices=wide, dq_keys=64, dq_slices=wide)
+
+
 # -- the (batch, heads, seq, head_dim) kernels ---------------------------------
 
 def _check(q, k, v, bias):
@@ -225,9 +278,11 @@ def _check(q, k, v, bias):
 
 
 def _check_head_dim(name, head_dim):
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"{name}: the CUDA kernels take head_dim in "
-                         f"{HEAD_DIMS}, got {head_dim}")
+    """The CUDA kernels take every head width ``supported`` admits: a
+    positive multiple of 64."""
+    if head_dim <= 0 or head_dim % 64:
+        raise ValueError(f"{name}: the CUDA kernels take head_dim a "
+                         f"positive multiple of 64, got {head_dim}")
 
 
 def _like(name, q):
@@ -309,7 +364,13 @@ def flash_attention_bwd(q, k, v, bias, out, lse, dout, sm_scale,
         raise ValueError(f"{name}: unsupported device {q.device}")
     _check_head_dim(name, d)
     dq, dk, dv = (_like(name, q) for _ in range(3))
-    delta = torch.empty_like(lse)
+    if q.dtype == torch.bfloat16:
+        # per query tile of each (batch, head): LSE * log2 e, then delta
+        rows = tile_plan(d, q.dtype).bwd_cols
+        delta = torch.empty(b * h * -(-s // rows) * 2 * rows,
+                            dtype=torch.float32, device=q.device)
+    else:
+        delta = torch.empty_like(lse)
     strides = _check_cuda(
         name, q.dtype,
         [("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout),

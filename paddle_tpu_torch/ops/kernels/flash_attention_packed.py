@@ -12,6 +12,11 @@ other strides: the (b, h, s, d) view of a (b, s, h*d) projection output is
 * ``csrc/flash_attention_packed_bwd.cu`` replaces ``_backward``: dQ, dK and
   dV recomputed from the LSE, with the dropout mask replayed.
 
+In bf16 both are warp-specialised ``wgmma`` kernels fed by TMA tensor maps
+built from the views' strides (the TMA needs the 16-byte-aligned rows the
+wrappers check); the backward's dK/dV and dQ kernels sum nothing across
+CTAs, so it repeats bit for bit (``flash_attention.py``).
+
 The packed wrappers take the JAX packed kernel's head layouts (64-wide heads
 in an even count, or 128-wide heads) on CUDA and raise on the others, which
 the split-head route serves.  They are the (b, h, s, d) wrappers on the

@@ -74,7 +74,7 @@ def _jax_flash(q, k, v, bias, causal, rate, seed=SEED):
                                block_q=BLOCK, block_k=BLOCK)
 
 
-CASES = [(2, 3, 128, 64), (1, 2, 256, 128), (1, 1, 128, 256)]
+CASES = [(2, 3, 128, 64), (1, 2, 256, 128), (1, 1, 128, 256), (1, 1, 128, 320)]
 
 
 # -- the kernel's plain version against the Pallas function ------------------
@@ -185,10 +185,13 @@ def test_wrappers_count_no_launch_on_cpu_and_refuse_what_cuda_refuses():
                                 0.125)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, k[:, :, :64], v, bias, 0.125)
-    # head widths above 256 (and other than 64, 128, 192, 256) raise on CUDA
-    for d in (64, 128, 192, 256):
+    # every head width supported() admits is taken on CUDA, wide ones too;
+    # widths that are not multiples of 64 raise
+    for d in (64, 128, 192, 256, 320, 512):
+        assert tfa.supported(128, d)
         tfa._check_head_dim(tfa.KERNEL, d)
-    for d in (32, 320, 512):
+    for d in (32, 96):
+        assert not tfa.supported(128, d)
         with pytest.raises(ValueError, match="head_dim"):
             tfa._check_head_dim(tfa.KERNEL, d)
     # an odd 64-wide head count is not the packed kernel's: the refusal
@@ -196,6 +199,27 @@ def test_wrappers_count_no_launch_on_cpu_and_refuse_what_cuda_refuses():
     with pytest.raises(ValueError, match="split-head route"):
         tfap._check_layout(tfap.KERNEL, 3, 64)
     tfap._check_layout(tfap.KERNEL, 2, 64)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 512, 1024])
+def test_tile_plan_splits_wide_heads(d):
+    """The kernels' tiles for a head width: bf16 keeps Q in shared memory
+    up to d 256 and above splits every pass's output columns into CTAs of
+    256; fp32 writes backward slices of d / 2 at d 192-256 and every pass
+    in slices of 128 above; the slices cover the head."""
+    bf = tfa.tile_plan(d, torch.bfloat16)
+    assert bf.fwd_rows == 128 and bf.fwd_keys == (128 if d <= 128 else 64)
+    assert bf.fwd_stream == (d > 256)
+    assert bf.fwd_slices == bf.bwd_slices == bf.dq_slices
+    assert bf.fwd_slices * 256 >= d and (bf.fwd_slices - 1) * 256 < d
+    assert bf.fwd_slices == (1 if d <= 256 else -(-d // 256))
+    assert bf.bwd_rows == (128 if d <= 128 else 64) and bf.bwd_cols == 64
+    assert bf.dq_keys in (32, 64, 128)
+    f32 = tfa.tile_plan(d, torch.float32)
+    width = d if d <= 128 else d // 2 if d <= 256 else 128
+    assert f32.bwd_slices == f32.dq_slices == -(-d // width)
+    assert f32.fwd_slices == (1 if d <= 256 else -(-d // 128))
+    assert f32.fwd_keys == (64 if d <= 128 or d > 256 else 32)
 
 
 def test_split_head_views_reach_the_kernels_without_copies():
