@@ -11,7 +11,8 @@ Phases (any failed check raises, so the script exits non-zero):
               paddle_tpu_torch/ops/kernels/csrc/ for sm_90a, all at once;
               ptxas's register and spill lines are printed, and the count of
               HGMMA (wgmma) instructions cuobjdump finds in each attention
-              library, which must be nonzero.
+              library and the fused conv's, which must be nonzero (and the
+              conv's HMMA, mma.sync, count zero).
 2. kernels -- each kernel against its plain PyTorch version on the card at
               the ERNIE-base shapes (b 8, s 512, h 12, d 64, rows 4096 of
               dim 768) in fp32 and bf16: the forwards of attention (A),
@@ -19,12 +20,14 @@ Phases (any failed check raises, so the script exits non-zero):
               (A, C) 0.1, and the three backwards (A at dropout 0.1, C at
               0.1), plus ragged, padded, causal and head_dim-128 attention
               cases forward and backward; each kernel's time beside its
-              plain version's, a PyTorch library call's and its bound.
+              plain version's, a PyTorch library call's and its bound;
+              the LayerNorm backwards' dw and db repeat bit for bit.
               Then all six kernels in bf16 against their plain versions
               at the training step's own shapes (b 64, s 512; 32768 rows),
-              and the (b, h, s, d) kernels of phase 5 there too, on the
-              split-head route's views (dropout 0.1, ragged keys), with
-              their times and bounds there.
+              the four LayerNorm kernels in fp32 too, and the (b, h, s, d)
+              kernels of phase 5 there, on the split-head route's views
+              (dropout 0.1, ragged keys), with their times and bounds
+              there and aten's LayerNorm backward beside row 6.
 3. slice   -- serving: full-width ERNIE-base (L12 H768 A12 I3072 V18000,
               random weights from --seed) answers token-id requests of
               mixed lengths, batched and padded at s 128 and s 512: the
@@ -93,10 +96,11 @@ Phases (any failed check raises, so the script exits non-zero):
 7. vision kernels -- rows 10 and 13 against their plain versions in fp32
               (cuDNN's TF32 off) and bf16: the fused conv + BN + act at
               VGG-16's fused shapes at b128 (128->128 16x16, 256->256 8x8,
-              512->512 4x4 and 2x2), a 3x3 s2 p1, a 1x1 s2 and a 7x7 s2 p3
-              conv, and every epilogue act at a small shape (fp32 within
-              1e-4 of the largest value, bf16 2e-2 of the fp32 plain
-              version); NHWC pooling at VGG-16's four 2x2/2 max pools,
+              512->512 4x4 and 2x2, 128->256 8x8, 256->512 4x4), a 3x3 s2
+              p1, a 1x1 s2 and a 7x7 s2 p3 conv, and every epilogue act at
+              a small shape (fp32 within 1e-4 of the largest value, bf16
+              2e-2 of the fp32 plain version; every output, split K or
+              not, repeats bit for bit on a second call); NHWC pooling at VGG-16's four 2x2/2 max pools,
               a 3x3/2 p1 max, a 2x2/2 and a 3x3/1 p1 non-exclusive avg
               (max bit for bit, avg within 1e-6); each case's CUDA-graph
               and eager times beside the plain version's, the library
@@ -205,7 +209,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 64, 512, 25      # bench.py's TPU run
 # csrc/*.cu __global__ functions).
 PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)(_dkdv|_dq)?_(fp32|wgmma)|flash_bwd_delta|"
                          r"ln_(fwd|bwd|partials_reduce)|paged_attn|"
-                         r"conv2d_bn_act|pool2d_nhwc|bn_stats_(partial|"
+                         r"conv2d_bn_act(_fp32|_wgmma|_split_sum)?|pool2d_nhwc|"
+                         r"bn_stats_(partial|"
                          r"reduce)|bn_scale_act|int8_(matmul|conv))_kernel\b")
 
 # Paged attention (phase 5).  Tolerances: fp32 and int8 against the plain
@@ -392,6 +397,9 @@ def ln_case(ln, name, run, plain, plain32, dtype, tag):
         for i, label in ((-2, "dw"), (-1, "db")):
             compare(f"{tag} {label}", name, got[i], ref[i], ref32[i], dtype,
                     relative=True)
+        again = run()
+        check(all(torch.equal(g, a) for g, a in zip(got[-2:], again[-2:])),
+              f"{tag}: dw and db repeat bit for bit on a second call")
     else:
         stats = max(max_abs(got[1], ref[1]), rel_err(got[2], ref[2]))
         check(stats <= 1e-5, f"{tag}: mean/rstd err {stats:.3g}")
@@ -652,11 +660,13 @@ def train_shape_phase(gen):
     """The main path's kernels against their plain versions at the bf16
     training step's own shapes (b TRAIN_BATCH, s TRAIN_SEQ; TRAIN_BATCH *
     TRAIN_SEQ rows), where the wrappers launch other grids than at
-    KERNEL_SHAPE (the LayerNorm backwards walk 16 rows a warp, not 2; the
-    attention backwards' delta pre-pass covers b * h * s rows), with the
-    same seeds and tolerances: kernel A and A-backward, the (b, h, s, d)
-    kernels on the split-head route's views, and the four LayerNorm
-    kernels; then each kernel's device time and bound there."""
+    KERNEL_SHAPE (the LayerNorm backwards' warps walk ~8 rows each, not 1-2;
+    the attention backwards' delta pre-pass covers b * h * s rows), with
+    the same seeds and tolerances: kernel A and A-backward, the (b, h, s,
+    d) kernels on the split-head route's views, and the four LayerNorm
+    kernels in bf16 and fp32 (dw/db bit for bit across two calls); then
+    each kernel's device time and bound there, and aten's LayerNorm
+    backward beside row 6."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
@@ -690,19 +700,45 @@ def train_shape_phase(gen):
                                        c["out"], c["lse"], c["do"],
                                        *c["bargs"]),
         attn_cost(True, b, s, h, d, elt), c["bwd_err"])
-    cases, _ = ln_family(ln, gen, n, dim, dtype)
-    cases[ln.RDLN] = cases.pop((ln.RDLN, RATE))
-    for name in (ln.LN, ln.LN_BWD, ln.RDLN, ln.RDLN_BWD):
-        runs[name] = (cases[name][0], ln_cost(name, n, dim, elt),
-                      cases[name][2])
     out = {}
     for name, (run, cost, err) in runs.items():
         out[name] = dict(ms=time_ms(run), bound=bound(*cost, dtype), err=err)
         log(f"  {name} bf16 at the training shapes: {out[name]['ms']:.4f} ms,"
             f" bound {out[name]['bound'][0]:.4f} ms ({out[name]['bound'][1]})"
             f"; max abs err vs bf16 plain {err:.3g}")
-    del a, c, qkv, runs, cases
+    del a, c, qkv, runs
     torch.cuda.empty_cache()
+    # The LayerNorms in bf16 (the step's type) and fp32, with aten's
+    # LayerNorm backward beside row 6.  The fp32 inputs come from a
+    # generator of their own, so the later phases draw what they drew
+    # before this case was added.
+    for ln_dtype, ln_gen in ((torch.bfloat16, gen),
+                             (torch.float32,
+                              torch.Generator().manual_seed(SEED))):
+        ln_elt = torch.tensor([], dtype=ln_dtype).element_size()
+        cases, t = ln_family(ln, ln_gen, n, dim, ln_dtype)
+        cases[ln.RDLN] = cases.pop((ln.RDLN, RATE))
+        _, mean_l, rstd_l = torch.ops.aten.native_layer_norm(
+            t["x"], [dim], t["w"], t["bb"], 1e-5)
+        lib = lambda: torch.ops.aten.native_layer_norm_backward(
+            t["dy"], t["x"], [dim], mean_l, rstd_l, t["w"], t["bb"],
+            [True, True, True])
+        for name in (ln.LN, ln.LN_BWD, ln.RDLN, ln.RDLN_BWD):
+            run, _, err = cases[name]
+            r = dict(ms=time_ms(run),
+                     bound=bound(*ln_cost(name, n, dim, ln_elt), ln_dtype),
+                     err=err)
+            if name == ln.LN_BWD:
+                r["library_ms"] = time_ms(lib)
+            key = name if ln_dtype == torch.bfloat16 else (name, ln_dtype)
+            out[key] = r
+            extra = (f", library (aten native_layer_norm_backward) "
+                     f"{r['library_ms']:.4f} ms" if "library_ms" in r else "")
+            log(f"  {name} {dtag(ln_dtype)} at the training shapes: "
+                f"{r['ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+                f"({r['bound'][1]}){extra}; max abs err vs plain {err:.3g}")
+        del cases, t, lib
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1924,13 +1960,17 @@ def profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache):
 
 # -- phase 7: vision kernels (rows 10 and 13) ---------------------------------
 
-# Row 10 at its main-path shapes: VGG-16's fused convs at b128 (3x3 s1 p1),
-# a 3x3 s2 p1, a 1x1 s2 and a 7x7 s2 p3 conv, as (n, h, w, c, o, k, s, p).
+# Row 10 at its main-path shapes: VGG-16's fused convs at b128 (3x3 s1 p1;
+# the four in-group shapes, then the first convs of groups 3 and 4, so the
+# cases cover all 10 launches of a VGG forward), a 3x3 s2 p1, a 1x1 s2 and
+# a 7x7 s2 p3 conv, as (n, h, w, c, o, k, s, p).
 CONV_CASES = (
     ("vgg 128->128 16x16", (128, 16, 16, 128, 128, 3, 1, 1)),
     ("vgg 256->256 8x8", (128, 8, 8, 256, 256, 3, 1, 1)),
     ("vgg 512->512 4x4", (128, 4, 4, 512, 512, 3, 1, 1)),
     ("vgg 512->512 2x2", (128, 2, 2, 512, 512, 3, 1, 1)),
+    ("vgg 128->256 8x8", (128, 8, 8, 128, 256, 3, 1, 1)),
+    ("vgg 256->512 4x4", (128, 4, 4, 256, 512, 3, 1, 1)),
     ("3x3 s2 p1 128->256 16x16", (128, 16, 16, 128, 256, 3, 2, 1)),
     ("1x1 s2 256->512 8x8", (128, 8, 8, 256, 512, 1, 2, 0)),
     ("7x7 s2 p3 128->128 32x32", (32, 32, 32, 128, 128, 7, 2, 3)),
@@ -1980,8 +2020,11 @@ def conv_case(cf, gen, dims, dtype, act, timed=True):
         torch.cuda.synchronize()
         ref32 = cf.conv2d_bn_act_plain(x.float(), wt.float(), a, b, *args)
         err = max_abs(got, plain())
+        splits = cf.conv_plan(n, h, w, c, o, k, k, s, s, p, p, dtype).splits
         tag = f"conv2d_bn_act n{n} {h}x{w} {c}->{o} k{k} s{s} p{p} " \
-              f"{dtag(dtype)} act={act or 'none'}"
+              f"{dtag(dtype)} act={act or 'none'} (K splits {splits})"
+        check(torch.equal(run(), got), f"{tag}: a second call repeats the "
+              f"output bit for bit")
         r = rel_err(got, ref32)
         if dtype == torch.float32:
             check(r <= TOL_CONV_FP32_REL, f"{tag}: rel err {r:.3g} <= "
@@ -1990,7 +2033,7 @@ def conv_case(cf, gen, dims, dtype, act, timed=True):
             check(r <= TOL_BF16_REL, f"{tag}: rel err vs fp32 plain {r:.3g}"
                   f" <= {TOL_BF16_REL} (max abs vs bf16 plain {err:.3g})")
         if not timed:
-            return dict(err=err)
+            return dict(err=err, splits=splits)
         wf = (wt * a.to(dtype).reshape(-1, 1, 1, 1)).contiguous(
             memory_format=torch.channels_last)
         bf = b.to(dtype)
@@ -2001,7 +2044,7 @@ def conv_case(cf, gen, dims, dtype, act, timed=True):
         oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
         flops, nbytes = cf.conv_cost(n, oh, ow, c, o, k, k, elt, h, w)
         return dict(timings(run, plain, lib, nbytes, flops, dtype), err=err,
-                    flops=flops)
+                    flops=flops, splits=splits)
 
 
 def pool_case(pl, gen, dims, dtype):
@@ -2055,10 +2098,12 @@ def vision_kernel_phase(gen):
             results[("pool", label, dtype)] = pool_case(pl, gen, dims, dtype)
     for (kind, label, dtype), r in results.items():
         name = "conv2d_bn_act" if kind == "conv" else f"{r['mode']}_pool2d"
+        extra = (f", K splits {r['splits']}, factor against the library "
+                 f"{r['ms'] / r['library_ms']:.2f}" if kind == "conv" else "")
         log(f"  {name} {label} {dtag(dtype)}: {r['ms']:.4f} ms (eager "
             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]})")
+            f"({r['bound'][1]}){extra}")
     return results
 
 
@@ -2372,7 +2417,8 @@ def vision_entries(vision, counts):
         return [dict(case=label, dtype=dtag(dtype), ms=x["ms"],
                      eager_ms=x["eager_ms"], plain_ms=x["plain_ms"],
                      library_ms=x["library_ms"], bound_ms=x["bound"][0],
-                     bound_by=x["bound"][1], max_abs_err=x["err"])
+                     bound_by=x["bound"][1], max_abs_err=x["err"],
+                     **({"splits": x["splits"]} if "splits" in x else {}))
                 for (k, label, dtype), x in vision.items()
                 if k == kind and x.get("mode", mode) == mode]
 
@@ -3082,6 +3128,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import conv_fused as cf
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
@@ -3100,13 +3147,17 @@ def main(argv=None):
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    for name in (fa.SOURCE, fa.SOURCE_BWD):
+    for name in (fa.SOURCE, fa.SOURCE_BWD, cf.SOURCE):
         sass = subprocess.run(
             [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"),
              "-sass", str(build.library_path(name))],
             capture_output=True, text=True, check=True).stdout
         n = len(re.findall(r"\bHGMMA\b", sass))
         check(n > 0, f"{name}: {n} HGMMA (wgmma) instructions in its SASS")
+        if name == cf.SOURCE:
+            n = len(re.findall(r"\bHMMA\b", sass))
+            check(n == 0, f"{name}: {n} HMMA (mma.sync) instructions in its "
+                  f"SASS")
 
     gen = torch.Generator().manual_seed(args.seed)
     results = kernel_phase(gen)
@@ -3153,6 +3204,11 @@ def main(argv=None):
             "train_shape_ms": at_train[k.name]["ms"],
             "train_shape_bound_ms": at_train[k.name]["bound"][0],
             "train_shape_max_abs_err": at_train[k.name]["err"]}
+        if "library_ms" in at_train[k.name]:
+            entry["train_shape_library_ms"] = at_train[k.name]["library_ms"]
+        if (k.name, torch.float32) in at_train:
+            entry["train_shape_fp32_ms"] = \
+                at_train[(k.name, torch.float32)]["ms"]
         if "library_eager_ms" in r:
             entry.update(library_timing="torch.profiler device time",
                          library_eager_ms=r["library_eager_ms"])

@@ -9,15 +9,19 @@ with x NHWC (fp32 or bf16), w OIHW, a and b fp32 ``(O,)`` (the folded
 inference BatchNorm of ``nn.functional.norm.bn_inference_scale_bias``, or
 ``a = 1`` and ``b`` = a conv bias), the sum in fp32 and the output NHWC in
 x's dtype.  One kernel source, ``csrc/conv2d_bn_act.cu``: an implicit GEMM
-over output pixels x output channels x (taps, C), bf16 on ``mma.sync``,
-fp32 on FMAs, zero padding by bounds checks.
+over output pixels x output channels x (taps, C), bf16 on ``wgmma`` with
+TMA im2col loads, fp32 on FMAs, zero padding from the loads, and K split
+across CTAs where the output tiles alone do not fill the card
+(``conv_plan``).
 
 ``supported()`` is the JAX package's shape gate, VMEM cap included, so the
 same ops take the kernel in both packages; the dispatch site
 (``static/ops_fused.py``) applies it.  The wrapper launches the kernel on
-CUDA tensors (NHWC-contiguous x, C % 32 == 0, O % 128 == 0, w in x's
-dtype) or raises, and runs ``conv2d_bn_act_plain`` on CPU tensors.  The
-wrapper transposes w to (kh, kw, C, O) per call, as the JAX wrapper does.
+CUDA tensors (NHWC-contiguous x, C % 64 == 0, O % 128 == 0, w in x's
+dtype) or raises, and runs ``conv2d_bn_act_plain`` on CPU tensors.  It
+lays the filter out for the kernel once per weight tensor and version
+(bf16 ``(O, kh, kw, C)``, fp32 ``(kh, kw, C, O)``) and keeps that copy
+while the weight lives.
 
 The JAX function has no VJP, so neither has this one: a call with grad
 enabled on an input that requires grad raises.  The training-mode
@@ -26,7 +30,7 @@ kernels (``_batch_stats``, ``scale_act``) are in ``bn_act_train.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -48,8 +52,64 @@ _ACT_CODES = {"": 0, "relu": 1, "relu6": 2, "sigmoid": 3, "tanh": 4,
               "gelu": 5, "silu": 6, "swish": 6}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
-BLOCK_N = 128      # output channels per CTA
-BLOCK_K_BYTES = 64  # channel bytes per K tile (C % 32 serves both dtypes)
+BLOCK_N = 128       # output channels per CTA, both dtypes
+BLOCK_M = {torch.bfloat16: 128, torch.float32: 64}  # output pixels per CTA
+UNIT_C = 64         # channels of one K unit (one tap x 64 channels)
+H100_SMS = 132
+MAX_SPLITS = 16
+# CTAs an SM runs at once: one 384-thread wgmma CTA (166 KB of shared
+# memory); three 128-thread FMA CTAs (167 registers a thread).
+CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 3}
+# K units a split sums at least.  A split costs a second launch and an
+# fp32 partial tile written and read back; below these a CTA spends longer
+# on that than on its share of the sum (the 1x1 s2 256->512 conv at 8x8, 4
+# units: 2 bf16 or 4 fp32 splits were slower than none on the card).
+MIN_SPLIT_UNITS = {torch.bfloat16: 8, torch.float32: 4}
+# Largest zero padding the bf16 kernel's im2col tensor map takes (its
+# bounding-box corners lie in [-128, 127]); the wrapper pads x itself by
+# the excess beyond it.
+IM2COL_PAD_LIMIT = 127
+
+
+class ConvPlan(NamedTuple):
+    """The kernel's grid for one call: ``block_m`` pixels x ``block_n``
+    channels a CTA, ``units`` K units of one tap x ``UNIT_C`` channels,
+    split over ``splits`` CTAs per output tile (grid z)."""
+    block_m: int
+    block_n: int
+    m: int
+    tiles: int
+    units: int
+    splits: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.splits
+
+    def split_units(self, split: int) -> Tuple[int, int]:
+        """The K units [u0, u1) split ``split`` sums (as the kernel)."""
+        return (split * self.units // self.splits,
+                (split + 1) * self.units // self.splits)
+
+
+def conv_plan(n, h, w, c, o, kh, kw, sh, sw, ph, pw, dtype,
+              sms: int = H100_SMS) -> ConvPlan:
+    """The tiles and K splits of ``conv2d_bn_act`` (mirrors the C entry).
+    Where the output tiles alone give fewer than ``sms`` CTAs, K is split
+    into as many parts as one wave holds (``sms * CTAS_PER_SM[dtype]``
+    CTAs), up to ``MAX_SPLITS`` and ``MIN_SPLIT_UNITS[dtype]`` K units a
+    split.  Never more than a wave: a second, nearly empty wave costs a
+    whole CTA's time (VGG's 2x2 bf16 layer: 9 splits, 144 CTAs, were
+    slower than 4 on the card)."""
+    out_h, out_w = _out_hw(h, kh, sh, ph), _out_hw(w, kw, sw, pw)
+    m = n * out_h * out_w
+    bm = BLOCK_M[dtype]
+    tiles = -(-m // bm) * (o // BLOCK_N)
+    units = kh * kw * (c // UNIT_C)
+    wave = sms * CTAS_PER_SM[dtype]
+    most = min(MAX_SPLITS, units // MIN_SPLIT_UNITS[dtype])
+    splits = 1 if tiles >= sms else min(most, wave // tiles)
+    return ConvPlan(bm, BLOCK_N, m, tiles, units, max(splits, 1))
 
 
 def _out_hw(size: int, k: int, stride: int, pad: int) -> int:
@@ -170,10 +230,9 @@ def _check(x, w, a, b, stride, padding, act):
                          f"the same dtype, got {x.dtype} and {w.dtype}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(f"{KERNEL}: a and b must be float32")
-    bk = BLOCK_K_BYTES // _ITEMSIZE[x.dtype]
-    if c % bk or o % BLOCK_N:
-        raise ValueError(f"{KERNEL}: needs C % {bk} == 0 and O % {BLOCK_N} "
-                         f"== 0, got C={c}, O={o}")
+    if c % UNIT_C or o % BLOCK_N:
+        raise ValueError(f"{KERNEL}: needs C % {UNIT_C} == 0 and O % "
+                         f"{BLOCK_N} == 0, got C={c}, O={o}")
     for t in (w, a, b):
         if t.device != x.device:
             raise ValueError(f"{KERNEL}: all tensors must be on {x.device}")
@@ -186,14 +245,27 @@ def _check(x, w, a, b, stride, padding, act):
 
 
 def _entry():
-    """C entry: x, wk, a, b, out (pointers), n, h, w, c, o, kh, kw, sh, sw,
-    ph, pw, act code, dtype code (int), the stream."""
+    """C entry: x, wk, a, b, out, ws (pointers), n, h, w, c, o, kh, kw, sh,
+    sw, ph, pw, splits, act code, dtype code (int), the stream."""
     fn = build.load(SOURCE).conv2d_bn_act
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 13 + [P]
+        fn.argtypes = [P] * 6 + [I] * 14 + [P]
         fn.restype = I
     return fn
+
+
+def kernel_filter(w):
+    """The OIHW filter in the kernel's layout: bf16 (O, kh, kw, C), fp32
+    (kh, kw, C, O).  Made once per weight version and storage, and kept on
+    the weight tensor itself, so it lives as long as the weight."""
+    hit = getattr(w, "_conv2d_bn_act_layout", None)
+    if hit is not None and hit[0] == (w._version, w.data_ptr()):
+        return hit[1]
+    perm = (0, 2, 3, 1) if w.dtype == torch.bfloat16 else (2, 3, 1, 0)
+    wk = w.detach().permute(*perm).contiguous()
+    w._conv2d_bn_act_layout = ((w._version, w.data_ptr()), wk)
+    return wk
 
 
 def conv2d_bn_act(x, w, a, b, stride=(1, 1), padding=(0, 0), act=""):
@@ -202,16 +274,26 @@ def conv2d_bn_act(x, w, a, b, stride=(1, 1), padding=(0, 0), act=""):
     _check(x, w, a, b, stride, padding, act)
     if x.device.type == "cpu":
         return conv2d_bn_act_plain(x, w, a, b, stride, padding, act)
-    n, h, wd, c = x.shape
     o, _, kh, kw = w.shape
-    out_h = _out_hw(h, kh, stride[0], padding[0])
-    out_w = _out_hw(wd, kw, stride[1], padding[1])
-    wk = w.permute(2, 3, 1, 0).contiguous()  # (kh, kw, C, O)
+    ph, pw = padding
+    if x.dtype == torch.bfloat16 and max(ph, pw) > IM2COL_PAD_LIMIT:
+        eh, ew = max(ph - IM2COL_PAD_LIMIT, 0), max(pw - IM2COL_PAD_LIMIT, 0)
+        x = torch.nn.functional.pad(x, (0, 0, ew, ew, eh, eh))
+        ph, pw = ph - eh, pw - ew
+    n, h, wd, c = x.shape
+    out_h = _out_hw(h, kh, stride[0], ph)
+    out_w = _out_hw(wd, kw, stride[1], pw)
+    plan = conv_plan(n, h, wd, c, o, kh, kw, stride[0], stride[1], ph, pw,
+                     x.dtype, torch.cuda.get_device_properties(
+                         x.device).multi_processor_count)
     out = torch.empty((n, out_h, out_w, o), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((plan.splits, plan.m, o), dtype=torch.float32,
+                      device=x.device) if plan.splits > 1 else None)
     err = _entry()(
-        x.data_ptr(), wk.data_ptr(), a.data_ptr(), b.data_ptr(),
-        out.data_ptr(), n, h, wd, c, o, kh, kw, stride[0], stride[1],
-        padding[0], padding[1], _ACT_CODES[act], _DTYPE_CODES[x.dtype],
+        x.data_ptr(), kernel_filter(w).data_ptr(), a.data_ptr(),
+        b.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        n, h, wd, c, o, kh, kw, stride[0], stride[1], ph, pw, plan.splits,
+        _ACT_CODES[act], _DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")

@@ -1,6 +1,7 @@
-// sm_90a building blocks of the bf16 attention kernels: TMA tensor maps and
-// loads, mbarriers, named barriers, warpgroup register hand-over, and wgmma
-// with its shared-memory descriptors.
+// sm_90a building blocks of the bf16 attention and convolution kernels: TMA
+// tensor maps (tiled and im2col) and loads, mbarriers, named barriers,
+// warpgroup register hand-over, and wgmma with its shared-memory
+// descriptors.
 //
 // Tiles.  Every operand tile in shared memory is a column of "boxes": one
 // TMA box is `rows` rows of 64 bf16 (128 bytes), stored with the 128-byte
@@ -111,6 +112,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Load box (c0, c1) of a 2-d tensor map into shared memory, counted on
+// `bar` in bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Im2col load of a 4-d (C, W, H, N) map: the map's pixelsPerColumn pixels
+// from the start pixel (w, h, n) on, walked through the map's bounding box
+// W first, then H, then N, at its traversal strides; each pixel read at
+// (w + off_w, h + off_h) (the filter tap), channels c .. c +
+// channelsPerPixel.  Pixels outside the tensor read as zeros.
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int h, int n,
+                                                   uint16_t off_w,
+                                                   uint16_t off_h) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(w), "r"(h), "r"(n), "h"(off_w), "h"(off_h)
       : "memory");
 }
 
@@ -326,6 +359,83 @@ inline EncodeTiled encode_fn() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const int*, const int*,
+                                 cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeIm2col, found as encode_fn() finds the tiled encoder.
+inline EncodeIm2col encode_im2col_fn() {
+  static EncodeIm2col fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeIm2col>(p);
+  }
+  return fn;
+}
+
+// The 2-d map (cols, rows) of a row-major bf16 matrix with `ld` elements
+// between rows (a multiple of 8), read in boxes of 64 columns x `box_rows`
+// rows with the 128-byte swizzle.
+inline int make_map_2d(CUtensorMap* map, const void* base, int64_t cols,
+                       int64_t rows, int64_t ld, int box_rows) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The im2col map of a bf16 NHWC image batch (n, h, w, c) for a kh x kw
+// filter at stride (sh, sw) and zero padding (ph, pw): the bounding box of
+// a filter's first tap runs from -p to size + p - k (both ends inclusive),
+// so one walk of it visits the output pixels in (n, y, x) order; each load
+// fills `pixels` rows of 64 channels (128 bytes, 128-byte swizzle).
+// Corners must lie in [-128, 127] (rank 4).
+constexpr int kIm2colCornerMin = -128;
+constexpr int kIm2colCornerMax = 127;
+
+inline int make_im2col_map(CUtensorMap* map, const void* base, int n, int h,
+                           int w, int c, int kh, int kw, int sh, int sw,
+                           int ph, int pw, int pixels) {
+  EncodeIm2col fn = encode_im2col_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const int lower[2] = {-pw, -ph};
+  const int upper[2] = {pw - (kw - 1), ph - (kh - 1)};
+  for (int i = 0; i < 2; ++i)
+    if (lower[i] < kIm2colCornerMin || upper[i] > kIm2colCornerMax ||
+        upper[i] < kIm2colCornerMin)
+      return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2,
+                                 (cuuint64_t)h * w * c * 2};
+  const cuuint32_t estr[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, lower, upper,
+                        (cuuint32_t)kBoxCols, (cuuint32_t)pixels, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // The 4-d map (head_dim, seq, heads, batch) of one bf16 operand with element

@@ -8,8 +8,8 @@ Counterpart of paddle_tpu/ops/pallas/layer_norm.py.  Two kernel sources:
   the position hash of ``dropout.py`` keyed by (0, row, column);
 * ``csrc/layer_norm_bwd.cu``: their backwards, ``layer_norm_bwd`` (replaces
   ``_bwd``) and ``residual_layer_norm_bwd`` (replaces ``_rdln_bwd``), which
-  replays the mask; dw and db come from per-block partials and a second,
-  deterministic pass.
+  replays the mask; one wave of persistent CTAs (``ln_bwd_plan``) writes
+  per-CTA dw/db partials that a second, deterministic pass sums.
 
 Stats are fp32 whatever the input type, the variance is two-pass, and the
 output type is the promotion of the input and parameter types
@@ -24,7 +24,7 @@ wrapper's arguments, so a caller can put one in place of the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -202,47 +202,93 @@ def _launch_fwd(name, x2, res2, weight, bias, eps, drop):
     return out, mean, rstd
 
 
-def _rows_per_warp(n):
-    """Rows each warp of the backward walks: about 256 blocks of 8 warps,
-    so the dw/db partials stay small beside the rows."""
-    return min(16, max(1, -(-n // 2048)))
+WARPS_PER_CTA = 8
+MIN_ROWS_PER_WARP = 2
+
+
+class LnBwdPlan(NamedTuple):
+    """The backward's grid: ``ctas`` CTAs of ``WARPS_PER_CTA`` warps; warp
+    ``gw`` (CTA ``gw // 8``, warp ``gw % 8``) walks rows ``gw, gw + warps,
+    gw + 2 warps, ...`` below ``n``."""
+    n: int
+    ctas: int
+
+    @property
+    def warps(self) -> int:
+        return self.ctas * WARPS_PER_CTA
+
+    def rows_of(self, gw: int) -> range:
+        return range(gw, self.n, self.warps)
+
+
+def ln_bwd_plan(n: int, resident: int) -> LnBwdPlan:
+    """One wave at most: ``resident`` CTAs (what the device holds at once
+    at the kernel's occupancy), fewer where the rows would give a warp
+    fewer than ``MIN_ROWS_PER_WARP`` rows (each CTA adds a dw/db partial
+    row that the second pass reads)."""
+    per_cta = WARPS_PER_CTA * MIN_ROWS_PER_WARP
+    return LnBwdPlan(n, max(1, min(resident, -(-n // per_cta))))
+
+
+_RESIDENT: Dict[tuple, int] = {}
+
+
+def _resident(x2, weight, residual):
+    """CTAs of the backward one wave holds on x2's device, from the
+    kernel's occupancy at this build (cached)."""
+    dim = x2.shape[1]
+    key = (x2.device.index, dim, residual, x2.dtype, weight.dtype)
+    if key not in _RESIDENT:
+        fn = build.load(SOURCE_BWD).layer_norm_bwd_resident
+        if fn.argtypes is None:
+            I = ctypes.c_int
+            fn.argtypes = [I, I, I, I, ctypes.POINTER(I)]
+            fn.restype = I
+        out = ctypes.c_int(0)
+        with torch.cuda.device(x2.device):
+            err = fn(dim, int(residual), _DTYPE_CODES[x2.dtype],
+                     _DTYPE_CODES[weight.dtype], ctypes.byref(out))
+        if err:
+            raise RuntimeError(f"layer_norm_bwd occupancy query failed: CUDA "
+                               f"error {err}")
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
 
 
 def _launch_bwd(name, x2, res2, weight, mean, rstd, dy2, drop):
     n, dim = x2.shape
-    rpw = _rows_per_warp(n)
-    nblocks = -(-n // (8 * rpw))
+    residual = res2 is not None
+    plan = ln_bwd_plan(n, _resident(x2, weight, residual))
     dx = torch.empty_like(x2)
-    parts = torch.empty((2, nblocks, dim), dtype=torch.float32,
+    parts = torch.empty((2, plan.ctas, dim), dtype=torch.float32,
                         device=x2.device)
     dw = torch.empty_like(weight)
     db = torch.empty_like(weight)
-    residual = res2 is not None
     dres = torch.empty_like(res2) if residual else None
     args = [x2.data_ptr()] + ([res2.data_ptr()] if residual else [])
     args += [weight.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
              dy2.data_ptr(), dx.data_ptr()]
     args += [dres.data_ptr()] if residual else []
     args += [parts[0].data_ptr(), parts[1].data_ptr(), dw.data_ptr(),
-             db.data_ptr(), n, dim, rpw, *drop, _DTYPE_CODES[x2.dtype],
+             db.data_ptr(), n, dim, plan.ctas, *drop, _DTYPE_CODES[x2.dtype],
              _DTYPE_CODES[weight.dtype], _stream(x2)]
     symbol = "residual_layer_norm_bwd" if residual else "layer_norm_bwd"
     err = _entry(SOURCE_BWD, symbol, 12 if residual else 10, residual,
-                 rows_per_warp=True)(*args)
+                 ctas=True)(*args)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     config.record_call(name)
     return ((dx, dres) if residual else (dx,)) + (dw, db)
 
 
-def _entry(source, symbol, n_pointers, dropout, rows_per_warp=False):
+def _entry(source, symbol, n_pointers, dropout, ctas=False):
     """The C entry ``symbol``: ``n_pointers`` pointers, n (int64), dim,
-    [eps | rows_per_warp], [seed, threshold, keep_scale, dropout], x and w
-    dtype codes, the stream."""
+    [eps | CTAs], [seed, threshold, keep_scale, dropout], x and w dtype
+    codes, the stream."""
     fn = getattr(build.load(source), symbol)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        third = I if rows_per_warp else ctypes.c_float
+        third = I if ctas else ctypes.c_float
         drop = ([ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, I]
                 if dropout else [])
         fn.argtypes = ([P] * n_pointers + [ctypes.c_int64, I, third] + drop

@@ -312,3 +312,23 @@ def test_gelu_linear_match_jax():
     assert 0.5 < kept.float().mean().item() < 0.9
     np.testing.assert_allclose(y[kept].numpy(), (_t(x)[kept] / 0.7).numpy(),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 7, 300, 4096, 32768])
+@pytest.mark.parametrize("resident", [132, 264, 396])
+def test_layer_norm_bwd_plan_covers_rows_once_in_one_wave(n, resident):
+    """The backward's grid: at most one wave of CTAs (``resident``), each
+    warp walking rows gw, gw + warps, ...: every row once, and no warp
+    under MIN_ROWS_PER_WARP rows while CTAs could be dropped."""
+    plan = tln.ln_bwd_plan(n, resident)
+    assert 1 <= plan.ctas <= resident
+    seen = np.zeros(n, np.int64)
+    for gw in range(plan.warps):
+        rows = plan.rows_of(gw)
+        seen[list(rows)] += 1
+    assert (seen == 1).all()
+    if plan.ctas < resident:
+        assert plan.ctas == -(-n // (tln.WARPS_PER_CTA
+                                     * tln.MIN_ROWS_PER_WARP))
+    if n >= 32768:
+        assert plan.ctas == resident

@@ -354,3 +354,101 @@ def test_wrappers_refuse_inputs_that_require_grad():
         assert tpool.max_pool2d_nhwc(x, (2, 2), (2, 2),
                                      (0, 0)).shape == (1, 2, 2, 128)
 
+
+
+# -- row 10's tiles and K splits ---------------------------------------------------
+
+def _plan_covers_every_unit(plan):
+    """The splits take the K units [0, units) once each, in order, and
+    none is empty."""
+    bounds = [plan.split_units(s) for s in range(plan.splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == plan.units
+    for (a0, a1), (b0, _) in zip(bounds, bounds[1:]):
+        assert a1 == b0
+    assert all(u1 > u0 for u0, u1 in bounds)
+
+
+def test_conv_plan_covers_every_gated_shape():
+    """Every shape the gate passes gets a plan whose splits cover each K
+    unit (one tap x 64 channels) once, in order, start on whole units, and
+    fill the card where the output tiles alone do not."""
+    planned = 0
+    for c, o, k, s, p, hw, dt, act, dil, groups in _conv_gate_grid():
+        shape = (2, hw, hw + 1, c)
+        tx = torch.empty(shape, dtype=getattr(torch, dt), device="meta")
+        if not tcf.supported(tx, (o, c, k, k), (s, s), (p, p), dil, groups,
+                             act):
+            continue
+        plan = tcf.conv_plan(*shape, o, k, k, s, s, p, p, tx.dtype)
+        assert plan.units == k * k * c // tcf.UNIT_C
+        assert c % tcf.UNIT_C == 0 and o % plan.block_n == 0
+        _plan_covers_every_unit(plan)
+        c_units = c // tcf.UNIT_C
+        for split in range(plan.splits):
+            u0, _ = plan.split_units(split)
+            tap, c0 = divmod(u0, c_units)
+            assert 0 <= tap < k * k and (c0 * tcf.UNIT_C) % 64 == 0
+        wave = tcf.H100_SMS * tcf.CTAS_PER_SM[tx.dtype]
+        if plan.tiles >= tcf.H100_SMS:
+            assert plan.splits == 1
+        else:
+            # as many splits as one wave holds, within the caps
+            most = min(tcf.MAX_SPLITS,
+                       plan.units // tcf.MIN_SPLIT_UNITS[tx.dtype])
+            assert plan.ctas <= max(wave, plan.tiles)
+            assert plan.splits == max(most, 1) \
+                or (plan.splits + 1) * plan.tiles > wave
+            assert plan.splits == 1 or plan.units // plan.splits \
+                >= tcf.MIN_SPLIT_UNITS[tx.dtype]
+        planned += 1
+    assert planned > 50
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_plan_fills_the_card_at_vgg_small_layers(dtype):
+    """VGG-16's b128 layers: 2x2 and 4x4 (512 channels) split K until the
+    grid fills all but a few percent of one wave, and no more; 16x16 (128
+    channels) already has 256 or more output tiles and takes no split."""
+    wave = tcf.H100_SMS * tcf.CTAS_PER_SM[dtype]
+    for hw in (2, 4):
+        plan = tcf.conv_plan(128, hw, hw, 512, 512, 3, 3, 1, 1, 1, 1, dtype)
+        assert plan.tiles < tcf.H100_SMS and plan.splits > 1
+        assert 0.95 * wave <= plan.ctas <= wave
+        _plan_covers_every_unit(plan)
+    plan = tcf.conv_plan(128, 16, 16, 128, 128, 3, 3, 1, 1, 1, 1, dtype)
+    assert plan.splits == 1 and plan.tiles >= tcf.H100_SMS
+    bf = tcf.conv_plan(128, 2, 2, 512, 512, 3, 3, 1, 1, 1, 1,
+                       torch.bfloat16)
+    assert (bf.block_m, bf.block_n, bf.tiles, bf.splits) == (128, 128, 16, 8)
+
+
+def test_kernel_filter_layout_is_cached_per_weight_version():
+    """The wrapper's filter layout: bf16 (O, kh, kw, C), fp32 (kh, kw, C,
+    O); the same tensor while the weight is unchanged, a new one after an
+    in-place update."""
+    rng = _rng(5)
+    for dtype, perm in ((torch.bfloat16, (0, 2, 3, 1)),
+                        (torch.float32, (2, 3, 1, 0))):
+        w = _torch(rng.standard_normal((128, 64, 3, 3)), dtype)
+        first = tcf.kernel_filter(w)
+        assert torch.equal(first, w.permute(*perm))
+        assert first.is_contiguous()
+        assert tcf.kernel_filter(w) is first
+        with torch.no_grad():
+            w.mul_(2)
+        again = tcf.kernel_filter(w)
+        assert again is not first and torch.equal(again, w.permute(*perm))
+
+
+def test_conv_padding_beyond_the_im2col_corners_equals_a_padded_input():
+    """The wrapper pads x itself by the padding beyond IM2COL_PAD_LIMIT:
+    the same convolution as the padding given."""
+    x, wt, a, b = _conv_inputs(6, 1, 1, 3, 1, 1)
+    tx, tw, ta, tb = (_torch(v, torch.float32) for v in (x, wt, a, b))
+    limit = tcf.IM2COL_PAD_LIMIT
+    ref = tcf.conv2d_bn_act_plain(tx, tw, ta, tb, (1, 1), (limit + 3, 1),
+                                  "relu")
+    padded = torch.nn.functional.pad(tx, (0, 0, 0, 0, 3, 3))
+    got = tcf.conv2d_bn_act_plain(padded, tw, ta, tb, (1, 1), (limit, 1),
+                                  "relu")
+    assert torch.equal(got, ref)
