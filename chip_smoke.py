@@ -10,9 +10,10 @@ Phases (any failed check raises, so the script exits non-zero):
 1. build   -- nvcc builds every kernel source under
               paddle_tpu_torch/ops/kernels/csrc/ for sm_90a, all at once;
               ptxas's register and spill lines are printed, and the count of
-              HGMMA (wgmma) instructions cuobjdump finds in each attention
-              library and the fused conv's, which must be nonzero (and the
-              conv's HMMA, mma.sync, count zero).
+              wgmma instructions cuobjdump finds in each attention library
+              and the fused conv's (HGMMA) and the int8 libraries' (IGMMA),
+              which must be nonzero (and the conv's HMMA and the int8
+              libraries' IMMA, mma.sync, counts zero).
 2. kernels -- each kernel against its plain PyTorch version on the card at
               the ERNIE-base shapes (b 8, s 512, h 12, d 64, rows 4096 of
               dim 768) in fp32 and bf16: the forwards of attention (A),
@@ -76,7 +77,11 @@ Phases (any failed check raises, so the script exits non-zero):
               256 rows x 128 blocks of 16 tokens, d 128, ragged lengths
               1..2048 from --seed (and rows of 0, 3, 16, 2048) over a
               32768-block pool, in fp32, bf16 and int8, plus d 32 / block
-              8; its times beside its bound and SDPA on pre-gathered K/V.
+              8, a prefill chunk's stride-0 table and the recorded stride-0
+              draw on which the int8 case once failed an absolute bound
+              (int8 held within 2e-5 (v_max + |ref|) of the plain version
+              and of a float64 evaluation); its times beside its bound and
+              SDPA on pre-gathered K/V.
               (b) the slice: ``PagedDecoder`` serving the paged toy LM at
               vocab 32000, hidden 128, 4096 positions (random weights from
               --seed) from a 16384-block pool, 64 rows, 64-token prefill
@@ -140,12 +145,14 @@ Phases (any failed check raises, so the script exits non-zero):
               plain versions (exact sums in float64) with fp32 and bf16
               out: the int8 matmul at
               VGG-16's 512 x 512 fc (b128) and an ERNIE-base FFN shape
-              (4096 x 768 -> 3072), the int8 conv at VGG-16's int8 convs
-              (b128), the tower's (b64), a 3x3 s2 p1 and a 7x7 s2 p3 conv;
-              every epilogue act at a small shape (piecewise-linear acts bit
-              for bit); times beside the plain versions', torch._int_mm
-              (row 14) or cuDNN on the dequantized operands (row 15,
-              context only) and the bounds.
+              (4096 x 768 -> 3072), the int8 conv at VGG-16's six int8
+              conv shapes (b128), the tower's (b64), a 3x3 s2 p1 and a 7x7
+              s2 p3 conv; every epilogue act at small shapes, among them a
+              K (C) % 128 == 64 one and one the plan splits K for
+              (piecewise-linear acts bit for bit); times beside the plain
+              versions', torch._int_mm (row 14) or cuDNN on the dequantized
+              operands (row 15, context only), row 10's bf16 time at the
+              shapes the two share, and the bounds.
 11. int8     -- post-training quantization (one calibration batch) and
               QUANT_INFER_PIPELINE on the conv tower (b64) and vgg16_bn_drop
               (b128) test programs: 1 / 0 and 10 / 2 launches of rows 15 /
@@ -211,11 +218,20 @@ PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)(_dkdv|_dq)?_(fp32|wgmma)|flash_bwd
                          r"ln_(fwd|bwd|partials_reduce)|paged_attn|"
                          r"conv2d_bn_act(_fp32|_wgmma|_split_sum)?|pool2d_nhwc|"
                          r"bn_stats_(partial|"
-                         r"reduce)|bn_scale_act|int8_(matmul|conv))_kernel\b")
+                         r"reduce)|bn_scale_act|"
+                         r"int8_(matmul|conv)_(wgmma|split_sum))_kernel\b")
 
-# Paged attention (phase 5).  Tolerances: fp32 and int8 against the plain
-# version on the same blocks with rtol = atol = 2e-5 (tests/test_paged.py's
-# kernel check); bf16 relative to the fp32 plain version on the same values.
+# Paged attention (phase 5).  Tolerances: fp32 against the plain version on
+# the same blocks with rtol = atol = 2e-5 (tests/test_paged.py's kernel
+# check); bf16 relative to the fp32 plain version on the same values.  int8
+# blocks dequantise to |V| up to 127 x 0.1, and the fp32 roundings of the
+# scores and of the weighted V sums grow with those magnitudes, which the
+# absolute 2e-5 does not: on the draw below it failed at 2.71e-5 while the
+# kernel was as close to a float64 evaluation as the plain version (1.49e-5
+# and 1.28e-5 on an H100).  So the int8 cases hold the kernel within 2e-5
+# (v_max + |ref|) of the plain version and of the float64 evaluation, v_max
+# the largest dequantised |V| (in units of V, as 2e-5 (1 + |ref|) is for
+# data of unit size).
 # Token checks: a differing greedy token must be a near-tie, the top-2
 # logit gap of the context below NEAR_TIE_REL of the top logit.
 PAGED_KERNEL_SHAPE = dict(num_seqs=256, max_blocks=128, block_size=16,
@@ -228,6 +244,16 @@ PAGED_SERVE = dict(vocab=32000, hidden=128, max_positions=4096,
                    profile_prompt=1024, profile_steps=20)
 TOL_PAGED_FP32 = 2e-5
 TOL_PAGED_BF16_REL = 2e-2
+# The stride-0 prefill-chunk draw on which the int8 case once failed the
+# absolute bound: the seed-0 torch generator `words` 32-bit draws on, the
+# numpy generator at `rng`; the rest fingerprints the draw.
+PAGED_FAIL_DRAW = dict(
+    words=1_001_542_940, start=1140, q00=-1.131712555885315, k8_sum=-46932,
+    v8_sum=-17216,
+    rng={"bit_generator": "PCG64",
+         "state": {"state": 125358452017946240032439705099848920504,
+                   "inc": 87136372517582989555478159403783844777},
+         "has_uint32": 1, "uinteger": 1214891778})
 NEAR_TIE_REL = 1e-4
 PAGED_MAX_DIFFERING = 1      # requests, kernel path vs plain path
 # int8 KV against fp32: the JAX package's gate (tests/test_paged.py:343-356)
@@ -1467,6 +1493,57 @@ def paged_inputs(gen, rng, num_seqs, max_blocks, block_size, d, max_len,
                 lens=lens)
 
 
+def paged_oracle64(q, k, v, tables, lens, kv_scales):
+    """Paged attention over int8 blocks in float64: the blocks times their
+    scales (exact in float64), the scores, softmax and weighted sum."""
+    tb = tables.long()
+    s = kv_scales[tb].double()
+    kg = k[tb].double() * s[..., 0, None, None]
+    vg = v[tb].double() * s[..., 1, None, None]
+    n, d = q.shape
+    span = tb.shape[1] * k.shape[1]
+    kg, vg = kg.reshape(n, span, d), vg.reshape(n, span, d)
+    scores = torch.einsum("sd,smd->sm", q.double(), kg) / math.sqrt(d)
+    valid = (torch.arange(span, device=q.device)[None, :]
+             < lens.long()[:, None])
+    scores = scores.masked_fill(~valid, -math.inf)
+    p = torch.where(valid, torch.exp(scores - scores.amax(-1, keepdim=True)
+                                     .clamp_min(-1e300)), 0.0)
+    return (torch.einsum("sm,smd->sd", p, vg)
+            / p.sum(-1, keepdim=True).clamp_min(1e-300))
+
+
+def paged_chunk(gen, rng, start, rows, width, bs, d):
+    """A prefill chunk's layout: ``rows`` rows sharing one table of
+    ``width`` blocks (row stride 0), lengths start+1..start+rows."""
+    chunk = paged_inputs(gen, rng, 1, width, bs, d, 0, lens=[0])
+    chunk.update(q=torch.randn((rows, d), generator=gen).to(DEV),
+                 tables=chunk["tables"].expand(rows, width),
+                 lens=torch.arange(start + 1, start + rows + 1,
+                                   dtype=torch.int32, device=DEV))
+    return chunk
+
+
+def paged_fail_draw(rows, width, bs, d):
+    """PAGED_FAIL_DRAW's chunk, from generators of its own."""
+    gen = torch.Generator().manual_seed(0)
+    left = PAGED_FAIL_DRAW["words"]
+    while left:   # one 32-bit word an element
+        n = min(left, 1 << 24)
+        torch.randint(0, 2, (n,), generator=gen, dtype=torch.int8)
+        left -= n
+    rng = np.random.default_rng()
+    rng.bit_generator.state = PAGED_FAIL_DRAW["rng"]
+    start = int(rng.integers(0, width * bs - rows + 1))
+    chunk = paged_chunk(gen, rng, start, rows, width, bs, d)
+    f = PAGED_FAIL_DRAW
+    check(start == f["start"] and float(chunk["q"][0, 0]) == f["q00"]
+          and int(chunk["k8"].long().sum()) == f["k8_sum"]
+          and int(chunk["v8"].long().sum()) == f["v8_sum"],
+          "the recorded failing paged draw is reproduced")
+    return chunk, start
+
+
 def paged_kernel_case(pa, t, dtype, tag):
     """The kernel against its plain version on ``t`` in ``dtype`` (float32,
     bfloat16: q and caches rounded to bf16; int8: the int8 blocks, fp32 q).
@@ -1494,6 +1571,19 @@ def paged_kernel_case(pa, t, dtype, tag):
         check(r <= TOL_PAGED_BF16_REL, f"{label}: rel err vs fp32 plain "
               f"{r:.3g} <= {TOL_PAGED_BF16_REL} (max abs vs bf16 plain "
               f"{err:.3g})")
+    elif dtype == torch.int8:
+        sv = t["scales"][:, 1]
+        v_max = float((v.abs().amax(dim=(1, 2)).float() * sv).max())
+        ref64 = paged_oracle64(q, k, v, tb, lens, t["scales"])
+        for what, r in (("plain", ref.double()), ("float64", ref64)):
+            excess = float(((out.double() - r).abs() - TOL_PAGED_FP32
+                            * (v_max + r.abs())).max())
+            check(excess <= 0, f"{label}: |err| <= 2e-5 (v_max + |{what}|),"
+                  f" v_max {v_max:.3g} (max abs err "
+                  f"{max_abs(out.double(), r):.3g})")
+        log(f"  {label}: max abs vs float64: kernel "
+            f"{max_abs(out.double(), ref64):.3g}, plain "
+            f"{max_abs(ref.double(), ref64):.3g}")
     else:
         excess = float(((out - ref).abs() - TOL_PAGED_FP32
                         * (1 + ref.abs())).max())
@@ -1554,15 +1644,15 @@ def paged_kernel_phase(gen, seed):
     rows, width = (PAGED_SERVE[k] for k in ("prefill_chunk",
                                             "max_blocks_per_seq"))
     start = int(rng.integers(0, width * bs - rows + 1))
-    chunk = paged_inputs(gen, rng, 1, width, bs, d, 0, lens=[0])
-    chunk.update(q=torch.randn((rows, d), generator=gen).to(DEV),
-                 tables=chunk["tables"].expand(rows, width),
-                 lens=torch.arange(start + 1, start + rows + 1,
-                                   dtype=torch.int32, device=DEV))
+    chunk = paged_chunk(gen, rng, start, rows, width, bs, d)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         paged_kernel_case(pa, chunk, dtype, f"{rows} rows sharing one table "
                           f"of {width} (stride 0), lengths {start + 1}.."
                           f"{start + rows}")
+    fail, fstart = paged_fail_draw(rows, width, bs, d)
+    for dtype in (torch.float32, torch.int8):
+        paged_kernel_case(pa, fail, dtype, f"the recorded stride-0 draw, "
+                          f"lengths {fstart + 1}..{fstart + rows}")
     for dtype, r in results.items():
         log(f"  paged_attention {dtag(dtype)}: {r['ms']:.4f} ms (eager "
             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
@@ -1572,7 +1662,7 @@ def paged_kernel_phase(gen, seed):
             f" MB of live context; full-table cost model "
             f"{r['full_table_bytes'] / 1e6:.1f} MB); max abs err vs plain "
             f"{r['err']:.3g}")
-    del t, small, chunk
+    del t, small, chunk, fail
     torch.cuda.empty_cache()
     return results
 
@@ -2683,17 +2773,24 @@ INT8_MM_CASES = (
     ("vgg fc 512->512 b128", (128, 512, 512)),
     ("ernie-base ffn 768->3072 4096 rows", (4096, 768, 3072)),
 )
-INT8_MM_ACT_SHAPE = (40, 256, 256)
+# Untimed shapes held at every act: a plain tile, K % 128 == 64 (the last K
+# unit half zeros), and a shape the plan splits K for (2 output tiles).
+INT8_MM_ACT_SHAPES = ((40, 256, 256), (40, 192, 256), (40, 1024, 256))
 INT8_CONV_CASES = (
     ("vgg 128->128 16x16 b128", (128, 16, 16, 128, 128, 3, 1, 1)),
     ("vgg 256->256 8x8 b128", (128, 8, 8, 256, 256, 3, 1, 1)),
     ("vgg 512->512 4x4 b128", (128, 4, 4, 512, 512, 3, 1, 1)),
     ("vgg 512->512 2x2 b128", (128, 2, 2, 512, 512, 3, 1, 1)),
+    ("vgg 128->256 8x8 b128", (128, 8, 8, 128, 256, 3, 1, 1)),
+    ("vgg 256->512 4x4 b128", (128, 4, 4, 256, 512, 3, 1, 1)),
     ("tower 128->128 16x16 b64", (64, 16, 16, 128, 128, 3, 1, 1)),
     ("3x3 s2 p1 128->256 16x16 b128", (128, 16, 16, 128, 256, 3, 2, 1)),
     ("7x7 s2 p3 128->128 32x32 b32", (32, 32, 32, 128, 128, 7, 2, 3)),
 )
-INT8_CONV_ACT_SHAPE = (2, 7, 9, 128, 128, 3, 1, 1)
+# The same for the conv: a plain tile, C % 128 == 64, split K.
+INT8_CONV_ACT_SHAPES = ((2, 7, 9, 128, 128, 3, 1, 1),
+                        (2, 7, 9, 192, 128, 3, 1, 1),
+                        (4, 2, 2, 512, 256, 3, 1, 1))
 # Kernel against plain version: both sum exactly and apply the epilogue as
 # the same two fp32 roundings, so the piecewise-linear acts agree bit for
 # bit; sigmoid and tanh differ by the ulps of expf / tanhf against
@@ -2732,8 +2829,10 @@ def int8_mm_case(i8, gen, dims, dtype, act, timed=True):
                                                  dtype)
     got = run()
     torch.cuda.synchronize()
+    splits = i8.matmul_plan(m, n, k).splits
     err = int8_check(i8.MATMUL_KERNEL, f"{m}x{k} @ {k}x{n} {dtag(dtype)} "
-                     f"act={act or 'none'}", got, plain(), dtype, act)
+                     f"act={act or 'none'} (K splits {splits})", got,
+                     plain(), dtype, act)
     if not timed:
         return None
     ops, nbytes = i8.matmul_cost(m, n, k, got.element_size())
@@ -2753,9 +2852,10 @@ def int8_conv_case(i8, gen, dims, dtype, act, timed=True):
     plain = lambda: i8.int8_conv2d_dequant_plain(x, wq, scale, bias, *args)
     got = run()
     torch.cuda.synchronize()
+    splits = i8.conv_plan(n, h, w, c, o, k, k, s, s, p, p).splits
     err = int8_check(i8.CONV_KERNEL, f"n{n} {h}x{w} {c}->{o} k{k} s{s} p{p} "
-                     f"{dtag(dtype)} act={act or 'none'}", got, plain(),
-                     dtype, act)
+                     f"{dtag(dtype)} act={act or 'none'} (K splits "
+                     f"{splits})", got, plain(), dtype, act)
     if not timed:
         return None
     oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
@@ -2766,13 +2866,15 @@ def int8_conv_case(i8, gen, dims, dtype, act, timed=True):
     bf = bias.to(dtype)
     cudnn = lambda: torch.nn.functional.conv2d(xf, wf, bf, s, p)
     return dict(timings(run, plain, None, nbytes, ops, torch.int8), err=err,
-                ops=ops, cudnn_dequant_ms=time_ms(cudnn))
+                ops=ops, cudnn_dequant_ms=time_ms(cudnn), splits=splits)
 
 
-def int8_kernel_phase(gen):
+def int8_kernel_phase(gen, vision):
     """Rows 11 and 12 against their plain versions at their shapes in fp32
-    and bf16; rows 14 and 15 at theirs, fp32 and bf16 out, every act at a
-    small shape."""
+    and bf16; rows 14 and 15 at theirs, fp32 and bf16 out, every act at
+    small shapes (a K % 128 == 64 one and a split one among them); row
+    15's times beside row 10's bf16 times at the shapes the two share
+    (``vision``: the [vision kernels] results of this run)."""
     from paddle_tpu_torch.ops.kernels import bn_act_train as bt
     from paddle_tpu_torch.ops.kernels import int8 as i8
 
@@ -2798,13 +2900,32 @@ def int8_kernel_phase(gen):
             results[("conv", label, dtype)] = int8_conv_case(
                 i8, gen, dims, dtype, "relu")
         for act in i8.EPILOGUE_ACTS:
-            int8_mm_case(i8, gen, INT8_MM_ACT_SHAPE, dtype, act, timed=False)
-            int8_conv_case(i8, gen, INT8_CONV_ACT_SHAPE, dtype, act,
-                           timed=False)
+            for dims in INT8_MM_ACT_SHAPES:
+                int8_mm_case(i8, gen, dims, dtype, act, timed=False)
+            for dims in INT8_CONV_ACT_SHAPES:
+                int8_conv_case(i8, gen, dims, dtype, act, timed=False)
+    (m, k, n), (cn, ch, cw, cc, co, ck, cs, cp) = (INT8_MM_ACT_SHAPES[2],
+                                                   INT8_CONV_ACT_SHAPES[2])
+    check(i8.matmul_plan(m, n, k).splits > 1
+          and i8.conv_plan(cn, ch, cw, cc, co, ck, ck, cs, cs, cp,
+                           cp).splits > 1
+          and INT8_MM_ACT_SHAPES[1][1] % 128 == 64
+          and INT8_CONV_ACT_SHAPES[1][3] % 128 == 64,
+          "int8 act shapes include K splits and K / C % 128 == 64")
+    row10 = {dims: r["ms"] for (kind, label, dt), r in vision.items()
+             if kind == "conv" and dt == torch.bfloat16
+             for lab, dims in CONV_CASES if lab == label}
     for (kind, label, dtype), r in results.items():
         lib = (f"torch._int_mm {r['library_ms']:.4f} ms" if kind == "matmul"
                else f"cuDNN on dequantized operands (context) "
                     f"{r['cudnn_dequant_ms']:.4f} ms")
+        if kind == "conv":
+            dims = dict(INT8_CONV_CASES)[label]
+            r["row10_bf16_ms"] = row10.get(dims)
+            if r["row10_bf16_ms"] is not None:
+                lib += (f", row 10 bf16 at this shape {r['row10_bf16_ms']:.4f}"
+                        f" ms ({r['ms'] / r['row10_bf16_ms']:.2f}x)")
+            lib += f", K splits {r['splits']}"
         log(f"  int8 {kind} {label} {dtag(dtype)} out: {r['ms']:.4f} ms "
             f"(eager {r['eager_ms']:.4f} ms; {r['ops'] / r['ms'] / 1e9:.1f} "
             f"TOPS), plain {r['plain_ms']:.4f} ms, {lib}, bound "
@@ -3080,8 +3201,9 @@ def new_entries(bn_cases, train_counts, int8_cases, int8_counts):
                      eager_ms=x["eager_ms"], plain_ms=x["plain_ms"],
                      library_ms=x["library_ms"], bound_ms=x["bound"][0],
                      bound_by=x["bound"][1], max_abs_err=x["err"],
-                     **({"cudnn_dequant_ms": x["cudnn_dequant_ms"]}
-                        if "cudnn_dequant_ms" in x else {}))
+                     **{key: x[key] for key in ("cudnn_dequant_ms",
+                                                "row10_bf16_ms", "splits")
+                        if key in x})
                 for label, dtype, x in pick(results)]
 
     first = BN_CASES[0][0]
@@ -3131,6 +3253,7 @@ def main(argv=None):
     from paddle_tpu_torch.ops.kernels import conv_fused as cf
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fap
+    from paddle_tpu_torch.ops.kernels import int8 as i8
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
@@ -3147,17 +3270,23 @@ def main(argv=None):
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    for name in (fa.SOURCE, fa.SOURCE_BWD, cf.SOURCE):
+    # (library, its wgmma opcode, the mma.sync opcode it must not have):
+    # HGMMA / HMMA for bf16, IGMMA / IMMA for s8
+    for name, wgmma, mma in ((fa.SOURCE, "HGMMA", None),
+                             (fa.SOURCE_BWD, "HGMMA", None),
+                             (cf.SOURCE, "HGMMA", "HMMA"),
+                             (i8.CONV_SOURCE, "IGMMA", "IMMA"),
+                             (i8.MATMUL_SOURCE, "IGMMA", "IMMA")):
         sass = subprocess.run(
             [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"),
              "-sass", str(build.library_path(name))],
             capture_output=True, text=True, check=True).stdout
-        n = len(re.findall(r"\bHGMMA\b", sass))
-        check(n > 0, f"{name}: {n} HGMMA (wgmma) instructions in its SASS")
-        if name == cf.SOURCE:
-            n = len(re.findall(r"\bHMMA\b", sass))
-            check(n == 0, f"{name}: {n} HMMA (mma.sync) instructions in its "
-                  f"SASS")
+        n = len(re.findall(rf"\b{wgmma}\b", sass))
+        check(n > 0, f"{name}: {n} {wgmma} (wgmma) instructions in its SASS")
+        if mma:
+            n = len(re.findall(rf"\b{mma}\b", sass))
+            check(n == 0, f"{name}: {n} {mma} (mma.sync) instructions in "
+                  f"its SASS")
 
     gen = torch.Generator().manual_seed(args.seed)
     results = kernel_phase(gen)
@@ -3184,7 +3313,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     train_counts, vision_train = vision_train_phase(args.seed)
     torch.cuda.empty_cache()
-    bn_cases, int8_cases = int8_kernel_phase(gen)
+    bn_cases, int8_cases = int8_kernel_phase(gen, vision)
     int8_counts, int8_out = int8_phase(args.seed)
 
     kernels = []

@@ -7,6 +7,8 @@ paddle_tpu/ops/pallas/config.py).
   version and counts nothing.
 * **Fingerprint.** ``fingerprint()`` names the effective kernel set (flag
   on and a CUDA device present), for logs and result lines.
+* **Weight layouts.** ``cached_layout`` keeps a weight's kernel layout on
+  the weight per version, so repeated calls do not copy it again.
 
 There is no interpret mode and no fallback counter: on a CUDA tensor a
 wrapper launches its kernel or raises.
@@ -63,6 +65,19 @@ def launch_counts() -> Dict[str, int]:
 def reset_counts() -> None:
     with _lock:
         _counts.clear()
+
+
+def cached_layout(w, attr: str, make: Callable):
+    """``make(w)`` (detached, made contiguous), made once per version and
+    storage of ``w`` and kept on ``w`` itself under ``attr``, so it lives as
+    long as the weight: a wrapper's weight laid out for its kernel."""
+    key = (w._version, w.data_ptr())
+    hit = getattr(w, attr, None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    wk = make(w.detach()).contiguous()
+    setattr(w, attr, (key, wk))
+    return wk
 
 
 def kernel_enabled(flag_name: str) -> bool:

@@ -259,13 +259,9 @@ def kernel_filter(w):
     """The OIHW filter in the kernel's layout: bf16 (O, kh, kw, C), fp32
     (kh, kw, C, O).  Made once per weight version and storage, and kept on
     the weight tensor itself, so it lives as long as the weight."""
-    hit = getattr(w, "_conv2d_bn_act_layout", None)
-    if hit is not None and hit[0] == (w._version, w.data_ptr()):
-        return hit[1]
     perm = (0, 2, 3, 1) if w.dtype == torch.bfloat16 else (2, 3, 1, 0)
-    wk = w.detach().permute(*perm).contiguous()
-    w._conv2d_bn_act_layout = ((w._version, w.data_ptr()), wk)
-    return wk
+    return config.cached_layout(w, "_conv2d_bn_act_layout",
+                                lambda t: t.permute(*perm))
 
 
 def conv2d_bn_act(x, w, a, b, stride=(1, 1), padding=(0, 0), act=""):

@@ -282,11 +282,6 @@ constexpr int kOutOff = kStages * kStageBytes;
 constexpr int kBarOff = kOutOff + 2 * kOutBytes;
 constexpr int kWgSmem = kBarOff + 2 * kStages * 8 + 1024;  // + alignment
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
-
 // grid = (ceil(M / 128), O / 128, splits), block = 384 threads.
 __global__ void __launch_bounds__(kWgThreads, 1)
     conv2d_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
@@ -296,7 +291,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                __nv_bfloat16* __restrict__ out,
                                float* __restrict__ ws, Shape s, int act) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
+  uint8_t* smem = hopper::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOff);
   uint64_t* empty = full + kStages;
   const int64_t m0 = (int64_t)blockIdx.x * kWgBM;

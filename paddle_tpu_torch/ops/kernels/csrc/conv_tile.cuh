@@ -1,5 +1,6 @@
-// Implicit-GEMM addressing shared by the NHWC convolution kernels
-// (conv2d_bn_act.cu, int8_conv2d_dequant.cu).
+// Implicit-GEMM addressing of the NHWC convolution kernels: the
+// convolution's Shape (conv2d_bn_act.cu, int8_conv2d_dequant.cu) and the
+// cp.async A tile of conv2d_bn_act.cu's fp32 route.
 //
 // M = n * Ho * Wo output pixels, K = kh * kw * C.  A CTA of 4 warps owns
 // 64 output pixels and walks K in tiles of one filter tap and 64 bytes of

@@ -481,11 +481,6 @@ constexpr int kSmemBudget = 200 * 1024;
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
-
 // 2a. dK, dV.  KG: 64-key groups a CTA (2: one per consumer, all columns;
 // 1: both consumers on the same keys, 128 output columns each); NCH:
 // 64-column boxes of K and V resident (the head up to d 256); STREAM: K,
@@ -520,7 +515,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int ST = P::kStages;
   constexpr int NO = P::kOut;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
+  uint8_t* smem = hopper::align1024(smem_raw);
   float* stats = reinterpret_cast<float*>(smem + P::kStats);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P::kBars);
   uint64_t* kbar = bars;
@@ -799,7 +794,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   using P = DqPlan<BK, NC, NV>;
   constexpr int ST = P::kStages;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
+  uint8_t* smem = hopper::align1024(smem_raw);
   float* bias_s = reinterpret_cast<float*>(smem + P::kBias);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P::kBars);
   uint64_t* qbar = bars;

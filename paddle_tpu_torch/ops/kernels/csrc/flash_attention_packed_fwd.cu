@@ -391,11 +391,6 @@ struct FwdPlan {
   static_assert(kStages >= 2, "the ring needs two stages");
 };
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
-
 // grid = (heads * slices, ceil(seq / 128), batch), block = 384 threads.
 template <int BK, int NC, int NV>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -410,7 +405,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   using P = FwdPlan<BK, NC, NV>;
   constexpr int ST = P::kStages;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
+  uint8_t* smem = hopper::align1024(smem_raw);
   float* bias_s = reinterpret_cast<float*>(smem + P::kBias);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P::kBars);
   uint64_t* qbar = bars;

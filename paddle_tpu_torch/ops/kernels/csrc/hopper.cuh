@@ -1,7 +1,8 @@
-// sm_90a building blocks of the bf16 attention and convolution kernels: TMA
-// tensor maps (tiled and im2col) and loads, mbarriers, named barriers,
-// warpgroup register hand-over, and wgmma with its shared-memory
-// descriptors.
+// sm_90a building blocks of the bf16 attention and convolution kernels and
+// the int8 GEMMs: TMA tensor maps (tiled and im2col, bf16 or int8) and
+// loads, mbarriers, named barriers, warpgroup register hand-over, and bf16
+// wgmma with its shared-memory descriptors (the s8 wgmma is in
+// int8_gemm.cuh; its descriptors are these).
 //
 // Tiles.  Every operand tile in shared memory is a column of "boxes": one
 // TMA box is `rows` rows of 64 bf16 (128 bytes), stored with the 128-byte
@@ -36,6 +37,13 @@ constexpr int kBoxRowBytes = 128;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The first 1024-byte boundary at or after p: the 128-byte swizzle repeats
+// every 1024 bytes, so a swizzled tile starts on one.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
 // -- mbarriers ----------------------------------------------------------------
@@ -156,6 +164,40 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Store box (c0, c1, c2) of a 3-d tensor map from shared memory (rows past
+// the tensor are not written); completion is tracked by bulk groups.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N committed bulk groups are still incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's shared-memory writes before later reads by the async
+// proxy (a TMA store).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -383,18 +425,40 @@ inline EncodeIm2col encode_im2col_fn() {
   return fn;
 }
 
-// The 2-d map (cols, rows) of a row-major bf16 matrix with `ld` elements
-// between rows (a multiple of 8), read in boxes of 64 columns x `box_rows`
-// rows with the 128-byte swizzle.
+// Element types of the maps below: a box row is always 128 bytes, so 64
+// bf16 or 128 int8 values (int8 maps are UINT8 maps: TMA copies bytes, and
+// its zero fill is the int8 zero).
+enum class Elem { kBF16, kI8, kF32, kI32 };
+
+inline CUtensorMapDataType map_type(Elem e) {
+  switch (e) {
+    case Elem::kBF16: return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    case Elem::kI8: return CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    case Elem::kF32: return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    default: return CU_TENSOR_MAP_DATA_TYPE_INT32;
+  }
+}
+
+inline int elem_bytes(Elem e) {
+  return e == Elem::kI8 ? 1 : (e == Elem::kBF16 ? 2 : 4);
+}
+
+// The 2-d map (cols, rows) of a row-major matrix with `ld` elements between
+// rows (16 bytes' worth), read in boxes of one 128-byte row of columns x
+// `box_rows` rows with the 128-byte swizzle; columns and rows past the
+// matrix read as zeros.
 inline int make_map_2d(CUtensorMap* map, const void* base, int64_t cols,
-                       int64_t rows, int64_t ld, int box_rows) {
+                       int64_t rows, int64_t ld, int box_rows,
+                       Elem elem = Elem::kBF16) {
   EncodeTiled fn = encode_fn();
   if (!fn) return (int)cudaErrorNotSupported;
+  const int eb = elem_bytes(elem);
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * eb)};
+  const cuuint32_t box[2] = {(cuuint32_t)(kBoxRowBytes / eb),
+                             (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map, map_type(elem), 2,
                         const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -403,20 +467,49 @@ inline int make_map_2d(CUtensorMap* map, const void* base, int64_t cols,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The im2col map of a bf16 NHWC image batch (n, h, w, c) for a kh x kw
-// filter at stride (sh, sw) and zero padding (ph, pw): the bounding box of
-// a filter's first tap runs from -p to size + p - k (both ends inclusive),
-// so one walk of it visits the output pixels in (n, y, x) order; each load
-// fills `pixels` rows of 64 channels (128 bytes, 128-byte swizzle).
-// Corners must lie in [-128, 127] (rank 4).
+// The 3-d map (cols, rows, planes) of `planes` row-major (rows, cols)
+// matrices stored one after the other (cols a multiple of 16 bytes' worth),
+// in boxes of one 128-byte row of columns x `box_rows` rows x 1 plane with
+// the 128-byte swizzle; a store clips what lies past the matrix.
+inline int make_map_3d(CUtensorMap* map, const void* base, int64_t cols,
+                       int64_t rows, int64_t planes, int box_rows,
+                       Elem elem) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const int eb = elem_bytes(elem);
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)(cols * eb),
+                                 (cuuint64_t)(rows * cols * eb)};
+  const cuuint32_t box[3] = {(cuuint32_t)(kBoxRowBytes / eb),
+                             (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, map_type(elem), 3, const_cast<void*>(base),
+                        dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The im2col map of an NHWC image batch (n, h, w, c) for a kh x kw filter
+// at stride (sh, sw) and zero padding (ph, pw): the bounding box of a
+// filter's first tap runs from -p to size + p - k (both ends inclusive), so
+// one walk of it visits the output pixels in (n, y, x) order; each load
+// fills `pixels` rows of one 128-byte row of channels (64 bf16 or 128
+// int8, 128-byte swizzle; channels past c read as zeros).  Corners must
+// lie in [-128, 127] (rank 4).
 constexpr int kIm2colCornerMin = -128;
 constexpr int kIm2colCornerMax = 127;
 
 inline int make_im2col_map(CUtensorMap* map, const void* base, int n, int h,
                            int w, int c, int kh, int kw, int sh, int sw,
-                           int ph, int pw, int pixels) {
+                           int ph, int pw, int pixels,
+                           Elem elem = Elem::kBF16) {
   EncodeIm2col fn = encode_im2col_fn();
   if (!fn) return (int)cudaErrorNotSupported;
+  const int eb = elem_bytes(elem);
   const int lower[2] = {-pw, -ph};
   const int upper[2] = {pw - (kw - 1), ph - (kh - 1)};
   for (int i = 0; i < 2; ++i)
@@ -425,12 +518,14 @@ inline int make_im2col_map(CUtensorMap* map, const void* base, int n, int h,
       return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
                               (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2,
-                                 (cuuint64_t)h * w * c * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * eb,
+                                 (cuuint64_t)w * c * eb,
+                                 (cuuint64_t)h * w * c * eb};
   const cuuint32_t estr[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, lower, upper,
-                        (cuuint32_t)kBoxCols, (cuuint32_t)pixels, estr,
+  const CUresult r = fn(map, map_type(elem), 4, const_cast<void*>(base),
+                        dims, strides, lower, upper,
+                        (cuuint32_t)(kBoxRowBytes / eb), (cuuint32_t)pixels,
+                        estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

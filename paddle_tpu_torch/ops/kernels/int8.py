@@ -11,15 +11,20 @@ with int8 operands (symmetric, zero point 0), the sum exact in int32, then
 ``scale`` (the input step times the weight step, per output channel) and
 ``bias`` in fp32, act one of "", relu, relu6, sigmoid, tanh, and the
 output in ``out_dtype`` (fp32 or bf16).  The quant_conv2d / quant_mul
-lowerings (static/ops_fused.py) call them.  Two kernel sources:
+lowerings (static/ops_fused.py) call them.  Two kernel sources on one
+GEMM (``csrc/int8_gemm.cuh``: s8 ``wgmma`` fed by TMA, persistent CTAs,
+K split across CTAs where the output tiles do not fill the card):
 
-* ``csrc/int8_matmul_dequant.cu`` (row 14): x_q (M, K) against w_q given
-  as (N, K): the s8 ``mma.sync`` wants both operands K-contiguous and
-  Hopper has no 8-bit ``ldmatrix .trans``, so the wrapper transposes the
-  (K, N) weight per call (as the JAX wrapper transposes its conv filter);
+* ``csrc/int8_matmul_dequant.cu`` (row 14): x_q (M, K) against the weight
+  as (N, K);
 * ``csrc/int8_conv2d_dequant.cu`` (row 15): an implicit GEMM of the NHWC
-  input (already K-contiguous: C) against the filter as (O, kh, kw, C),
-  transposed from OIHW per call; zero padding by zero-filled copies.
+  input (TMA im2col loads, zero padding from the loads) against the
+  filter as (O, kh, kw, C).
+
+8-bit ``wgmma`` takes both operands K-major, so the wrappers lay the
+weight out once per weight tensor and version (``matmul_weight``,
+``conv_weight``) and keep that copy while the weight lives.
+``matmul_plan`` / ``conv_plan`` mirror the C entries' tiles and K splits.
 
 ``matmul_supported`` / ``conv_supported`` are the JAX gates (the conv's
 VMEM cap included), so the same ops take the kernels in both packages.
@@ -39,7 +44,7 @@ from typing import Tuple
 import torch
 
 from . import build, config
-from .conv_fused import apply_act
+from .conv_fused import IM2COL_PAD_LIMIT, ConvPlan, apply_act
 
 MATMUL_SOURCE = "int8_matmul_dequant"
 CONV_SOURCE = "int8_conv2d_dequant"
@@ -54,8 +59,67 @@ VMEM_CAP_BYTES = 12 * 1024 * 1024
 EPILOGUE_ACTS = ("", "relu", "relu6", "sigmoid", "tanh")
 _ACT_CODES = {"": 0, "relu": 1, "relu6": 2, "sigmoid": 3, "tanh": 4}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_N = 128   # output channels per CTA
-BLOCK_K = 64    # int8 values per K tile
+# The kernels' tiling (csrc/int8_gemm.cuh): 128 x 128 output tiles, K in
+# units of 128 int8 values (one tap x 128 channels for the conv), C or K a
+# multiple of ALIGN_K.
+BLOCK_M = 128
+BLOCK_N = 128
+UNIT_K = 128
+ALIGN_K = 64
+H100_SMS = 132
+MAX_SPLITS = 16
+# The split cost model, fitted to H100 times of the kernels at VGG-16's
+# 2x2 and 4x4 layers with the splits forced (experiments/int8_experiments.py
+# splits): a K unit of a 128 x 128 tile costs a CTA UNIT_US; more than one
+# split adds the split-sum launch (SPLIT_US) and SPLIT_VALUE_US for each
+# output value of each split (the int32 partials written and summed).
+UNIT_US = 0.34
+SPLIT_US = 1.0
+SPLIT_VALUE_US = 1.3e-6
+
+
+def split_cost_us(m: int, n: int, units: int, splits: int) -> float:
+    """The modelled time of a one-wave call with ``splits`` K splits."""
+    extra = SPLIT_US + SPLIT_VALUE_US * splits * m * n if splits > 1 else 0.0
+    return -(-units // splits) * UNIT_US + extra
+
+
+def _plan(m: int, n: int, units: int, sms: int) -> ConvPlan:
+    """Where the output tiles alone give fewer than ``sms`` CTAs (one CTA
+    an SM: 200 KB of shared memory), K is split into the number of parts,
+    up to ``MAX_SPLITS`` and never a second wave, that ``split_cost_us``
+    finds fastest: a split halves a CTA's share of K but adds an int32
+    partial tile and a second pass, so VGG's 2x2 layer takes 6 (96 CTAs,
+    measured faster than 8 with 128), the 4x4 512-channel layer 2 and the
+    4x4 256-channel one none."""
+    tiles = -(-m // BLOCK_M) * (n // BLOCK_N)
+    splits = 1
+    if tiles < sms:
+        most = min(MAX_SPLITS, units, sms // tiles)
+        splits = min(range(1, most + 1),
+                     key=lambda s: split_cost_us(m, n, units, s))
+    return ConvPlan(BLOCK_M, BLOCK_N, m, tiles, units, splits)
+
+
+def matmul_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> ConvPlan:
+    """The tiles and K splits of ``int8_matmul_dequant`` (row 10's plan
+    type; mirrors the C entry): ``ceil(K / UNIT_K)`` units."""
+    return _plan(m, n, -(-k // UNIT_K), sms)
+
+
+def conv_plan(n, h, w, c, o, kh, kw, sh, sw, ph, pw,
+              sms: int = H100_SMS) -> ConvPlan:
+    """The tiles and K splits of ``int8_conv2d_dequant`` (mirrors the C
+    entry): M = n * Ho * Wo pixels, ``kh * kw * ceil(C / UNIT_K)`` units
+    of one tap x 128 channels."""
+    m = n * _out_hw(h, kh, sh, ph) * _out_hw(w, kw, sw, pw)
+    return _plan(m, o, kh * kw * -(-c // UNIT_K), sms)
+
+
+def grid_ctas(plan: ConvPlan, sms: int = H100_SMS) -> int:
+    """The persistent grid of a call: one CTA an SM, at most one a work
+    item (output tile x split)."""
+    return min(plan.ctas, sms)
 
 
 def _out_hw(size: int, k: int, stride: int, pad: int) -> int:
@@ -164,15 +228,40 @@ def _check_common(name, x_q, w_q, scale, bias, n_out, act, out_dtype):
 
 
 def _entry(source, n_ints):
-    """C entry of ``source``: x_q, w (K-contiguous), scale, bias (null for
-    none), out (pointers), ``n_ints`` shape ints, act and out-dtype codes,
-    the stream."""
+    """C entry of ``source``: x_q, w (K-major), scale, bias (null for
+    none), out, ws (pointers), ``n_ints`` shape ints, splits, the grid, act
+    and out-dtype codes, the stream."""
     fn = getattr(build.load(source), source)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * (n_ints + 2) + [P]
+        fn.argtypes = [P] * 6 + [I] * (n_ints + 4) + [P]
         fn.restype = I
     return fn
+
+
+def matmul_weight(w_q):
+    """The (K, N) int8 weight as the kernel's B: (N, K), K-major, kept per
+    weight version (``config.cached_layout``)."""
+    return config.cached_layout(w_q, "_int8_kernel_layout", lambda w: w.t())
+
+
+def conv_weight(w_q):
+    """The OIHW int8 filter as the kernel's B: (O, kh, kw, C), K-major, kept
+    per weight version (``config.cached_layout``)."""
+    return config.cached_layout(w_q, "_int8_kernel_layout",
+                                lambda w: w.permute(0, 2, 3, 1))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _workspace(plan, n_out, device):
+    """The int32 partial tiles of a split call, (splits, M, n_out)."""
+    if plan.splits == 1:
+        return None
+    return torch.empty((plan.splits, plan.m, n_out), dtype=torch.int32,
+                       device=device)
 
 
 def int8_matmul_dequant(x_q, w_q, scale, bias=None, act="",
@@ -188,15 +277,18 @@ def int8_matmul_dequant(x_q, w_q, scale, bias=None, act="",
     if x_q.device.type == "cpu":
         return int8_matmul_dequant_plain(x_q, w_q, scale, bias, act,
                                          out_dtype)
-    if k % BLOCK_K or n % BLOCK_N:
-        raise ValueError(f"{MATMUL_KERNEL}: needs K % {BLOCK_K} == 0 and "
+    if k % ALIGN_K or n % BLOCK_N:
+        raise ValueError(f"{MATMUL_KERNEL}: needs K % {ALIGN_K} == 0 and "
                          f"N % {BLOCK_N} == 0, got K={k}, N={n}")
-    wt = w_q.t().contiguous()  # (N, K): K-contiguous for the s8 mma
+    sms = _sms(x_q.device)
+    plan = matmul_plan(m, n, k, sms)
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
+    ws = _workspace(plan, n, x_q.device)
     err = _entry(MATMUL_SOURCE, 3)(
-        x_q.data_ptr(), wt.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        _ACT_CODES[act], _OUT_CODES[out_dtype],
+        x_q.data_ptr(), matmul_weight(w_q).data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, n, k, plan.splits,
+        grid_ctas(plan, sms), _ACT_CODES[act], _OUT_CODES[out_dtype],
         torch.cuda.current_stream(x_q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{MATMUL_KERNEL} launch failed: CUDA error {err}")
@@ -224,16 +316,27 @@ def int8_conv2d_dequant(x_q, w_q, scale, bias=None, stride=(1, 1),
     if x_q.device.type == "cpu":
         return int8_conv2d_dequant_plain(x_q, w_q, scale, bias, stride,
                                          padding, act, out_dtype)
-    if c % BLOCK_K or o % BLOCK_N:
-        raise ValueError(f"{CONV_KERNEL}: needs C % {BLOCK_K} == 0 and "
+    if c % ALIGN_K or o % BLOCK_N:
+        raise ValueError(f"{CONV_KERNEL}: needs C % {ALIGN_K} == 0 and "
                          f"O % {BLOCK_N} == 0, got C={c}, O={o}")
-    wk = w_q.permute(0, 2, 3, 1).contiguous()  # (O, kh, kw, C)
-    out = torch.empty((n, _out_hw(h, kh, sh, ph), _out_hw(wd, kw, sw, pw),
-                       o), dtype=out_dtype, device=x_q.device)
+    out_h, out_w = _out_hw(h, kh, sh, ph), _out_hw(wd, kw, sw, pw)
+    if max(ph, pw) > IM2COL_PAD_LIMIT:
+        # the im2col map's corners take paddings up to the limit; pad x by
+        # the rest (zeros: the symmetric zero point)
+        eh, ew = max(ph - IM2COL_PAD_LIMIT, 0), max(pw - IM2COL_PAD_LIMIT, 0)
+        x_q = torch.nn.functional.pad(x_q, (0, 0, ew, ew, eh, eh))
+        ph, pw = ph - eh, pw - ew
+        n, h, wd, c = x_q.shape
+    sms = _sms(x_q.device)
+    plan = conv_plan(n, h, wd, c, o, kh, kw, sh, sw, ph, pw, sms)
+    out = torch.empty((n, out_h, out_w, o), dtype=out_dtype,
+                      device=x_q.device)
+    ws = _workspace(plan, o, x_q.device)
     err = _entry(CONV_SOURCE, 11)(
-        x_q.data_ptr(), wk.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, wd,
-        c, o, kh, kw, sh, sw, ph, pw, _ACT_CODES[act],
+        x_q.data_ptr(), conv_weight(w_q).data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), n, h, wd, c, o, kh, kw, sh,
+        sw, ph, pw, plan.splits, grid_ctas(plan, sms), _ACT_CODES[act],
         _OUT_CODES[out_dtype],
         torch.cuda.current_stream(x_q.device).cuda_stream)
     if err:

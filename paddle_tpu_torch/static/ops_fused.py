@@ -19,12 +19,14 @@ paddle_tpu/static/ops_fused.py).
   ``quant_infer`` pass makes from PTQ artifacts.  Where the
   ``use_pallas_int8`` flag, a per-output-channel ``weight_scale`` and the
   JAX gate (``conv_supported`` / ``matmul_supported``) hold, the input is
-  quantized to int8 (the fixed-scale lowering's rounding), the weight's
-  int8 grid recovered as ``round(w / step_w)`` (both per call, as in the
-  JAX package), and the int8 kernel (ops/kernels/int8.py) sums in int32
-  with the fp32 dequant and act as its epilogue.  Otherwise the simulate
-  route replays the registered fixed-scale lowering and the float op: bit
-  for bit the program before the rewrite.
+  quantized to int8 (the fixed-scale lowering's rounding, per call), the
+  weight's int8 grid recovered as ``round(w / step_w)`` and the combined
+  scale formed (once per Filter version and quant attrs, ``_quant_weight``;
+  the JAX package redoes both per call), and the int8 kernel
+  (ops/kernels/int8.py) sums in int32 with the fp32 dequant and act as its
+  epilogue.  Otherwise the simulate route replays the registered
+  fixed-scale lowering and the float op: bit for bit the program before
+  the rewrite.
 """
 from __future__ import annotations
 
@@ -137,6 +139,34 @@ def _simulate_qdq(x, in_scale, in_bits, op):
         {"X": [x]}, {"bit_length": in_bits, "scale": in_scale}, op)["Out"][0]
 
 
+def _quant_weight(w, weight_scale, in_scale, in_bits, w_bits, device,
+                  shape, axis):
+    """(w_q, scale) of a quant op: the Filter's int8 grid ``round(w /
+    step_w)`` (w viewed as ``shape``, one step per index of ``axis``,
+    ``step_w = weight_scale / qmax_w``) and the kernel's combined scale
+    ``(in_scale / qmax_in) * step_w``, on ``device``.  Made once per Filter
+    version and storage and quant attrs, and kept on the Filter tensor (the
+    int8 wrapper keeps the kernel's K-major layout of w_q beside it), so a
+    run whose weights are unchanged rebuilds neither."""
+    key = (w._version, w.data_ptr(), str(device), tuple(shape),
+           tuple(weight_scale), in_scale, in_bits, w_bits)
+    hit = getattr(w, "_quant_int8", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    qm_in, qm_w = _qmax(in_bits), _qmax(w_bits)
+    w_scale = torch.tensor(weight_scale, dtype=torch.float32, device=device)
+    step_w = w_scale / qm_w
+    view = [1] * len(shape)
+    view[axis] = -1
+    # the weight in the scope is int8-simulated (q / qmax * scale with q
+    # integral), so dividing by the step recovers the int8 grid point
+    w_q = torch.round(w.reshape(shape) / step_w.reshape(view)) \
+        .to(torch.int8)
+    value = (w_q, (in_scale / qm_in) * step_w)
+    w._quant_int8 = (key, value)
+    return value
+
+
 def _int8_spec(shape):
     """A shape-and-dtype stand-in for the quantized input, for the gates."""
     return torch.empty(tuple(shape), dtype=torch.int8, device="meta")
@@ -157,26 +187,21 @@ def _quant_conv2d(ins, attrs, op):
         else _pair(raw_padding)
     in_scale = float(attrs["in_scale"])
     in_bits = int(attrs.get("in_bits", 8))
-    w_scale = torch.tensor(attrs["weight_scale"], dtype=torch.float32,
-                           device=x.device)                   # (O,)
+    w_scales = attrs["weight_scale"]                          # (O,)
     w_bits = int(attrs.get("weight_bits", 8))
 
     if (isinstance(padding, tuple) and data_format == "NHWC"
-            and w_scale.shape[0] == w.shape[0]
+            and np.shape(w_scales)[0] == w.shape[0]
             and flags.get_flag("use_pallas_int8")
             and _int8.conv_supported(_int8_spec(x.shape), tuple(w.shape),
                                      stride, padding, dilation, groups, act,
                                      data_format)):
-        qm_in, qm_w = _qmax(in_bits), _qmax(w_bits)
-        x_q = _quantize_int8(x, in_scale, qm_in)
-        # the weight in the scope is int8-simulated (q / qmax * scale with
-        # q integral), so dividing by the step recovers the int8 grid point
-        step_w = w_scale / qm_w
-        w_q = torch.round(w / step_w.reshape(-1, 1, 1, 1)).to(torch.int8)
+        x_q = _quantize_int8(x, in_scale, _qmax(in_bits))
+        w_q, scale = _quant_weight(w, w_scales, in_scale, in_bits, w_bits,
+                                   x.device, tuple(w.shape), 0)
         out = _int8.int8_conv2d_dequant(
-            x_q, w_q, (in_scale / qm_in) * step_w,
-            bias=None if bias is None else bias.float(), stride=stride,
-            padding=padding, act=act, out_dtype=x.dtype)
+            x_q, w_q, scale, bias=None if bias is None else bias.float(),
+            stride=stride, padding=padding, act=act, out_dtype=x.dtype)
         return {"Output": [out]}
 
     xq = _simulate_qdq(x, in_scale, in_bits, op)
@@ -194,26 +219,22 @@ def _quant_mul(ins, attrs, op):
     xs, ys = tuple(x.shape), tuple(y.shape)
     in_scale = float(attrs["in_scale"])
     in_bits = int(attrs.get("in_bits", 8))
-    w_scale = torch.tensor(attrs["weight_scale"], dtype=torch.float32,
-                           device=x.device)                   # (out,)
+    w_scales = attrs["weight_scale"]                          # (out,)
     w_bits = int(attrs.get("weight_bits", 8))
     x2_shape = (int(np.prod(xs[:xd])), int(np.prod(xs[xd:])))
     y2_shape = (int(np.prod(ys[:yd])), int(np.prod(ys[yd:])))
 
     # per-channel scales line up with the flattened output only when the
     # weight's quant axis is its flattened minor axis
-    if (w_scale.shape[0] == y2_shape[1]
+    if (np.shape(w_scales)[0] == y2_shape[1]
             and flags.get_flag("use_pallas_int8")
             and _int8.matmul_supported(_int8_spec(x2_shape), y2_shape,
                                        act)):
-        qm_in, qm_w = _qmax(in_bits), _qmax(w_bits)
-        x_q = _quantize_int8(x.reshape(x2_shape), in_scale, qm_in)
-        step_w = w_scale / qm_w
-        w_q = torch.round(y.reshape(y2_shape) / step_w[None, :]) \
-            .to(torch.int8)
-        out2 = _int8.int8_matmul_dequant(
-            x_q, w_q, (in_scale / qm_in) * step_w, act=act,
-            out_dtype=x.dtype)
+        x_q = _quantize_int8(x.reshape(x2_shape), in_scale, _qmax(in_bits))
+        w_q, scale = _quant_weight(y, w_scales, in_scale, in_bits, w_bits,
+                                   x.device, y2_shape, 1)
+        out2 = _int8.int8_matmul_dequant(x_q, w_q, scale, act=act,
+                                         out_dtype=x.dtype)
         return {"Out": [out2.reshape(xs[:xd] + ys[yd:])]}
 
     xq = _simulate_qdq(x, in_scale, in_bits, op)
