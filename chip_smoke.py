@@ -80,8 +80,16 @@ Phases (any failed check raises, so the script exits non-zero):
               8, a prefill chunk's stride-0 table and the recorded stride-0
               draw on which the int8 case once failed an absolute bound
               (int8 held within 2e-5 (v_max + |ref|) of the plain version
-              and of a float64 evaluation); its times beside its bound and
-              SDPA on pre-gathered K/V.
+              and of a float64 evaluation); then the paged server's own
+              launches, from generators of their own: a decode step (64
+              rows, own tables of 128 blocks, mean length ~1078, 4 rows of
+              0) and a prefill chunk (64 rows on one stride-0 table of
+              128, lengths 1141..1204), in the three cache types; every
+              case's second call equal to its first bit for bit; each
+              timed case's time beside its bound (live bytes; for the
+              chunk the one table's, or its products at the cache type's
+              peak) and SDPA on pre-gathered K/V (the chunk's 64 rows
+              against one gathered K/V with a length mask a row).
               (b) the slice: ``PagedDecoder`` serving the paged toy LM at
               vocab 32000, hidden 128, 4096 positions (random weights from
               --seed) from a 16384-block pool, 64 rows, 64-token prefill
@@ -95,7 +103,10 @@ Phases (any failed check raises, so the script exits non-zero):
               token match rate against fp32 >= 0.9 over the first 8 new
               tokens of each request (the JAX package's gate; the rate over
               all 64 is printed).  Then decode and
-              prefill tokens/s, TTFT p50/p99, and the kernel's share of the
+              prefill tokens/s, TTFT p50/p99; whole runs in fp32 and int8
+              KV under torch.profiler, with row 9's device time split into
+              prefill chunks and decode steps (the kernels launched under
+              each step's profiler range); and the kernel's share of the
               device time over 20 decode steps of 64 rows.
 
 7. vision kernels -- rows 10 and 13 against their plain versions in fp32
@@ -215,11 +226,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 64, 512, 25      # bench.py's TPU run
 # The port's kernels in a profile, by names no library kernel has (the
 # csrc/*.cu __global__ functions).
 PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)(_dkdv|_dq)?_(fp32|wgmma)|flash_bwd_delta|"
-                         r"ln_(fwd|bwd|partials_reduce)|paged_attn|"
+                         r"ln_(fwd|bwd|partials_reduce)|"
+                         r"paged_attn_(rows|shared|merge)|"
                          r"conv2d_bn_act(_fp32|_wgmma|_split_sum)?|pool2d_nhwc|"
                          r"bn_stats_(partial|"
                          r"reduce)|bn_scale_act|"
                          r"int8_(matmul|conv)_(wgmma|split_sum))_kernel\b")
+# Row 9's kernels in a profile: the one-row kernel, the shared-table
+# kernel and their merge.
+ROW9 = re.compile(r"\bpaged_attn_(rows|shared|merge)_kernel\b")
 
 # Paged attention (phase 5).  Tolerances: fp32 against the plain version on
 # the same blocks with rtol = atol = 2e-5 (tests/test_paged.py's kernel
@@ -242,6 +257,12 @@ PAGED_SERVE = dict(vocab=32000, hidden=128, max_positions=4096,
                    shared=32, system_len=512, prompt_lo=16, prompt_hi=2048,
                    max_new=64, oracle=4, cold=4, int8_probe=12,
                    profile_prompt=1024, profile_steps=20)
+# The paged server's own launches (PAGED_SERVE): a decode step is 64 rows
+# with own tables (live width 128 at the profile's mean context of 1078; 4
+# idle slots of length 0), a prefill chunk 64 rows on one stride-0 table
+# (lengths start+1..start+64).  Drawn from generators of their own.
+PAGED_DECODE = dict(rows=64, width=128, len_lo=108, len_hi=2048, idle=4)
+PAGED_CHUNK = dict(rows=64, width=128, start=1140)
 TOL_PAGED_FP32 = 2e-5
 TOL_PAGED_BF16_REL = 2e-2
 # The stride-0 prefill-chunk draw on which the int8 case once failed the
@@ -1455,18 +1476,22 @@ def bhsd_model_phase(seed, packed_tokens_per_s):
 
 # -- phase 6: paged attention and the paged decode slice ----------------------
 
-def paged_cost(lens, block_size, d, kv_elt, q_elt, quantized):
+def paged_cost(lens, block_size, d, kv_elt, q_elt, quantized, shared=False):
     """(bytes, flops) that one paged-attention call needs for these
     lengths: K and V of the live tokens at the storage type, the live table
     entries (and int8 scale pairs), q, out and the lengths; ~4 d + 5 flops a
-    token."""
+    token and row.  Rows that share one table (``shared``) need its live
+    tokens once: those of the longest row."""
     lens = lens.long()
+    n = lens.numel()
+    flops = int(lens.sum()) * (4 * d + 5)
+    if shared:
+        lens = lens.max().reshape(1)
     tokens = int(lens.sum())
     blocks = int(((lens + block_size - 1) // block_size).sum())
-    n = lens.numel()
     nbytes = (2 * tokens * d * kv_elt + blocks * 4 + n * 4
               + 2 * n * d * q_elt + (blocks * 8 if quantized else 0))
-    return nbytes, tokens * (4 * d + 5)
+    return nbytes, flops
 
 
 def paged_inputs(gen, rng, num_seqs, max_blocks, block_size, d, max_len,
@@ -1546,8 +1571,9 @@ def paged_fail_draw(rows, width, bs, d):
 
 def paged_kernel_case(pa, t, dtype, tag):
     """The kernel against its plain version on ``t`` in ``dtype`` (float32,
-    bfloat16: q and caches rounded to bf16; int8: the int8 blocks, fp32 q).
-    Returns (run, plain, library, cost, max abs err)."""
+    bfloat16: q and caches rounded to bf16; int8: the int8 blocks, fp32 q),
+    and a second call bit for bit.  Returns (run, plain, library, cost, max
+    abs err, cache dtype)."""
     F = torch.nn.functional
     q, tb, lens = t["q"], t["tables"], t["lens"]
     kw = {}
@@ -1592,22 +1618,74 @@ def paged_kernel_case(pa, t, dtype, tag):
     zero = lens == 0
     check(bool((out[zero] == 0).all()), f"{label}: {int(zero.sum())} rows "
           f"of length 0 are exactly 0")
-    # library yardstick: SDPA over K/V gathered beforehand (gather excluded)
+    check(torch.equal(run(), out), f"{label}: a second call equals the "
+          f"first bit for bit")
+    # library yardstick: SDPA over K/V gathered beforehand (gather
+    # excluded); rows sharing one table attend to one gathered K/V
+    shared = tb.stride(0) == 0
     n, d = q.shape
     span = tb.shape[1] * k.shape[1]
-    kg, vg = k[tb.long()], v[tb.long()]
+    tg = tb[:1].long() if shared else tb.long()
+    kg, vg = k[tg], v[tg]
     if dtype == torch.int8:
-        s = t["scales"][tb.long()]
+        s = t["scales"][tg]
         kg = kg.float() * s[..., 0, None, None]
         vg = vg.float() * s[..., 1, None, None]
-    kg, vg = (x.reshape(n, 1, span, d) for x in (kg, vg))
-    qg = q.reshape(n, 1, 1, d).to(kg.dtype)
+    heads = 1 if shared else n
+    kg, vg = (x.reshape(heads, 1, span, d) for x in (kg, vg))
+    qg = q.reshape(heads, 1, n // heads, d).to(kg.dtype)
     mask = (torch.arange(span, device=DEV)[None, :] < lens.long()[:, None]
-            ).reshape(n, 1, 1, span)
+            ).reshape(heads, 1, n // heads, span)
     lib = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
     cost = paged_cost(lens, k.shape[1], d, k.element_size(),
-                      q.element_size(), dtype == torch.int8)
-    return run, plain, lib, cost, err
+                      q.element_size(), dtype == torch.int8, shared)
+    return run, plain, lib, cost, err, dtype
+
+
+def paged_timings(run, plain, lib, cost, err, dtype):
+    """A case's CUDA-graph times (kernel, plain version, SDPA) beside its
+    bound.  The products' peak is the cache type's: bf16 x bf16 products
+    are exact in fp32, so tensor cores could take them; fp32 and int8
+    caches meet an fp32 q."""
+    peak = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    return dict(ms=time_ms(run), eager_ms=eager_ms(run),
+                plain_ms=time_ms(plain), library_ms=time_ms(lib),
+                bound=bound(*cost, peak), bytes=cost[0], err=err)
+
+
+def paged_server_inputs(seed):
+    """The paged server's own launches (PAGED_DECODE, PAGED_CHUNK): a
+    decode step and a prefill chunk, from generators of their own."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    rng = np.random.default_rng(seed + 1)
+    bs, d = (PAGED_KERNEL_SHAPE[k] for k in ("block_size", "d"))
+    c = PAGED_DECODE
+    lens = rng.integers(c["len_lo"], c["len_hi"] + 1, c["rows"])
+    lens[:c["idle"]] = 0
+    dec = paged_inputs(gen, rng, c["rows"], c["width"], bs, d, 0, lens=lens)
+    c = PAGED_CHUNK
+    chunk = paged_chunk(gen, rng, c["start"], c["rows"], c["width"], bs, d)
+    return dec, chunk
+
+
+def paged_server_cases(pa, seed):
+    """The paged server's own launches in the three cache types."""
+    dec, chunk = paged_server_inputs(seed)
+    out = {}
+    for name, t, tag in (
+            ("decode64", dec, f"decode step: {PAGED_DECODE['rows']} rows, own "
+             f"tables of {PAGED_DECODE['width']}, mean length "
+             f"{float(dec['lens'].float().mean()):.0f}, "
+             f"{PAGED_DECODE['idle']} of 0"),
+            ("chunk64", chunk, f"prefill chunk: {PAGED_CHUNK['rows']} rows on "
+             f"one stride-0 table of {PAGED_CHUNK['width']}, lengths "
+             f"{PAGED_CHUNK['start'] + 1}..{PAGED_CHUNK['start'] + 64}")):
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            out[(name, dtype)] = paged_timings(
+                *paged_kernel_case(pa, t, dtype, tag))
+            torch.cuda.empty_cache()
+    del dec, chunk
+    return out
 
 
 def paged_kernel_phase(gen, seed):
@@ -1625,16 +1703,13 @@ def paged_kernel_phase(gen, seed):
         f"K+V {', '.join(f'{dtag(k)} {v:.0f} MB' for k, v in cache_mb.items())}")
     results = {}
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
-        run, plain, lib, cost, err = paged_kernel_case(pa, t, dtype, "")
-        b = bound(*cost, torch.float32)   # the kernel computes in fp32
+        case = paged_kernel_case(pa, t, dtype, "")
+        results[dtype] = paged_timings(*case)
         full = pa.paged_attention_cost(S, MB, bs, d,
                                        1 if dtype == torch.int8 else
                                        (2 if dtype == torch.bfloat16 else 4))
-        results[dtype] = dict(ms=time_ms(run), eager_ms=eager_ms(run),
-                              plain_ms=time_ms(plain), library_ms=time_ms(lib),
-                              bound=b, bytes=cost[0], full_table_bytes=full[1],
-                              err=err)
-        del run, plain, lib
+        results[dtype]["full_table_bytes"] = full[1]
+        del case
         torch.cuda.empty_cache()
     small = paged_inputs(gen, rng, 4, 3, 8, 32, 24, lens=[0, 3, 8, 24])
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
@@ -1653,18 +1728,21 @@ def paged_kernel_phase(gen, seed):
     for dtype in (torch.float32, torch.int8):
         paged_kernel_case(pa, fail, dtype, f"the recorded stride-0 draw, "
                           f"lengths {fstart + 1}..{fstart + rows}")
-    for dtype, r in results.items():
-        log(f"  paged_attention {dtag(dtype)}: {r['ms']:.4f} ms (eager "
-            f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms (F.scaled_dot_product_attention on "
-            f"K/V gathered beforehand, gather excluded), bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {r['bytes'] / 1e6:.1f}"
-            f" MB of live context; full-table cost model "
-            f"{r['full_table_bytes'] / 1e6:.1f} MB); max abs err vs plain "
-            f"{r['err']:.3g}")
     del t, small, chunk, fail
     torch.cuda.empty_cache()
-    return results
+    server = paged_server_cases(pa, seed)
+    rows = [(f"{S} rows", dtype, r) for dtype, r in results.items()]
+    rows += [(name, dtype, r) for (name, dtype), r in server.items()]
+    for name, dtype, r in rows:
+        log(f"  paged_attention {name} {dtag(dtype)}: {r['ms']:.4f} ms (eager "
+            f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms (F.scaled_dot_product_attention"
+            f" on K/V gathered beforehand, gather excluded), bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {r['bytes'] / 1e6:.2f}"
+            f" MB of live context{', unique' if 'chunk' in name else ''}; "
+            f"{r['bound'][0] / r['ms']:.2f} of it); max abs err vs plain "
+            f"{r['err']:.3g}")
+    return results, server
 
 
 def serve_traffic(rng, cfg):
@@ -1687,10 +1765,23 @@ def serve_traffic(rng, cfg):
     return prompts, sorted(shared)
 
 
+# The profiler ranges of a slice run's prefill chunks and decode steps.
+SLICE_RANGES = ("paged.prefill_chunk", "paged.decode_step")
+
+
+def in_range(name, fn):
+    """``fn`` called inside a profiler range ``name``."""
+    def ranged(*args):
+        with torch.profiler.record_function(name):
+            return fn(*args)
+    return ranged
+
+
 def serve_once(model, prompts, cfg, kv_dtype="float32", kernel=True,
-               num_blocks=None):
+               num_blocks=None, ranges=False):
     """Decode ``prompts`` through a fresh cache and decoder; returns the
-    tokens and what the run counted and timed."""
+    tokens and what the run counted and timed.  ``ranges``: each prefill
+    chunk and decode step in a profiler range (SLICE_RANGES)."""
     from paddle_tpu_torch.core import flags
     from paddle_tpu_torch.ops.kernels import config
     from paddle_tpu_torch.serving import PagedDecoder, PagedKVCache
@@ -1705,6 +1796,9 @@ def serve_once(model, prompts, cfg, kv_dtype="float32", kernel=True,
     steps, hits = [0], []
     joined, waiting, first = [], [], {}
     decode_step, try_join, step = dec._decode_step, dec.try_join, dec.step
+    if ranges:
+        dec._prefill_step = in_range(SLICE_RANGES[0], dec._prefill_step)
+        decode_step = in_range(SLICE_RANGES[1], decode_step)
 
     def counted_decode_step(width):
         steps[0] += 1
@@ -1993,6 +2087,10 @@ def paged_slice_phase(seed):
             f"+ {run['decode_steps']} decode steps, {run['prefix_hits']} "
             f"prefix hits")
 
+    # row 9's device time over whole runs, prefill chunks and decode steps
+    slices = {kv: slice_device_time(model, prompts, cfg, kv,
+                                    runs[name]["tokens"])
+              for kv, name in (("float32", "kernel"), ("int8", "int8"))}
     # 20 decode steps of 64 rows at ~1024 tokens of context, profiled
     prof = profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache)
     out = dict(runs=speed, int8_token_match_first8=head,
@@ -2000,8 +2098,57 @@ def paged_slice_phase(seed):
                int8_flip_gap_max=max(gaps, default=0.0), int8_kv=kv8,
                int8_same_as_plain=same8, same_as_plain=same,
                requests=len(prompts), prompt_tokens=n_prompt,
-               generated_tokens=n_new, profile=prof)
+               generated_tokens=n_new, profile=prof, slice_row9=slices)
     return r["launches"], out
+
+
+def slice_device_time(model, prompts, cfg, kv_dtype, tokens, log_as=None,
+                      kernels=ROW9):
+    """A whole run of the slice under torch.profiler, each prefill chunk and
+    decode step in a profiler range of its own: row 9's device time (the
+    kernels whose names match ``kernels``), split into prefill chunks and
+    decode steps by the range in which each kernel started (a step ends on
+    a device-to-host copy of its tokens, so its kernels run before the
+    next range opens), and the device's busy time.  Its tokens must equal
+    ``tokens`` (an unprofiled run's)."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = serve_once(model, prompts, cfg, kv_dtype=kv_dtype,
+                         ranges=True)
+    # the ranges' own device-side spans are not kernels
+    events = [e for e in device_events(prof) if e[2] not in SLICE_RANGES]
+    total = sum(us for us, _, name in events if kernels.search(name)) / 1e3
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.name in SLICE_RANGES and e.device_type == cpu)
+    starts = [r[0] for r in ranges]
+    by_range = dict.fromkeys(SLICE_RANGES, 0.0)
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and kernels.search(e.name)):
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0:
+                by_range[ranges[i][1]] += e.time_range.elapsed_us() / 1e3
+    prefill, decode = by_range[SLICE_RANGES[0]], by_range[SLICE_RANGES[1]]
+    label = log_as or f"paged slice run, {kv_dtype} KV"
+    check(run["tokens"] == tokens, f"{label}: tokens under the profiler "
+          f"equal the unprofiled run's")
+    check(abs(prefill + decode - total) <= 1e-3 * total, f"{label}: row 9's "
+          f"{total:.3f} ms of device time = prefill chunks {prefill:.3f} ms "
+          f"+ decode steps {decode:.3f} ms")
+    busy = sum(us for us, _, _ in events) / 1e3
+    log(f"[profile] {label}, {len(prompts)} requests: row 9 {total:.3f} ms "
+        f"of device time ({run['launches']} launches: {run['chunks']} "
+        f"prefill chunks {prefill:.3f} ms, {run['decode_steps']} decode "
+        f"steps {decode:.3f} ms); device busy {busy:.2f} ms")
+    return dict(row9_ms=total, prefill_ms=prefill, decode_ms=decode,
+                launches=run["launches"], prefill_chunks=run["chunks"],
+                decode_steps=run["decode_steps"], busy_ms=busy,
+                wall_s=run["wall_s"])
 
 
 def profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache):
@@ -2030,7 +2177,7 @@ def profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache):
     events = device_events(p)
     busy = sum(us for us, _, _ in events) / 1e3 / steps
     kernel = sum(us for us, _, name in events
-                 if "paged_attn_kernel" in name) / 1e3 / steps
+                 if ROW9.search(name)) / 1e3 / steps
     ctx = float(np.mean([len(h.prompt) + len(h.tokens) for h in handles]))
     for h in handles:
         dec.evict(h)
@@ -3305,7 +3452,7 @@ def main(argv=None):
     bhsd_counts, bhsd_model = bhsd_model_phase(args.seed,
                                                train["tokens_per_s"])
     torch.cuda.empty_cache()
-    paged = paged_kernel_phase(gen, args.seed)
+    paged, paged_server = paged_kernel_phase(gen, args.seed)
     paged_launches, paged_slice = paged_slice_phase(args.seed)
     torch.cuda.empty_cache()
     vision = vision_kernel_phase(gen)
@@ -3403,6 +3550,16 @@ def main(argv=None):
                       f"{t}_bound_ms": r["bound"][0],
                       f"{t}_plain_ms": r["plain_ms"],
                       f"{t}_library_ms": r["library_ms"]})
+    # the paged server's own launches: decode64_ms / chunk64_ms (fp32) and
+    # the same per cache type, each beside its bound and SDPA
+    for (name, dtype), r in paged_server.items():
+        t = {torch.float32: "", torch.bfloat16: "bf16_"}.get(dtype, "int8_")
+        entry.update({f"{t}{name}_ms": r["ms"],
+                      f"{t}{name}_bound_ms": r["bound"][0],
+                      f"{t}{name}_bound_by": r["bound"][1],
+                      f"{t}{name}_library_ms": r["library_ms"],
+                      f"{t}{name}_plain_ms": r["plain_ms"],
+                      f"{t}{name}_max_abs_err": r["err"]})
     kernels.append(entry)
     kernels += vision_entries(vision, vision_counts)
     kernels += new_entries(bn_cases, train_counts, int8_cases, int8_counts)
