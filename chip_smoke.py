@@ -106,8 +106,11 @@ Phases (any failed check raises, so the script exits non-zero):
               prefill tokens/s, TTFT p50/p99; whole runs in fp32 and int8
               KV under torch.profiler, with row 9's device time split into
               prefill chunks and decode steps (the kernels launched under
-              each step's profiler range); and the kernel's share of the
-              device time over 20 decode steps of 64 rows.
+              each step's profiler range) and the device's busy time by
+              kernel (the cache, whose int8 scales are calibrated on the
+              model's activations, built before the profiler starts); and
+              the kernel's share of the device time over 20 decode steps
+              of 64 rows.
 
 7. vision kernels -- rows 10 and 13 against their plain versions in fp32
               (cuDNN's TF32 off) and bf16: the fused conv + BN + act at
@@ -172,12 +175,47 @@ Phases (any failed check raises, so the script exits non-zero):
               error against the float program, images/s of the int8
               program against the fp32 program under DEFAULT_PIPELINE in
               alternating blocks, and a profile of one int8 forward.
+12. cold     -- rows 11, 12 and 13 at VGG-16's train-mode BN and pooling
+              shapes (b128), fp32 and bf16, timed on inputs beyond the
+              50 MB L2 (a CUDA graph calling the kernel in turn on >= 200
+              MB of distinct inputs) beside the warm time (20 calls on one
+              input), the library call's cold time and the bound; no cold
+              time under its bound.  Each row's share of its bound over a
+              VGG-16 forward's launches at those shapes, and with each
+              launch held to at least one launch's floor.
+13. static train -- static-graph training in fp32 (TF32 off) through
+              ``static.optimizer.Adam(1e-3).minimize`` (append_backward,
+              the Executor's backward_region on torch autograd): the book's
+              vgg16_bn_drop and resnet_cifar10 at depth 32 (widths 16 / 32
+              / 64), each with fc(10, softmax), cross_entropy, mean and
+              accuracy, b128 synthetic CIFAR batches from --seed.  Checks:
+              the first step (dropouts at 0) from one state and batch on
+              the card (cuDNN's own algorithms, deterministic, off) and on
+              the CPU in fp32, each against the port's CPU Executor in
+              float64 (loss, and every gradient relative to the largest),
+              and the step on another batch far outside those limits;
+              fuse_conv_bn_act on every conv (13 / 33), train-mode, no
+              rollback; no port kernel launch in a training step (training
+              programs stay NCHW, as in the JAX package); the first step's
+              loss repeated by a fresh Executor at the book's dropout
+              rates; finite losses.
+              Then step ms and images/s with the pipeline on and off in
+              alternating blocks, and a profile of a step.  QAT:
+              QuantizationTransformPass on VGG-16's training program and
+              its test program, 20 Adam steps, QuantizationFreezePass and
+              QUANT_INFER_PIPELINE: 10 / 2 / 4 launches of rows 15 / 14 /
+              13 per forward, the program against its plain versions and
+              the simulate route, the int8 error against the float test
+              program (10 / 4 launches of rows 10 / 13 under
+              DEFAULT_PIPELINE), and images/s of both.
 
 Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"paged": ...}``, ``{"static": ...}``, ``{"vision_train": ...}``,
-``{"int8": ...}`` and ``{"kernels": [...]}`` JSON lines (one kernel entry
-for each of the 15 TPU kernels) and the card's name and power limit; the
-last line is
+``{"int8": ...}``, ``{"cold": ...}``, ``{"static_train": ...}`` and
+``{"kernels": [...]}`` JSON lines (one kernel entry for each of the 15 TPU
+kernels; rows 10 and 13-15 with their launches on the static-train path,
+rows 11-13 with their cold times) and the card's name and power limit;
+the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -1778,18 +1816,20 @@ def in_range(name, fn):
 
 
 def serve_once(model, prompts, cfg, kv_dtype="float32", kernel=True,
-               num_blocks=None, ranges=False):
-    """Decode ``prompts`` through a fresh cache and decoder; returns the
-    tokens and what the run counted and timed.  ``ranges``: each prefill
-    chunk and decode step in a profiler range (SLICE_RANGES)."""
+               num_blocks=None, ranges=False, cache=None):
+    """Decode ``prompts`` through a fresh cache (or ``cache``, built by the
+    caller) and decoder; returns the tokens and what the run counted and
+    timed.  ``ranges``: each prefill chunk and decode step in a profiler
+    range (SLICE_RANGES)."""
     from paddle_tpu_torch.core import flags
     from paddle_tpu_torch.ops.kernels import config
     from paddle_tpu_torch.serving import PagedDecoder, PagedKVCache
     from paddle_tpu_torch.serving import paged as P
     from paddle_tpu_torch.utils import monitor
 
-    cache = PagedKVCache(model, num_blocks or cfg["num_blocks"],
-                         cfg["block_size"], kv_dtype=kv_dtype)
+    if cache is None:
+        cache = PagedKVCache(model, num_blocks or cfg["num_blocks"],
+                             cfg["block_size"], kv_dtype=kv_dtype)
     dec = PagedDecoder(model, cache, max_seqs=cfg["max_seqs"],
                        max_blocks_per_seq=cfg["max_blocks_per_seq"],
                        prefill_chunk=cfg["prefill_chunk"])
@@ -2109,16 +2149,23 @@ def slice_device_time(model, prompts, cfg, kv_dtype, tokens, log_as=None,
     kernels whose names match ``kernels``), split into prefill chunks and
     decode steps by the range in which each kernel started (a step ends on
     a device-to-host copy of its tokens, so its kernels run before the
-    next range opens), and the device's busy time.  Its tokens must equal
-    ``tokens`` (an unprofiled run's)."""
+    next range opens), and the device's busy time, split by kernel name.
+    The cache is built (an int8 cache calibrates its scales on the model's
+    activations) before the profiler starts, so only serving is counted.
+    Its tokens must equal ``tokens`` (an unprofiled run's)."""
     import bisect
 
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch.serving import PagedKVCache
+
+    cache = PagedKVCache(model, cfg["num_blocks"], cfg["block_size"],
+                         kv_dtype=kv_dtype)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run = serve_once(model, prompts, cfg, kv_dtype=kv_dtype,
-                         ranges=True)
+                         ranges=True, cache=cache)
     # the ranges' own device-side spans are not kernels
     events = [e for e in device_events(prof) if e[2] not in SLICE_RANGES]
     total = sum(us for us, _, name in events if kernels.search(name)) / 1e3
@@ -2141,14 +2188,21 @@ def slice_device_time(model, prompts, cfg, kv_dtype, tokens, log_as=None,
           f"{total:.3f} ms of device time = prefill chunks {prefill:.3f} ms "
           f"+ decode steps {decode:.3f} ms")
     busy = sum(us for us, _, _ in events) / 1e3
+    by_kernel = sorted(((us / 1e3, n, name) for us, n, name in events),
+                       reverse=True)
     log(f"[profile] {label}, {len(prompts)} requests: row 9 {total:.3f} ms "
         f"of device time ({run['launches']} launches: {run['chunks']} "
         f"prefill chunks {prefill:.3f} ms, {run['decode_steps']} decode "
-        f"steps {decode:.3f} ms); device busy {busy:.2f} ms")
+        f"steps {decode:.3f} ms); device busy {busy:.2f} ms (cache built "
+        f"before the profile), by kernel:")
+    for ms, n, name in by_kernel[:15]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
     return dict(row9_ms=total, prefill_ms=prefill, decode_ms=decode,
                 launches=run["launches"], prefill_chunks=run["chunks"],
                 decode_steps=run["decode_steps"], busy_ms=busy,
-                wall_s=run["wall_s"])
+                wall_s=run["wall_s"],
+                busy_by_kernel=[dict(name=name, ms=ms, calls=n)
+                                for ms, n, name in by_kernel[:15]])
 
 
 def profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache):
@@ -2363,34 +2417,40 @@ def conv_tower(static, L, nets, seed):
     return main, startup, [out.name]
 
 
-def vgg16_bn_drop(static, L, nets, seed):
+def vgg16_bn_drop_body(L, nets, img, rate=1.0):
     """The Paddle book's CIFAR-10 VGG (chapter 03,
-    test_image_classification.py): five img_conv_group blocks of 64 x 2,
-    128 x 2, 256 x 3, 512 x 3, 512 x 3 filters (3 x 3, BN + ReLU, conv
-    dropouts), 2 x 2 max pools, dropout 0.5, fc 512, BN + ReLU, dropout
-    0.5, fc 512, fc 10 + softmax.  Fetches the logits and the softmax."""
-    main, startup = static.Program(), static.Program()
-    main.random_seed = startup.random_seed = seed
-
+    test_image_classification.py) up to its second fc 512: five
+    img_conv_group blocks of 64 x 2, 128 x 2, 256 x 3, 512 x 3, 512 x 3
+    filters (3 x 3, BN + ReLU, conv dropouts), 2 x 2 max pools, dropout
+    0.5, fc 512, BN + ReLU, dropout 0.5, fc 512; every dropout at ``rate``
+    times the book's."""
     def block(x, filters, groups, drops):
         return nets.img_conv_group(
             x, conv_num_filter=[filters] * groups, pool_size=2,
             pool_stride=2, conv_filter_size=3, conv_act="relu",
-            conv_with_batchnorm=True, conv_batchnorm_drop_rate=drops)
+            conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=[d * rate for d in drops])
 
+    h = block(img, 64, 2, [0.3, 0])
+    h = block(h, 128, 2, [0.4, 0])
+    h = block(h, 256, 3, [0.4, 0.4, 0])
+    h = block(h, 512, 3, [0.4, 0.4, 0])
+    h = block(h, 512, 3, [0.4, 0.4, 0])
+    h = L.dropout(h, dropout_prob=0.5 * rate)
+    h = L.fc(h, 512, act=None)
+    h = L.batch_norm(h, act="relu")
+    h = L.dropout(h, dropout_prob=0.5 * rate)
+    return L.fc(h, 512, act=None)
+
+
+def vgg16_bn_drop(static, L, nets, seed):
+    """vgg16_bn_drop_body, then fc 10 + softmax.  Fetches the logits and
+    the softmax."""
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed
     with static.program_guard(main, startup):
         img = L.data("img", [3, 32, 32])
-        h = block(img, 64, 2, [0.3, 0])
-        h = block(h, 128, 2, [0.4, 0])
-        h = block(h, 256, 3, [0.4, 0.4, 0])
-        h = block(h, 512, 3, [0.4, 0.4, 0])
-        h = block(h, 512, 3, [0.4, 0.4, 0])
-        h = L.dropout(h, dropout_prob=0.5)
-        h = L.fc(h, 512, act=None)
-        h = L.batch_norm(h, act="relu")
-        h = L.dropout(h, dropout_prob=0.5)
-        h = L.fc(h, 512, act=None)
-        out = L.fc(h, 10, act="softmax")
+        out = L.fc(vgg16_bn_drop_body(L, nets, img), 10, act="softmax")
     logits = main.global_block().ops[-1].inputs["X"][0]
     return main, startup, [logits, out.name]
 
@@ -2418,7 +2478,8 @@ def run_static(exe, program, feed, fetches, scope):
                    return_numpy=False)
 
 
-def interleaved_timings(exe, runs, feed, fetches, batch):
+def interleaved_timings(exe, runs, feed, fetches, batch, blocks=None,
+                        reps=None):
     """Executor.run of two (program, scope, opt_passes) runs in alternating
     blocks (a, b, b, a, ...: host noise on a shared machine drifts), each
     block STATIC_REPS runs after one warm run.  Per run: the median wall
@@ -2426,20 +2487,21 @@ def interleaved_timings(exe, runs, feed, fetches, batch):
     back included) as images/s, the quartile spread, and the median span
     between CUDA events around a run."""
     a, b = runs
+    blocks, reps = blocks or STATIC_BLOCKS, reps or STATIC_REPS
     walls = {k: [] for k in runs}
     spans = {k: [] for k in runs}
-    for mode in (a, b, b, a) * (STATIC_BLOCKS // 4):
+    for mode in (a, b, b, a) * (blocks // 4):
         program, scope, passes = runs[mode]
         with opt_passes(passes):
             exe.run(program, feed=feed, fetch_list=fetches, scope=scope)
             torch.cuda.synchronize()
-            for _ in range(STATIC_REPS):
+            for _ in range(reps):
                 t0 = time.perf_counter()
                 exe.run(program, feed=feed, fetch_list=fetches, scope=scope)
                 walls[mode].append((time.perf_counter() - t0) * 1e3)
             spans[mode].append(_events_ms(
                 lambda: run_static(exe, program, feed, fetches, scope),
-                STATIC_REPS))
+                reps))
     out = {}
     for mode in walls:
         q1, med, q3 = np.percentile(walls[mode], [25, 50, 75])
@@ -2456,7 +2518,8 @@ def static_timings(exe, program, feed, fetches, scope, batch):
                                feed, fetches, batch)
 
 
-def profile_forward(exe, program, feed, fetches, scope, reps=3):
+def profile_forward(exe, program, feed, fetches, scope, reps=3,
+                    what="one forward"):
     """Device time of one Executor.run (under the current ``opt_passes``)
     by kind (the port's kernels, cuDNN convolutions, copies, the rest)
     from torch.profiler, and the busy share of the run's wall time
@@ -2491,7 +2554,7 @@ def profile_forward(exe, program, feed, fetches, scope, reps=3):
     busy = sum(kinds.values())
     from paddle_tpu_torch.core import flags
 
-    log(f"[profile] one forward (opt_passes="
+    log(f"[profile] {what} (opt_passes="
         f"{flags.get_flag('opt_passes')!r}): device busy {busy:.3f} ms of "
         f"{wall_ms:.3f} "
         f"ms wall (busy share {busy / wall_ms:.3f}); "
@@ -3320,6 +3383,589 @@ def int8_phase(seed):
     return counts["vgg16_bn_drop"], out
 
 
+# -- phase 12: rows 11-13 timed on inputs beyond L2 -----------------------------
+
+# A timed call reads inputs that the calls between its two reads of them
+# pushed out of the H100's 50 MB L2: at least COLD_BYTES of distinct input
+# sets, called in turn in one CUDA graph.
+COLD_BYTES = 4 * 50 * 2 ** 20
+COLD_BN_CASES = BN_CASES[:4]          # VGG-16's train-mode BN shapes, b128
+COLD_POOL_CASES = POOL_CASES[:4]      # VGG-16's four gated max pools, b128
+# Launches per VGG-16 forward at each of those shapes: the train-mode BNs
+# of blocks 2-5 (2, 3, 3, 3 convs; block 1's 64 channels and the fc's BN
+# are not gated) and one pool after each of those blocks.
+COLD_BN_LAUNCHES = (2, 3, 3, 3)
+COLD_POOL_LAUNCHES = (1, 1, 1, 1)
+
+
+def cold_ms(fn, make, nbytes, replays=3):
+    """(device ms a call, input sets) of ``fn(*make())`` on inputs that
+    are not in L2: ``n`` distinct sets of at least COLD_BYTES in all, each
+    read once a replay of a CUDA graph that calls ``fn`` on each in
+    turn."""
+    n = max(4, math.ceil(COLD_BYTES / nbytes))
+    sets = [make() for _ in range(n)]
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in sets:
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _events_ms(graph.replay, replays) / n
+    del graph, sets
+    return ms, n
+
+
+def cold_phase(seed):
+    """Rows 11, 12 and 13 at VGG-16's train-mode BN and pooling shapes,
+    fp32 and bf16: the warm time (20 calls on one input, ``time_ms``) and
+    the cold time (``cold_ms``) beside the bound, each one's share of it
+    and the library call's cold time; then each row's share over one
+    forward's launches at those shapes, against the bound and against
+    the larger of the bound and one launch's floor (a one-element fill in
+    a CUDA graph).  No share may exceed 1."""
+    from paddle_tpu_torch.ops.kernels import bn_act_train as bt
+    from paddle_tpu_torch.ops.kernels import pooling as pl
+
+    F = torch.nn.functional
+    one = torch.zeros(1, device=DEV)
+    floor = time_ms(lambda: one.zero_())
+    log(f"[cold] rows 11-13 on inputs beyond L2 (>= {COLD_BYTES >> 20} MB "
+        f"of distinct inputs between two reads of one) and warm (one "
+        f"input); one launch's floor {floor:.4f} ms")
+    gen = torch.Generator().manual_seed(seed + 12)
+    out = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            elt = torch.tensor([], dtype=dtype).element_size()
+            for (label, (rows, c)), w in zip(COLD_BN_CASES,
+                                             COLD_BN_LAUNCHES):
+                a = randn(gen, (c,), torch.float32, 0.2, 1.0)
+                b = randn(gen, (c,), torch.float32, 0.5)
+                ad, bd = a.to(dtype), b.to(dtype)
+                make = lambda: (randn(gen, (rows, c), dtype, 2.0, 0.5),)
+                for name, fn, lib, cost in (
+                        (bt.STATS_KERNEL, lambda x: bt.batch_stats(x),
+                         lambda x: torch.var_mean(x, dim=0), bt.stats_cost),
+                        (bt.SCALE_KERNEL,
+                         lambda x: bt.scale_act(x, a, b, "relu"),
+                         lambda x: torch.relu(torch.addcmul(bd, x, ad)),
+                         bt.scale_cost)):
+                    flops, nbytes = cost(rows, c, elt)
+                    out[(name, label, dtype)] = cold_case(
+                        name, label, dtype, fn, lib, make, rows * c * elt,
+                        bound(nbytes, flops, dtype), w)
+            for (label, (mode, n, h, w_, c, k, st, pd)), w in zip(
+                    COLD_POOL_CASES, COLD_POOL_LAUNCHES):
+                args = ((k, k), (st, st), (pd, pd))
+                make = lambda: (randn(gen, (n, h, w_, c), dtype),)
+                oh = (h + 2 * pd - k) // st + 1
+                ow = (w_ + 2 * pd - k) // st + 1
+                flops, nbytes = pl.pool_cost(n, oh, ow, c, k, k, elt, h, w_)
+                out[(pl.MAX_KERNEL, label, dtype)] = cold_case(
+                    pl.MAX_KERNEL, label, dtype,
+                    lambda x: pl.max_pool2d_nhwc(x, *args),
+                    lambda x: F.max_pool2d(x.permute(0, 3, 1, 2), k, st, pd),
+                    make, n * h * w_ * c * elt,
+                    bound(nbytes, flops, dtype), w)
+    by_row = {}
+    for (name, _, dtype), r in out.items():
+        by_row.setdefault((name, dtype), []).append(r)
+    summary = []
+    for (name, dtype), cases in by_row.items():
+        total = lambda key: sum(r["launches"] * r[key] for r in cases)
+        bnd = total("bound_ms")
+        floored = sum(r["launches"] * max(r["bound_ms"], floor)
+                      for r in cases)
+        s = dict(name=name, dtype=dtag(dtype), launch_floor_ms=floor,
+                 launches=sum(r["launches"] for r in cases),
+                 cold_ms=total("cold_ms"), bound_ms=bnd,
+                 library_cold_ms=total("library_cold_ms"),
+                 share=bnd / total("cold_ms"),
+                 floor_share=floored / total("cold_ms"))
+        log(f"  {name} {s['dtype']}, a VGG-16 forward's {s['launches']} "
+            f"launches: cold {s['cold_ms']:.4f} ms, bound {bnd:.4f} ms "
+            f"({s['share']:.2f} of it), with each launch at least the floor "
+            f"{floored:.4f} ms ({s['floor_share']:.2f}); library cold "
+            f"{s['library_cold_ms']:.4f} ms")
+        summary.append(s)
+    return out, summary
+
+
+def cold_case(name, label, dtype, fn, lib, make, in_bytes, bnd, launches):
+    x = make()
+    warm = time_ms(lambda: fn(*x))
+    cold, sets = cold_ms(fn, make, in_bytes)
+    lib_cold = cold_ms(lib, make, in_bytes)[0]
+    del x
+    r = dict(name=name, case=label, dtype=dtag(dtype), warm_ms=warm,
+             cold_ms=cold, library_cold_ms=lib_cold, bound_ms=bnd[0],
+             bound_by=bnd[1], warm_share=bnd[0] / warm,
+             cold_share=bnd[0] / cold, input_sets=sets, launches=launches)
+    log(f"  {name} {label} {dtag(dtype)}: cold {cold:.4f} ms ({sets} input "
+        f"sets), warm {warm:.4f} ms, library cold {lib_cold:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}): {r['cold_share']:.2f} of the bound "
+        f"cold, {r['warm_share']:.2f} warm")
+    check(r["cold_share"] <= 1.0, f"{name} {label} {dtag(dtype)}: cold time "
+          f"{cold:.4f} ms is no faster than its bound {bnd[0]:.4f} ms")
+    return r
+
+
+# -- phase 13: static-graph training and QAT into int8 ---------------------------
+
+# The book's image-classification programs at their published widths on
+# 3 x 32 x 32: vgg16_bn_drop (as ``vgg16_bn_drop``) and resnet_cifar10 at
+# depth 32 (widths 16 / 32 / 64), each ending in fc(10, softmax),
+# cross_entropy, mean, accuracy and Adam(1e-3).minimize.
+TRAIN_BOOK_BATCH = 128
+TRAIN_BOOK_BLOCKS = 4      # timed blocks, alternating pipeline on / off
+TRAIN_BOOK_REPS = 5        # steps a block
+RESNET_DEPTH = 32
+QAT_STEPS = 20
+# Convs per training program that fuse_conv_bn_act rewrites (every conv:
+# each is followed by a batch_norm), pinned for VGG on the CPU by
+# tests/test_torch_static_train.py.
+TRAIN_FUSED = {"vgg16_bn_drop": 13, "resnet32": 33}
+# The first step (dropouts at 0) from one startup state and batch, on the
+# card and on the CPU, each held against the witness: the port's CPU
+# Executor in float64 (``float64_executor``).  Errors: the loss relative
+# to the witness's, each gradient's largest error relative to the
+# witness's largest gradient.  The card runs cuDNN's own algorithm choice
+# (what training uses), then cuDNN deterministic, then cuDNN off (ATen's
+# im2col and fp32 cuBLAS GEMMs); TF32 is off throughout.  At b128 the
+# gradients are ill-conditioned: the witness itself, on the input changed
+# in its last bit (each pixel times 1 +- 2^-24, rounded to fp32), moves
+# them by a few 1e-3 of the largest, and every fp32 run, card or CPU,
+# lands about as far from it (1.7e-3 - 3.8e-3 on the H100 and its host,
+# PERF.md).  A step on another batch reads above 1.
+TOL_TRAIN_LOSS_REL = 1e-5
+TOL_TRAIN_GRAD_REL = 1e-2
+# A real fault must read far above the gradient limit: the card's first
+# step on another batch (a feed bound to the wrong data) against the
+# witness must exceed FAULT_MARGIN times it.
+FAULT_MARGIN = 10
+# QAT-frozen VGG-16: launches of rows 15 / 14 / 13 per int8 forward, the
+# PTQ'd program's (INT8_LAUNCHES, the [int8] phase); the float test program
+# under DEFAULT_PIPELINE: rows 10 / 13.
+QAT_LAUNCHES = {"int8_conv2d_dequant": 10, "int8_matmul_dequant": 2,
+                "max_pool2d": 4}
+FLOAT_TEST_LAUNCHES = {"conv2d_bn_act": 10, "max_pool2d": 4}
+
+
+def book_resnet_body(L, nets, img, rate=1.0):
+    """resnet_cifar10 (test_image_classification.py) at RESNET_DEPTH:
+    conv-BN layers, basic blocks with projection shortcuts, 8 x 8 avg
+    pool."""
+    def conv_bn(x, ch, k, stride, pad, act="relu", bias_attr=False):
+        x = L.conv2d(x, ch, k, stride=stride, padding=pad, act=None,
+                     bias_attr=bias_attr)
+        return L.batch_norm(x, act=act)
+
+    def basicblock(x, ch_in, ch_out, stride):
+        tmp = conv_bn(x, ch_out, 3, stride, 1)
+        tmp = conv_bn(tmp, ch_out, 3, 1, 1, act=None, bias_attr=None)
+        short = (conv_bn(x, ch_out, 1, stride, 0, None) if ch_in != ch_out
+                 else x)
+        return L.elementwise_add(tmp, short, act="relu")
+
+    def layer_warp(x, ch_in, ch_out, count, stride):
+        x = basicblock(x, ch_in, ch_out, stride)
+        for _ in range(1, count):
+            x = basicblock(x, ch_out, ch_out, 1)
+        return x
+
+    n = (RESNET_DEPTH - 2) // 6
+    h = conv_bn(img, 16, 3, 1, 1)
+    h = layer_warp(h, 16, 16, n, 1)
+    h = layer_warp(h, 16, 32, n, 2)
+    h = layer_warp(h, 32, 64, n, 2)
+    return L.pool2d(h, 8, pool_type="avg", pool_stride=1)
+
+
+BOOK_BODIES = {"vgg16_bn_drop": vgg16_bn_drop_body,
+               "resnet32": book_resnet_body}
+
+
+def book_train_program(static, L, nets, seed, name, rate=1.0):
+    """(main, startup, test program cloned before minimize, fetch names:
+    cost, accuracy, logits, softmax)."""
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with static.program_guard(main, startup):
+        img = L.data("img", [3, 32, 32])
+        label = L.data("label", [1], dtype="int64")
+        out = L.fc(BOOK_BODIES[name](L, nets, img, rate), 10, act="softmax")
+        cost = L.mean(L.cross_entropy(out, label))
+        acc = L.accuracy(out, label)
+        test = main.clone(for_test=True)
+        static.optimizer.Adam(learning_rate=1e-3).minimize(cost)
+    logits = [op for op in main.global_block().ops
+              if op.type == "softmax"][-1].inputs["X"][0]
+    return main, startup, test, [cost.name, acc.name, logits, out.name]
+
+
+def book_batch(rng, batch):
+    """A synthetic CIFAR batch (3 x 32 x 32 normal pixels, labels 0-9)."""
+    return {"img": rng.standard_normal((batch, 3, 32, 32)).astype(np.float32),
+            "label": rng.integers(0, 10, (batch, 1)).astype(np.int64)}
+
+
+def grads_of(program):
+    region, = [op for op in program.global_block().ops
+               if op.type == "backward_region"]
+    return region.outputs["Grads"]
+
+
+@contextlib.contextmanager
+def float64_executor():
+    """The port's Executor computing in float64, as a witness: values of
+    either float width resolve to float64 (feeds, scope reads) and
+    ``Tensor.float()`` leaves a float64 tensor as it is (the lowerings' fp32
+    statistics and the region's summed loss)."""
+    from paddle_tpu_torch.core import dtype as D
+
+    saved_map, saved_float = dict(D._X32), torch.Tensor.float
+    own = torch.Tensor.__dict__.get("float")
+    D._X32.update({torch.float32: torch.float64,
+                   torch.float64: torch.float64})
+    torch.Tensor.float = lambda t, *a, **k: (
+        t if t.dtype == torch.float64 else saved_float(t, *a, **k))
+    try:
+        yield
+    finally:
+        D._X32.clear()
+        D._X32.update(saved_map)
+        if own is None:
+            del torch.Tensor.float
+        else:
+            torch.Tensor.float = own
+
+
+def cudnn_flags(enabled=True, deterministic=False):
+    """cuDNN on or off, deterministic or not, with TF32 off as ``main()``
+    sets it and no autotuning."""
+    return torch.backends.cudnn.flags(enabled=enabled, benchmark=False,
+                                      deterministic=deterministic,
+                                      allow_tf32=False)
+
+
+def step_errors(out, ref, names):
+    """(loss rel err, largest gradient error / the reference's largest
+    gradient, the four worst gradients) of one first step against
+    another."""
+    top = max(float(np.abs(r).max()) for r in ref[1:])
+    errs = sorted(((float(np.abs(g.astype(np.float64) - r).max()), n,
+                    float(np.abs(r).max()))
+                   for n, g, r in zip(names, out[1:], ref[1:])),
+                  reverse=True)
+    loss = abs(float(out[0]) - float(ref[0])) / abs(float(ref[0]))
+    return loss, errs[0][0] / top, errs[:4]
+
+
+def train_cpu_check(name, seed, batch):
+    """The first training step of the program with its dropouts at 0 on
+    the card (cuDNN's own algorithms, deterministic, off) and on the CPU in
+    fp32, each against the float64 witness, from one startup state and
+    batch: the loss and every parameter's gradient.  Beside them, the
+    witness on the input changed in its last bit (the gradients'
+    conditioning) and the card on another batch (a fault)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import nets
+
+    main, startup, _, fetches = book_train_program(static, L, nets, seed,
+                                                   name, rate=0.0)
+    grads = grads_of(main)
+    scope = static.Scope()
+    static.Executor(DEV).run(startup, scope=scope)
+    state = {k: scope.find_var(k).cpu().clone() for k in scope.keys()}
+    feed = book_batch(np.random.default_rng(seed + 3), batch)
+    ulp = np.random.default_rng(seed + 7).choice([-1.0, 1.0],
+                                                 feed["img"].shape)
+    moved = dict(feed, img=(feed["img"] * (1 + 2.0 ** -24 * ulp))
+                 .astype(np.float32))
+    other = book_batch(np.random.default_rng(seed + 6), batch)
+
+    def first_step(place, ctx, feed=feed):
+        sc = static.Scope()
+        for k, v in state.items():
+            sc.set(k, v.to(place))
+        with ctx:
+            t0 = time.perf_counter()
+            out = static.Executor(place).run(
+                main, feed=feed, scope=sc, fetch_list=[fetches[0]] + grads)
+        return out, time.perf_counter() - t0
+
+    runs = {"card": (DEV, cudnn_flags()),
+            "card cuDNN deterministic": (DEV, cudnn_flags(deterministic=True)),
+            "card cuDNN off": (DEV, cudnn_flags(enabled=False)),
+            "CPU fp32": ("cpu", contextlib.nullcontext()),
+            "witness, input's last bit changed": ("cpu", float64_executor(),
+                                                  moved),
+            "card, another batch": (DEV, cudnn_flags(), other)}
+    with opt_passes("default"):
+        witness, w_s = first_step("cpu", float64_executor())
+        outs = {k: first_step(*v) for k, v in runs.items()}
+    check(all(g.dtype == np.float64 for g in witness),
+          f"{name}: the witness's loss and {len(grads)} gradients are "
+          f"float64 ({w_s:.1f} s)")
+    out = dict(gradients=len(grads), witness_s=w_s)
+    for run, (got, secs) in outs.items():
+        loss, grad, worst = step_errors(got, witness, grads)
+        log(f"[static train] {name} b{batch} step 1, {run} vs the float64 "
+            f"witness ({secs:.2f} s): loss rel err {loss:.3g}, gradients "
+            f"{grad:.3g} of the largest; worst: " + ", ".join(
+                f"{n} {e:.3g} (its largest {m:.3g})" for e, n, m in worst))
+        out[run] = dict(loss_rel_err=loss, grad_err_of_largest=grad,
+                        seconds=secs,
+                        worst=[dict(name=n, err=e, largest=m)
+                               for e, n, m in worst])
+    card_cpu = step_errors(outs["card"][0], outs["CPU fp32"][0], grads)
+    out["card vs CPU fp32"] = dict(loss_rel_err=card_cpu[0],
+                                   grad_err_of_largest=card_cpu[1])
+    log(f"[static train] {name}: card vs CPU fp32: loss {card_cpu[0]:.3g}, "
+        f"gradients {card_cpu[1]:.3g} of the largest")
+    for run in ("card", "card cuDNN deterministic", "card cuDNN off",
+                "CPU fp32"):
+        r = out[run]
+        check(np.isfinite(outs[run][0][0])
+              and r["loss_rel_err"] <= TOL_TRAIN_LOSS_REL
+              and r["grad_err_of_largest"] <= TOL_TRAIN_GRAD_REL,
+              f"{name} b{batch} step 1, {run} vs the float64 witness: loss "
+              f"rel err {r['loss_rel_err']:.3g} <= {TOL_TRAIN_LOSS_REL}, "
+              f"{len(grads)} gradients {r['grad_err_of_largest']:.3g} of "
+              f"the largest <= {TOL_TRAIN_GRAD_REL}")
+    fault = out["card, another batch"]["grad_err_of_largest"]
+    check(fault > FAULT_MARGIN * TOL_TRAIN_GRAD_REL,
+          f"{name}: the step on another batch reads {fault:.3g} of the "
+          f"largest gradient > {FAULT_MARGIN} x {TOL_TRAIN_GRAD_REL}")
+    return out
+
+
+def train_model(name, seed):
+    """One book program trained on the card in fp32 (TF32 off): the
+    pipeline's rewrite (fused convs, no rollback), no kernel launch in a
+    step, the first step against the CPU, the first step's loss repeated
+    by a fresh Executor at the book's dropout rates, finite losses, step
+    ms and images/s with the pipeline on and off (alternating blocks), and
+    a profile of one step."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import nets
+    from paddle_tpu_torch.utils import monitor
+
+    batch = TRAIN_BOOK_BATCH
+    first_step = train_cpu_check(name, seed, batch)
+    main, startup, _, fetches = book_train_program(static, L, nets, seed,
+                                                   name)
+    scope0 = static.Scope()
+    static.Executor(DEV).run(startup, scope=scope0)
+    rng = np.random.default_rng(seed + 4)
+    feed = book_batch(rng, batch)
+    rollbacks = monitor.counter("passes.rollbacks")
+    rollbacks0 = rollbacks.value()
+    feeds = ["img", "label"]
+    with opt_passes("default"):
+        first = []
+        for _ in range(2):      # a fresh Executor: step 0's dropout masks
+            with cudnn_flags(deterministic=True):
+                first.append(static.Executor(DEV).run(
+                    main, feed=feed, fetch_list=fetches[:1],
+                    scope=copy_scope(static, scope0))[0])
+        check(first[0] == first[1], f"{name}: the first step's loss "
+              f"{float(first[0]):.6f} repeats at the book's dropout rates")
+        exe = static.Executor(DEV)
+        scope = copy_scope(static, scope0)
+        ops = exe.executed_program(main, feeds, fetches[:1]) \
+            .global_block().ops
+        fused = [op for op in ops if op.type == "fused_conv2d_bn_act"]
+        n_conv = sum(op.type == "conv2d" for op in main.global_block().ops)
+        check(len(fused) == TRAIN_FUSED[name] == n_conv
+              and not any(op.attrs["is_test"] for op in fused),
+              f"{name}: fuse_conv_bn_act fires on {len(fused)} of the "
+              f"training program's {n_conv} convs (want "
+              f"{TRAIN_FUSED[name]}), train-mode")
+        losses = [float(exe.run(main, feed=feed, fetch_list=fetches[:1],
+                                scope=scope)[0])]
+        torch.cuda.synchronize()
+        config.reset_counts()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=fetches[:1],
+                                    scope=scope)[0]))
+        torch.cuda.synchronize()
+        launched = config.launch_counts()
+        check(not launched, f"{name}: no port kernel launches in a training "
+              f"step ({launched})")
+        prof = profile_forward(exe, main, feed, fetches[:1], scope, reps=2,
+                               what="training step")
+    rolled = rollbacks.value() - rollbacks0
+    check(rolled == 0, f"{name}: {rolled} pipeline rollbacks")
+    scope_off = copy_scope(static, scope)
+    times = interleaved_timings(
+        exe, {"on": (main, scope, "default"), "off": (main, scope_off, "")},
+        feed, fetches[:1], batch, blocks=TRAIN_BOOK_BLOCKS,
+        reps=TRAIN_BOOK_REPS)
+    for sc in (scope, scope_off):
+        losses.append(float(exe.run(main, feed=feed, fetch_list=fetches[:1],
+                                    scope=sc)[0]))
+    check(np.isfinite(losses).all(), f"{name}: finite losses {losses}")
+    on, off = times["on"], times["off"]
+    log(f"[static train] {name} b{batch} fp32: step {on['wall_ms']:.2f} ms "
+        f"(IQR {on['wall_iqr_ms']:.2f}) = {on['images_per_s']:.1f} "
+        f"images/s with the pipeline, {off['wall_ms']:.2f} ms = "
+        f"{off['images_per_s']:.1f} images/s without; device busy "
+        f"{prof['busy_ms']:.2f} ms of {prof['wall_ms']:.2f} ms a step "
+        f"(share {prof['busy_share']:.3f}); losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    return dict(batch=batch, dtype="float32", fused_convs=len(fused),
+                rollbacks=rolled, launches=launched, first_step=first_step,
+                losses=losses, pipeline_on=dict(on, profile=prof),
+                pipeline_off=off)
+
+
+def qat_model(seed):
+    """vgg16_bn_drop through QuantizationTransformPass (training program
+    and its test program), QAT_STEPS Adam steps, QuantizationFreezePass on
+    the test program and QUANT_INFER_PIPELINE: launches of rows 15 / 14 /
+    13 per forward, the program against its plain versions and against the
+    simulate route, the int8 error against the float test program (its
+    trained float weights) under DEFAULT_PIPELINE with rows 10 / 13, and
+    images/s of both."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.slim import (QuantizationFreezePass,
+                                       QuantizationTransformPass)
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import nets
+    from paddle_tpu_torch.static import passes as P
+
+    name, batch = "vgg16_bn_drop", TRAIN_BOOK_BATCH
+    main, startup, test, fetches = book_train_program(static, L, nets, seed,
+                                                      name)
+    float_test = test.clone()
+    QuantizationTransformPass().apply(main, startup)
+    QuantizationTransformPass().apply(test)
+    n_fake = sum(op.type.startswith("fake_")
+                 for op in main.global_block().ops)
+    scope = static.Scope()
+    exe = static.Executor(DEV)
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(seed + 5)
+    batches = [book_batch(rng, batch) for _ in range(4)]
+    losses, walls = [], []
+    with opt_passes("default"):
+        for i in range(QAT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=batches[i % 4],
+                                        fetch_list=fetches[:1],
+                                        scope=scope)[0]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+    check(np.isfinite(losses).all(), f"qat {name}: {QAT_STEPS} finite "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    states = [n for n in scope.keys() if n.endswith("@quant_moving_scale")]
+    check(len(states) == 16 and all(float(scope.find_var(n)) > 0
+                                    for n in states),
+          f"qat {name}: {len(states)} activation-scale states trained")
+    qat_ms = float(np.median(walls[2:]))
+    float_scope = copy_scope(static, scope)
+    QuantizationFreezePass(scope).apply(test)
+    logit_fetches = fetches[2:]
+    rewritten, report = P.PassManager(P.QUANT_INFER_PIPELINE).apply(
+        test, {"img"}, logit_fetches)
+    types = [op.type for op in rewritten.global_block().ops]
+    quant_ops = {t: types.count(t) for t in ("quant_conv2d", "quant_mul")}
+    log(f"[qat] {name} b{batch}: {n_fake} fake-quant ops, {QAT_STEPS} QAT "
+        f"steps ({qat_ms:.2f} ms a step, {batch / qat_ms * 1e3:.1f} "
+        f"images/s), losses {losses[0]:.4f} -> {losses[-1]:.4f}; frozen: "
+        f"{report.to_text()}; {quant_ops}")
+    feed = {"img": batches[0]["img"]}
+    with opt_passes(""):
+        run_static(exe, rewritten, feed, logit_fetches, scope)
+        torch.cuda.synchronize()
+        config.reset_counts()
+        outs = run_static(exe, rewritten, feed, logit_fetches, scope)
+        torch.cuda.synchronize()
+        counts = config.launch_counts()
+        for k, n in QAT_LAUNCHES.items():
+            check(counts.get(k, 0) == n, f"qat {name}: {counts.get(k, 0)} "
+                  f"{k} launches per int8 forward (want {n})")
+        check(all(torch.isfinite(t).all() for t in outs),
+              f"qat {name}: finite int8 fetches of shapes "
+              f"{[tuple(t.shape) for t in outs]}")
+        with int8_plain(), vision_plain():
+            plain_outs = run_static(exe, rewritten, feed, logit_fetches,
+                                    scope)
+        with int8_flag(False):
+            sim_outs = run_static(exe, rewritten, feed, logit_fetches, scope)
+        n_ops, n_kernel, op_err = int8_ops_against_simulate(
+            exe, rewritten, feed, logit_fetches, scope)
+        check(n_kernel == 12 and op_err <= TOL_INT8_OP_REL,
+              f"qat {name}: {n_ops} quant ops ({n_kernel} on the kernels) "
+              f"against the simulate route on the same inputs: rel err "
+              f"{op_err:.3g} <= {TOL_INT8_OP_REL}")
+        prof = profile_forward(exe, rewritten, feed, logit_fetches, scope)
+    with opt_passes("default"):
+        config.reset_counts()
+        float_outs = run_static(exe, float_test, feed, logit_fetches,
+                                float_scope)
+        torch.cuda.synchronize()
+        fcounts = config.launch_counts()
+    for k, n in FLOAT_TEST_LAUNCHES.items():
+        check(fcounts.get(k, 0) == n, f"qat {name}: float test program "
+              f"under DEFAULT_PIPELINE: {fcounts.get(k, 0)} {k} launches "
+              f"(want {n})")
+    errs = {}
+    for f, got, ref, sim, flt in zip(logit_fetches, outs, plain_outs,
+                                     sim_outs, float_outs):
+        # the simulate route is held op by op (int8_ops_against_simulate,
+        # as the [int8] phase holds it); through the program a last-bit
+        # difference that moves an activation across a rounding boundary
+        # of the next quantization flips a level, so the whole program's
+        # difference is printed, not bounded
+        e_plain, e_sim = rel_err(got, ref), rel_err(got, sim)
+        check(e_plain <= TOL_INT8_PLAIN_REL, f"qat {name}: fetch {f} "
+              f"kernels vs plain versions rel err {e_plain:.3g} <= "
+              f"{TOL_INT8_PLAIN_REL} (vs the simulate route {e_sim:.3g})")
+        errs[f] = dict(vs_plain=e_plain, vs_simulate=e_sim,
+                       int8_rel_err=rel_err(got, flt))
+    times = interleaved_timings(
+        exe, {"int8": (rewritten, scope, ""),
+              "fp32": (float_test, float_scope, "default")},
+        feed, logit_fetches, batch)
+    q, f = times["int8"], times["fp32"]
+    log(f"[qat] {name}: int8 {q['images_per_s']:.1f} images/s (median "
+        f"{q['wall_ms']:.3f} ms a run), fp32 test program with "
+        f"DEFAULT_PIPELINE {f['images_per_s']:.1f} images/s "
+        f"({f['wall_ms']:.3f} ms): {q['images_per_s'] / f['images_per_s']:.3f}"
+        f"x; int8 rel err vs the float program "
+        f"{errs[logit_fetches[0]]['int8_rel_err']:.4g}")
+    return counts, fcounts, dict(
+        batch=batch, fake_quant_ops=n_fake, qat_steps=QAT_STEPS,
+        qat_step_ms=qat_ms, qat_images_per_s=batch / qat_ms * 1e3,
+        losses=[losses[0], losses[-1]], quant_ops=quant_ops,
+        ops_before=report.ops_before, ops_after=report.ops_after,
+        launches=counts, float_launches=fcounts, errors=errs,
+        op_vs_simulate_rel_err=op_err, int8=dict(q, profile=prof), fp32=f,
+        vs_fp32=q["images_per_s"] / f["images_per_s"])
+
+
+def static_train_phase(seed):
+    """Static-graph training of the book's VGG-16 and ResNet-32, then QAT
+    of VGG-16 into the int8 kernels.  Returns (launches of the QAT-frozen
+    forward, of the float test forward, the phase's JSON)."""
+    log("[static train] append_backward, Adam, fp32 (TF32 off), b"
+        f"{TRAIN_BOOK_BATCH}")
+    out = {}
+    for name in ("vgg16_bn_drop", "resnet32"):
+        out[name] = train_model(name, seed)
+        torch.cuda.empty_cache()
+    counts, fcounts, out["qat_vgg16_bn_drop"] = qat_model(seed)
+    return counts, fcounts, out
+
+
 def new_entries(bn_cases, train_counts, int8_cases, int8_counts):
     """The kernels-line entries of rows 11, 12, 14 and 15: fp32 at the
     first main-path case, bf16 beside it, every case listed; launches per
@@ -3462,6 +4108,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     bn_cases, int8_cases = int8_kernel_phase(gen, vision)
     int8_counts, int8_out = int8_phase(args.seed)
+    torch.cuda.empty_cache()
+    cold, cold_rows = cold_phase(args.seed)
+    torch.cuda.empty_cache()
+    qat_counts, float_counts, static_train = static_train_phase(args.seed)
+    torch.cuda.empty_cache()
 
     kernels = []
     for k in fap.KERNELS + ln.KERNELS:
@@ -3565,6 +4216,28 @@ def main(argv=None):
     kernels += new_entries(bn_cases, train_counts, int8_cases, int8_counts)
     check(len(kernels) == 15, f"the kernels line lists {len(kernels)} "
           f"kernels, one for each of the 15 TPU kernels")
+    # this slice's path: the QAT-frozen VGG-16's int8 forward (rows 15, 14
+    # and 13) and its float test program under DEFAULT_PIPELINE (rows 10
+    # and 13), each counted from 0 around one forward
+    path = {cf.KERNEL: float_counts.get(cf.KERNEL, 0),
+            i8.CONV_KERNEL: qat_counts.get(i8.CONV_KERNEL, 0),
+            i8.MATMUL_KERNEL: qat_counts.get(i8.MATMUL_KERNEL, 0),
+            "max_pool2d": qat_counts.get("max_pool2d", 0)}
+    for entry in kernels:
+        if entry["name"] in path:
+            entry["static_train_launches"] = path[entry["name"]]
+            entry["static_train_launches_per"] = (
+                "float test forward of the trained vgg16_bn_drop "
+                "([static train], b128)" if entry["name"] == cf.KERNEL else
+                "QAT-frozen vgg16_bn_drop int8 forward ([static train], "
+                "b128)")
+            check(path[entry["name"]] > 0, f"{entry['name']}: "
+                  f"{path[entry['name']]} launches on the static-train path")
+        cold_cases = [r for r in cold.values() if r["name"] == entry["name"]]
+        if cold_cases:
+            entry["cold_cases"] = cold_cases
+            entry["cold_forward"] = [r for r in cold_rows
+                                     if r["name"] == entry["name"]]
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"bhsd": dict(bhsd_model, kernel_a_max_abs_err=cross)}),
           flush=True)
@@ -3572,6 +4245,9 @@ def main(argv=None):
     print(json.dumps({"static": static_out}), flush=True)
     print(json.dumps({"vision_train": vision_train}), flush=True)
     print(json.dumps({"int8": int8_out}), flush=True)
+    print(json.dumps({"cold": {"cases": list(cold.values()),
+                               "forward": cold_rows}}), flush=True)
+    print(json.dumps({"static_train": static_train}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

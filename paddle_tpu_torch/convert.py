@@ -82,7 +82,10 @@ def paged_toy_lm_from_jax(np_weights: Dict[str, np.ndarray], vocab: int,
 def static_state_from_jax(jax_program, jax_state: Dict[str, np.ndarray],
                           torch_program, device=None):
     """The port's ``static.Scope`` holding a JAX static program's
-    persistables.
+    persistables: parameters and BN statistics, and in a training program
+    the learning-rate variable, the optimizer slots (moments, beta powers,
+    accumulators) and the QAT activation-scale state, so a JAX scope at
+    step k continues in the port as in JAX.
 
     ``jax_state`` is the JAX scope's ``{name: np.ndarray}``.  The two
     packages' ``unique_name`` counters differ, so names are not matched:

@@ -58,16 +58,33 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, std=1.0,
+    """ref nn/layer/common.py Embedding, with the reference's parameter
+    order.  ``padding_idx`` zeroes that id's output row.  The port's
+    initialisation is N(0, ``std``) from ``generator`` (keyword-only);
+    ``sparse=True`` and a ``weight_attr`` are not ported and raise, and
+    ``name`` is accepted (a module has no parameter names of its own)."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, std=1.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if sparse:
+            raise NotImplementedError(
+                "Embedding(sparse=True) is not ported to paddle_tpu_torch "
+                "yet")
+        if weight_attr is not None:
+            raise NotImplementedError(
+                "Embedding(weight_attr=...) is not ported to "
+                "paddle_tpu_torch yet; pass std= and generator=")
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
+        self.padding_idx = padding_idx
+        self.sparse = sparse
         self.weight = nn.Parameter(
             normal((num_embeddings, embedding_dim), std, generator))
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"

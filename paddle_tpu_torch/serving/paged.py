@@ -339,7 +339,9 @@ class PagedDecoder:
 
     def __init__(self, model: PagedToyLM, cache: PagedKVCache,
                  max_seqs: int, max_blocks_per_seq: int,
-                 prefill_chunk: int = 8, tenant: str = "default"):
+                 prefill_chunk: int = 8, donate: Optional[bool] = None,
+                 tenant: str = "default"):
+        del donate  # state donation is a JAX notion: accepted, ignored
         if model is not cache.model:
             raise ValueError("decoder model must be the cache's model")
         if max_seqs < 1:

@@ -12,14 +12,28 @@ device, so the kernel wrappers launch from the lowerings.
 Per ``(program, version, feed names, fetch names, opt_passes value)`` the
 Executor keeps the program it runs: the caller's, or the pass pipeline's
 rewrite of it (static/passes.py) when ``opt_passes`` is on.  State is every
-persistable variable (parameters, BN statistics): read from the scope
-before the walk, written back after it.  Random ops draw from a CPU
-``torch.Generator`` seeded from the program's ``random_seed``, the run's
-step and the op's salt, so a rewrite that keeps salts keeps draws.
+persistable variable (parameters, BN statistics, optimizer slots): read
+from the scope before the walk, written back after it, detached.  Random
+ops (and ``dpsgd``'s noise) draw from a CPU ``torch.Generator`` seeded from
+the program's ``random_seed``, the run's step and the op's salt, so a
+rewrite that keeps salts keeps draws.
+
+``backward_region`` (static/backward.py) is torch autograd over the walk
+itself: the JAX package replays the ops before the region as a pure
+function of the differentiated values and takes ``jax.grad``; the port
+runs those ops with autograd on, the tensors bound to the region's
+``Params`` made gradient leaves where they are first bound (scope reads
+for parameters, feeds for data variables, an op's output as produced for
+an intermediate, whose gradient is then taken through its consumers with
+its producer held fixed, as the JAX replay's frozen injection does).  The
+region is ``torch.autograd.grad`` of ``sum(fp32(loss))`` over its
+``Loss`` names.  Every tensor is detached after the last region, so no
+graph outlives it, and the ops after it (the optimizer updates) run
+without autograd.
 
 Not ported yet (ROADMAP): tracing into one graph, state donation, sharding
-plans, the persistent compile cache, the memory and sharding checkers,
-control-flow ops and ``backward_region``.
+plans, the persistent compile cache, the memory and sharding checkers and
+control-flow ops.
 """
 from __future__ import annotations
 
@@ -44,6 +58,10 @@ __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "to_numpy"]
 
 # Odd 64-bit constants mixing (seed, step, salt) into a random op's seed.
 _MIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+
+# Optimizer updates that draw (not RANDOM_OPS in either package's passes:
+# they write state, so no pass folds, merges or drops them).
+_DRAWING_UPDATES = frozenset({"dpsgd"})
 
 
 class Scope:
@@ -135,6 +153,26 @@ def _op_salt(block_idx: int, op_idx: int) -> int:
     return block_idx * 65536 + op_idx
 
 
+def _grad_leaf(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a tensor the region can differentiate with respect to: a
+    fresh leaf unless it already carries gradient."""
+    return t if t.requires_grad else t.detach().requires_grad_()
+
+
+def _backward_region(op, env, leaves, retain_graph: bool) -> None:
+    """``Grads`` = d sum(fp32(loss)) / d ``Params`` (a value the loss does
+    not reach gets zeros, as under ``jax.grad``)."""
+    losses = [env[n] for n in op.inputs["Loss"]]
+    wrt = [leaves[n] for n in op.inputs["Params"]]
+    total = sum(t.float().sum() for t in losses)
+    grads = [None] * len(wrt)
+    if total.requires_grad:
+        grads = torch.autograd.grad(total, wrt, retain_graph=retain_graph,
+                                    allow_unused=True)
+    for name, g, p in zip(op.outputs["Grads"], grads, wrt):
+        env[name] = torch.zeros_like(p) if g is None else g
+
+
 def _op_generator(seed: int, step: int, salt: int) -> torch.Generator:
     mixed = (seed * _MIX[0] + step * _MIX[1] + salt * _MIX[2]) \
         & 0x7FFFFFFFFFFFFFFF
@@ -142,8 +180,8 @@ def _op_generator(seed: int, step: int, salt: int) -> torch.Generator:
 
 
 def _run_op(op, env, seed, step, salt):
-    """Execute one op's lowering on the tensors in ``env``; a random op
-    under a generator of its own."""
+    """Execute one op's lowering on the tensors in ``env``; an op that
+    draws under a generator of its own."""
     from .passes import RANDOM_OPS
 
     lowering = get_lowering(op.type)
@@ -154,7 +192,7 @@ def _run_op(op, env, seed, step, salt):
         raise _errors.PreconditionNotMetError(
             f"op {op.type!r} reads {e.args[0]!r}, which no earlier op "
             "produced and the feed and scope do not hold") from None
-    if op.type in RANDOM_OPS:
+    if op.type in RANDOM_OPS or op.type in _DRAWING_UPDATES:
         with _random.rng_scope(_op_generator(seed, step, salt)):
             outs = lowering(ins, op.attrs, op)
     else:
@@ -178,13 +216,20 @@ def _program_token(program) -> int:
 
 
 class _Entry:
-    __slots__ = ("program", "passes", "state_names", "needs_value")
+    __slots__ = ("program", "passes", "state_names", "needs_value",
+                 "last_region", "wrt")
 
     def __init__(self, program, passes, state_names, needs_value):
         self.program = program
         self.passes = passes
         self.state_names = state_names
         self.needs_value = needs_value
+        ops = program.global_block().ops
+        regions = [i for i, op in enumerate(ops)
+                   if op.type == "backward_region"]
+        # ops up to the last region run with autograd on
+        self.last_region = regions[-1] if regions else -1
+        self.wrt = {n for i in regions for n in ops[i].inputs["Params"]}
 
 
 class Executor:
@@ -231,20 +276,39 @@ class Executor:
             env[k] = self._tensor(v, block.var(k).dtype
                                   if block.has_var(k) else None)
 
+        # gradient leaves of the regions: scope reads and feeds here,
+        # intermediates as their ops produce them
+        leaves = {n: _grad_leaf(env[n]) for n in entry.wrt if n in env}
+        env.update(leaves)
         run_program = entry.program
         seed = run_program.random_seed or _random.draw_seed()
         step = self._step
         self._step += 1
-        with torch.no_grad(), _ops.device_scope(self.place):
-            for idx, op in enumerate(run_program.global_block().ops):
-                salt = op.rng_salt if op.rng_salt is not None \
-                    else _op_salt(0, idx)
-                _run_op(op, env, seed, step, salt)
+        ops = run_program.global_block().ops
+        last = entry.last_region
+        with _ops.device_scope(self.place):
+            with torch.enable_grad():
+                for idx in range(last + 1):
+                    op = ops[idx]
+                    if op.type == "backward_region":
+                        _backward_region(op, env, leaves, idx < last)
+                        continue
+                    self._run(op, idx, env, seed, step)
+                    for n in op.output_names():
+                        if n in entry.wrt and n not in leaves:
+                            env[n] = leaves[n] = _grad_leaf(env[n])
+            if last >= 0:
+                for k, v in env.items():
+                    if isinstance(v, torch.Tensor) and v.requires_grad:
+                        env[k] = v.detach()
+            with torch.no_grad():
+                for idx in range(last + 1, len(ops)):
+                    self._run(ops[idx], idx, env, seed, step)
         for n in entry.state_names:
             if n in env:
-                scope.set(n, env[n])
+                scope.set(n, env[n].detach())
         try:
-            fetches = [env[n] for n in fetch_names]
+            fetches = [env[n].detach() for n in fetch_names]
         except KeyError as e:
             raise KeyError(f"fetch {e.args[0]!r} is neither produced by the "
                            "program nor fed") from None
@@ -265,6 +329,11 @@ class Executor:
         self._cache.clear()
 
     # -- internals -----------------------------------------------------------
+    @staticmethod
+    def _run(op, idx, env, seed, step):
+        salt = op.rng_salt if op.rng_salt is not None else _op_salt(0, idx)
+        _run_op(op, env, seed, step, salt)
+
     def _entry(self, program, feed, fetch_names) -> _Entry:
         flag = _flags.get_flag("opt_passes")
         key = (_program_token(program), program._version,

@@ -3,9 +3,9 @@
 
 Reference parity: python/paddle/fluid/layers/nn.py (functions appending
 OpDescs through ``LayerHelper.append_op``).  The port carries the subset
-that builds the vision inference programs: data, fc, conv2d, pool2d,
-batch_norm, dropout, the activations, softmax, elementwise_add and
-flatten.  Each function appends the same op types with the same attrs as
+that builds the vision programs and trains them: data, fc, conv2d,
+pool2d, batch_norm, dropout, the activations, softmax, the elementwise
+ops, matmul, the reductions, flatten, and the losses and accuracy.  Each function appends the same op types with the same attrs as
 its JAX counterpart, so a program built with either package has the same
 op sequence.
 """
@@ -30,7 +30,10 @@ __all__ = [
     "data", "fc", "conv2d", "pool2d", "batch_norm", "dropout", "relu",
     "sigmoid", "tanh", "gelu", "relu6", "silu", "swish", "leaky_relu", "elu",
     "hard_swish", "softplus", "mish", "softmax", "elementwise_add",
-    "flatten", "create_parameter",
+    "elementwise_sub", "elementwise_mul", "square", "matmul", "mean",
+    "reduce_sum", "reduce_mean", "flatten", "create_parameter",
+    "square_error_cost", "cross_entropy", "softmax_with_cross_entropy",
+    "accuracy",
 ]
 
 
@@ -305,16 +308,6 @@ def mish(x):
     return _unary("mish", x)
 
 
-
-
-
-
-
-
-
-
-
-
 def leaky_relu(x, alpha=0.02):
     return _unary_attr("leaky_relu", x, alpha=alpha)
 
@@ -351,26 +344,49 @@ def elementwise_add(x, y, axis=-1, act=None):
     return _apply_act(_elementwise("elementwise_add", x, y, axis), act)
 
 
+def elementwise_sub(x, y, axis=-1):
+    return _elementwise("elementwise_sub", x, y, axis)
 
 
+def elementwise_mul(x, y, axis=-1):
+    return _elementwise("elementwise_mul", x, y, axis)
 
 
+def square(x):
+    return _unary("square", x)
 
 
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0) -> Variable:
+    out = _out(x.dtype, (-1,) * max(x.ndim, y.ndim))
+    _append("matmul", {"X": [x.name], "Y": [y.name]}, {"Out": [out.name]},
+            {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+             "alpha": alpha})
+    return out
 
 
+def mean(x) -> Variable:
+    out = _out(x.dtype, ())
+    _append("mean", {"X": [x.name]}, {"Out": [out.name]})
+    return out
 
 
+def _reduce(op_type, x, dim, keep_dim) -> Variable:
+    out = _out(x.dtype, (-1,) * x.ndim if keep_dim else ())
+    _append(op_type, {"X": [x.name]}, {"Out": [out.name]},
+            {"dim": [dim] if isinstance(dim, int) else dim,
+             "keep_dim": keep_dim, "reduce_all": dim is None})
+    return out
 
 
+def reduce_sum(x, dim=None, keep_dim=False) -> Variable:
+    return _reduce("reduce_sum", x, dim, keep_dim)
 
 
+def reduce_mean(x, dim=None, keep_dim=False) -> Variable:
+    return _reduce("reduce_mean", x, dim, keep_dim)
 
 
 # -- shape ops ---------------------------------------------------------------
-
-
-
 
 
 def flatten(x, axis=1) -> Variable:
@@ -383,3 +399,45 @@ def flatten(x, axis=1) -> Variable:
     _append("flatten2", {"X": [x.name]},
             {"Out": [out.name], "XShape": [xshape.name]}, {"axis": axis})
     return out
+
+
+# -- loss / metrics ----------------------------------------------------------
+
+def square_error_cost(input, label) -> Variable:
+    """ref fluid/layers/loss.py square_error_cost: (input - label)^2."""
+    out = _out(input.dtype, input.shape)
+    _append("square_error_cost", {"X": [input.name], "Label": [label.name]},
+            {"Out": [out.name]})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False) -> Variable:
+    """ref fluid/layers/loss.py cross_entropy: -log of the probability
+    ``input`` gives the label (clamped at 1e-20)."""
+    out = _out(input.dtype, input.shape[:-1] + (1,))
+    _append("cross_entropy", {"X": [input.name], "Label": [label.name]},
+            {"Y": [out.name]}, {"soft_label": soft_label})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, return_softmax=False):
+    loss = _out(logits.dtype, logits.shape[:-1] + (1,))
+    sm = _out(logits.dtype, logits.shape)
+    _append("softmax_with_cross_entropy",
+            {"Logits": [logits.name], "Label": [label.name]},
+            {"Loss": [loss.name], "Softmax": [sm.name]},
+            {"soft_label": soft_label, "ignore_index": ignore_index})
+    return (loss, sm) if return_softmax else loss
+
+
+def accuracy(input, label, k=1) -> Variable:
+    """ref fluid/layers/metric_op.py accuracy (top-1, as in the JAX
+    package): the share of rows whose argmax is the label."""
+    acc = _out("float32", ())
+    correct = _out("int32", ())
+    total = _out("int32", ())
+    _append("accuracy", {"Out": [input.name], "Label": [label.name]},
+            {"Accuracy": [acc.name], "Correct": [correct.name],
+             "Total": [total.name]}, {"k": k})
+    return acc

@@ -1,11 +1,13 @@
 """Lowering rules for the static-graph op set (counterpart of
 paddle_tpu/static/ops.py).
 
-The ops the vision inference programs reach, before and after the default
-pass pipeline: the startup program's fill and random ops, assign and
+The ops the vision programs reach, before and after the default pass
+pipeline: the startup program's fill and random ops, assign and
 assign_value (constant folding), and conv2d, pool2d, batch_norm, dropout,
-mul, the elementwise ops, the activations a fusion may absorb, softmax and
-the shape ops.  Each rule computes what its JAX
+mul, matmul, the elementwise ops, the activations a fusion may absorb,
+softmax, the reductions and the shape ops; the losses and accuracy a
+training program ends in; and the sgd / momentum / adam updates (the
+other optimizer updates are in ops_tail.py).  Each rule computes what its JAX
 counterpart computes, with torch ops on the Executor's device.
 
 Rule signature: fn(ins: {slot: [tensors]}, attrs: dict, op) -> {slot:
@@ -223,6 +225,44 @@ def _softmax(ins, attrs, op):
     return {"Out": [torch.softmax(_one(ins, "X"), dim=attrs.get("axis", -1))]}
 
 
+@register_op("square")
+def _square(ins, attrs, op):
+    return {"Out": [torch.square(_one(ins, "X"))]}
+
+
+@register_op("matmul")
+def _matmul(ins, attrs, op):
+    x, y = _one(ins, "X"), _one(ins, "Y")
+    if attrs.get("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    return {"Out": [torch.matmul(x, y) * attrs.get("alpha", 1.0)]}
+
+
+@register_op("mean")
+def _mean(ins, attrs, op):
+    return {"Out": [_one(ins, "X").mean()]}
+
+
+def _reduce(fn):
+    def rule(ins, attrs, op):
+        x = _one(ins, "X")
+        dim = attrs.get("dim", None)
+        if attrs.get("reduce_all", False) or dim is None:
+            dim = tuple(range(x.dim()))
+        elif isinstance(dim, int):
+            dim = (dim,)
+        return {"Out": [fn(x, dim=tuple(dim),
+                           keepdim=attrs.get("keep_dim", False))]}
+
+    return rule
+
+
+register_op("reduce_sum")(_reduce(torch.sum))
+register_op("reduce_mean")(_reduce(torch.mean))
+
+
 # -- shape manipulation ------------------------------------------------------
 
 @register_op("reshape2")
@@ -310,3 +350,96 @@ def _dropout(ins, attrs, op):
                     mode=attrs.get("dropout_implementation",
                                    "upscale_in_train"))
     return {"Out": [out]}
+
+
+# -- losses and metrics ------------------------------------------------------
+
+def _hard_label(label, like):
+    """A class-index label as int64 for ``torch.gather``, its trailing
+    unit axis dropped (labels arrive as int32, as in the JAX package)."""
+    lab = label[..., 0] if label.dim() == like.dim() else label
+    return lab.long()
+
+
+@register_op("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(ins, attrs, op):
+    logits = _one(ins, "Logits")
+    loss = F.softmax_with_cross_entropy(
+        logits, _one(ins, "Label"), soft_label=attrs.get("soft_label", False),
+        ignore_index=attrs.get("ignore_index", -100))
+    if loss.dim() < logits.dim():
+        loss = loss[..., None]
+    return {"Loss": [loss], "Softmax": [torch.softmax(logits, dim=-1)]}
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ins, attrs, op):
+    """-log of the probability of the label, clamped at 1e-20 (``X`` holds
+    probabilities, not logits)."""
+    x, label = _one(ins, "X"), _one(ins, "Label")
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(x.clamp_min(1e-20))).sum(-1, keepdim=True)
+    else:
+        p = torch.gather(x, -1, _hard_label(label, x)[..., None])
+        loss = -torch.log(p.clamp_min(1e-20))
+    return {"Y": [loss]}
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ins, attrs, op):
+    return {"Out": [torch.square(_one(ins, "X") - _one(ins, "Label"))]}
+
+
+@register_op("accuracy")
+def _accuracy(ins, attrs, op):
+    """Top-1 accuracy; ``Correct`` is ``int32(accuracy * rows)``,
+    truncated, as the JAX lowering computes it."""
+    pred = _one(ins, "Out")
+    top1 = pred.argmax(dim=-1)
+    acc = (top1 == _hard_label(_one(ins, "Label"), pred)).float().mean()
+    n = torch.tensor(pred.shape[0], dtype=torch.int32, device=pred.device)
+    return {"Accuracy": [acc], "Correct": [(acc * n).to(torch.int32)],
+            "Total": [n]}
+
+
+# -- optimizer updates (ref operators/optimizers/; the fp32 master math of
+#    paddle_tpu/static/ops.py, term for term) ---------------------------------
+
+@register_op("sgd")
+def _sgd(ins, attrs, op):
+    p, g, lr = _one(ins, "Param"), _one(ins, "Grad"), _one(ins, "LearningRate")
+    return {"ParamOut": [p - lr.to(p.dtype) * g.to(p.dtype)]}
+
+
+@register_op("momentum")
+def _momentum(ins, attrs, op):
+    p, g = _one(ins, "Param"), _one(ins, "Grad")
+    v, lr = _one(ins, "Velocity"), _one(ins, "LearningRate")
+    mu = attrs.get("mu", 0.9)
+    lr = lr.to(p.dtype)
+    g = g.to(p.dtype)
+    v_new = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_new = p - lr * (g + mu * v_new)
+    else:
+        p_new = p - lr * v_new
+    return {"ParamOut": [p_new], "VelocityOut": [v_new]}
+
+
+@register_op("adam")
+def _adam(ins, attrs, op):
+    p, g = _one(ins, "Param"), _one(ins, "Grad")
+    m, v = _one(ins, "Moment1"), _one(ins, "Moment2")
+    lr = _one(ins, "LearningRate").float()
+    b1p = _one(ins, "Beta1Pow").float()
+    b2p = _one(ins, "Beta2Pow").float()
+    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    gf = g.float()
+    m_new = b1 * m + (1 - b1) * gf
+    v_new = b2 * v + (1 - b2) * gf * gf
+    lr_t = lr * torch.sqrt(1 - b2p * b2) / (1 - b1p * b1)
+    p_new = p.float() - lr_t * m_new / (torch.sqrt(v_new) + eps)
+    return {"ParamOut": [p_new.to(p.dtype)], "Moment1Out": [m_new],
+            "Moment2Out": [v_new], "Beta1PowOut": [b1p * b1],
+            "Beta2PowOut": [b2p * b2]}

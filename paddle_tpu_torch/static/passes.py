@@ -884,10 +884,15 @@ class LayoutNHWC(Pass):
 
 @dataclass
 class Diagnostic:
-    """One finding: code, severity, message, the variable, a hint."""
+    """One finding: code, severity, message, where (block, op index, op
+    type), the variable, a hint (the fields of the reference's
+    static/analysis.py Diagnostic, in its order)."""
     code: str
     severity: str
     message: str
+    block: int = 0
+    op_index: Optional[int] = None
+    op_type: Optional[str] = None
     var: Optional[str] = None
     hint: Optional[str] = None
 
