@@ -267,8 +267,7 @@ PORT_KERNEL = re.compile(r"\b(flash_(fwd|bwd)(_dkdv|_dq)?_(fp32|wgmma)|flash_bwd
                          r"ln_(fwd|bwd|partials_reduce)|"
                          r"paged_attn_(rows|shared|merge)|"
                          r"conv2d_bn_act(_fp32|_wgmma|_split_sum)?|pool2d_nhwc|"
-                         r"bn_stats_(partial|"
-                         r"reduce)|bn_scale_act|"
+                         r"bn_stats_cluster|bn_scale_act|"
                          r"int8_(matmul|conv)_(wgmma|split_sum))_kernel\b")
 # Row 9's kernels in a profile: the one-row kernel, the shared-table
 # kernel and their merge.
@@ -418,6 +417,11 @@ def dtag(dtype):
     return str(dtype)[6:]
 
 
+def bits(t):
+    """The bit patterns of a float tensor, NaNs included."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
 # -- phase 2: kernels ---------------------------------------------------------
 
 def padding_bias(lengths, s):
@@ -491,21 +495,32 @@ def ln_case(ln, name, run, plain, plain32, dtype, tag):
     return got, err
 
 
+def traced(fn, reps, tries=3):
+    """A torch.profiler session over ``reps`` calls of ``fn``, taken again
+    (at most ``tries`` sessions) while it records no device activity at
+    all: on the card, a session now and then comes back empty, whatever
+    ran in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if device_events(prof):
+            break
+    return prof
+
+
 def profiled_ms(fn, reps=20, warmup=3):
     """Device time per call from torch.profiler: the summed durations of the
     kernels and memsets ``fn`` launches (gaps between them excluded), for a
     call that cannot be captured in a CUDA graph."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(us for us, _, _ in device_events(prof))
+    us = sum(us for us, _, _ in device_events(traced(fn, reps)))
     check(us > 0, f"the profiler saw {us:.1f} us of device time")
     return us / 1e3 / reps
 
@@ -2279,8 +2294,20 @@ POOL_CASES = (
     ("avg 2x2/2 16x16 c256", ("avg", 128, 16, 16, 256, 2, 2, 0)),
     ("avg 3x3/1 p1 16x16 c128", ("avg", 64, 16, 16, 128, 3, 1, 1)),
 )
+# Row 13 at the windows phase 7's cases lack (own generators, untimed): a
+# max and an average with NaN taps at a compile-time window, the generic
+# instantiation at 5x5/1 p2 and 3x2/2 p(0, 1), and VGG's 2x2 c512 pool at
+# b2, as (mode, n, h, w, c, (kh, kw), (sh, sw), (ph, pw), NaNs).
+POOL_EDGE_CASES = (
+    ("max", 8, 15, 17, 256, (3, 3), (2, 2), (1, 1), True),
+    ("avg", 8, 16, 16, 128, (2, 2), (2, 2), (0, 0), True),
+    ("max", 16, 9, 6, 128, (5, 5), (1, 1), (2, 2), False),
+    ("avg", 16, 9, 6, 128, (5, 5), (1, 1), (2, 2), False),
+    ("max", 16, 7, 9, 256, (3, 2), (2, 2), (0, 1), False),
+    ("avg", 16, 7, 9, 256, (3, 2), (2, 2), (0, 1), True),
+    ("max", 2, 2, 2, 512, (2, 2), (2, 2), (0, 0), False),
+)
 TOL_CONV_FP32_REL = 1e-4     # of the largest value: same fp32 sums, reordered
-TOL_AVG_POOL = 1e-6          # same fp32 sum in the same tap order
 # The static phase's VGG kernel launches per forward, pinned on the CPU by
 # tests/test_torch_static.py (the JAX dispatch at full width): 10 fused
 # convs (group 2's second, groups 3-5) and the 4 pools of groups 2-5; the
@@ -2338,13 +2365,19 @@ def conv_case(cf, gen, dims, dtype, act, timed=True):
                     flops=flops, splits=splits)
 
 
-def pool_case(pl, gen, dims, dtype):
-    """Row 13 against its plain version (max bit for bit, avg within
-    TOL_AVG_POOL), its times beside the plain version's, PyTorch's pooling
-    on a channels-last view and the bound."""
+def pool_case(pl, gen, dims, dtype, timed=True, nans=False):
+    """Row 13 against its plain version (bit for bit: the same taps in the
+    same order, NaNs where the plain version has them); with ``timed`` its
+    times beside the plain version's, PyTorch's pooling on a channels-last
+    view and the bound.  k, s, p: ints or (h, w) pairs."""
     mode, n, h, w, c, k, s, p = dims
+    (kh, kw), (sh, sw), (ph, pw) = (
+        (v, v) if isinstance(v, int) else tuple(v) for v in (k, s, p))
     x = randn(gen, (n, h, w, c), dtype)
-    args = ((k, k), (s, s), (p, p))
+    if nans:   # NaN in 3% of the inputs
+        where = torch.rand((n, h, w, c), generator=gen) < 0.03
+        x = torch.where(where.to(DEV), torch.full_like(x, float("nan")), x)
+    args = ((kh, kw), (sh, sw), (ph, pw))
     fn = pl.max_pool2d_nhwc if mode == "max" else pl.avg_pool2d_nhwc
     plain_fn = (pl.max_pool2d_nhwc_plain if mode == "max"
                 else pl.avg_pool2d_nhwc_plain)
@@ -2353,19 +2386,30 @@ def pool_case(pl, gen, dims, dtype):
     got = run()
     torch.cuda.synchronize()
     ref = plain()
+    plan = pl.pool_plan(n, h, w, c, kh, kw, sh, sw, dtype, ph, pw)
+    window = "generic" if plan.window == pl.GENERIC_WINDOW else "fixed"
+    tag = (f"{mode}_pool2d n{n} {h}x{w} c{c} k{kh}x{kw} s{sh}x{sw} "
+           f"p{ph}x{pw} {dtag(dtype)} ({window} window, {plan.threads} "
+           f"threads)")
+    nan = got.isnan()
+    check(torch.equal(nan, ref.isnan())
+          and torch.equal(got.nan_to_num(), ref.nan_to_num()),
+          f"{tag}: bit for bit the plain version"
+          + (f" ({int(nan.sum())} NaN outputs)" if nans else ""))
+    check(torch.equal(bits(run()), bits(got)),
+          f"{tag}: a second call repeats the output bit for bit")
+    if not timed:
+        return None
     err = max_abs(got, ref)
-    tag = f"{mode}_pool2d n{n} {h}x{w} c{c} k{k} s{s} p{p} {dtag(dtype)}"
-    if mode == "max":
-        check(torch.equal(got, ref), f"{tag}: bit for bit the plain version")
-    else:
-        check(err <= TOL_AVG_POOL, f"{tag}: max abs err {err:.3g} <= "
-              f"{TOL_AVG_POOL}")
     xc = x.permute(0, 3, 1, 2)
     F = torch.nn.functional
-    lib = ((lambda: F.max_pool2d(xc, k, s, p)) if mode == "max" else
-           (lambda: F.avg_pool2d(xc, k, s, p, count_include_pad=True)))
-    oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
-    flops, nbytes = pl.pool_cost(n, oh, ow, c, k, k, x.element_size(), h, w)
+    lib = ((lambda: F.max_pool2d(xc, args[0], args[1], args[2]))
+           if mode == "max" else
+           (lambda: F.avg_pool2d(xc, args[0], args[1], args[2],
+                                 count_include_pad=True)))
+    oh, ow = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+    flops, nbytes = pl.pool_cost(n, oh, ow, c, kh, kw, x.element_size(), h,
+                                 w)
     return dict(timings(run, plain, lib, nbytes, flops, dtype), err=err,
                 mode=mode)
 
@@ -2387,6 +2431,13 @@ def vision_kernel_phase(gen):
             conv_case(cf, gen, CONV_ACT_SHAPE, dtype, act, timed=False)
         for label, dims in POOL_CASES:
             results[("pool", label, dtype)] = pool_case(pl, gen, dims, dtype)
+    edge = torch.Generator().manual_seed(SEED + 13)
+    for dtype in (torch.float32, torch.bfloat16):
+        for *dims, nans in POOL_EDGE_CASES:
+            pool_case(pl, edge, tuple(dims), dtype, timed=False, nans=nans)
+    check(sum(pl.pool_plan(*d[1:5], *d[5], *d[6], torch.float32, *d[7])
+              .window == pl.GENERIC_WINDOW for d in POOL_EDGE_CASES) == 4,
+          "row 13 edge cases: 4 of them take the generic window")
     for (kind, label, dtype), r in results.items():
         name = "conv2d_bn_act" if kind == "conv" else f"{r['mode']}_pool2d"
         extra = (f", K splits {r['splits']}, factor against the library "
@@ -2762,6 +2813,10 @@ BN_CASES = (
     ("vgg 2x2 c512 b128", (512, 512)),
     ("resnet50 stage1 c256 b64 (cold)", (200704, 256)),
 )
+# Rows 11 and 12 at edge shapes (own generator, untimed): 8 rows at C =
+# 128 and 1024, rows that no row block divides (the last block shorter)
+# at C = 128 and 1024.
+BN_EDGE_SHAPES = ((8, 128), (8, 1024), (32776, 128), (2056, 1024))
 # Row 11 against its plain version: the same fp32 sums in another order,
 # relative to the largest sum.  Row 12 multiplies and adds without FMA
 # contraction, as the plain version does: bit for bit.
@@ -2824,6 +2879,42 @@ def bn_case(bt, gen, rows, c, dtype, timed=True):
                              *reversed(bt.scale_cost(rows, c, elt)), dtype),
                      err=max_abs(y, bt.scale_act_plain(x, a, b, "relu")))
     return stats, scale
+
+
+def stats_profile(calls=3):
+    """Row 11 in a profile of ``calls`` calls: one launch of the port's
+    kernel a call and nothing else on the device.  Run before any CUDA
+    graph is captured: after one has, the card's profiler records fewer
+    launches than ran."""
+    from paddle_tpu_torch.ops.kernels import bn_act_train as bt
+
+    x = randn(torch.Generator().manual_seed(SEED + 11), BN_CASES[0][1],
+              torch.float32)
+    for _ in range(3):
+        bt.batch_stats(x)
+    prof = traced(lambda: bt.batch_stats(x), calls)
+    seen = [(n, name) for _, n, name in device_events(prof)]
+    check(len(seen) == 1 and seen[0][0] == calls
+          and PORT_KERNEL.search(seen[0][1]) is not None
+          and "bn_stats_cluster_kernel" in seen[0][1],
+          f"{bt.STATS_KERNEL}: a profile of {calls} calls holds one launch "
+          f"of the port's kernel a call and nothing else on the device "
+          f"({seen}; all events "
+          f"{sorted({e.key for e in prof.key_averages()})})")
+
+
+def stats_plans(bt):
+    """Row 11's plan at each main-path shape, its clusters against
+    ``cudaOccupancyMaxActiveClusters``."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (rows, c) in BN_CASES:
+            p = bt.stats_plan(rows, c, dtype)
+            most = bt.stats_max_clusters(rows, c, dtype)
+            check(most >= 1, f"{bt.STATS_KERNEL} {label} {dtag(dtype)}: "
+                  f"channel tile {p.tile_c}, clusters of {p.cluster} CTAs "
+                  f"x {p.rows_per_cta} rows, {p.ctas} CTAs; the card holds "
+                  f"{most} such clusters at once (the plan has "
+                  f"{p.channel_tiles})")
 
 
 @contextlib.contextmanager
@@ -3090,11 +3181,16 @@ def int8_kernel_phase(gen, vision):
 
     log("[int8 kernels] rows 11, 12, 14 and 15 against their plain "
         "versions")
+    stats_plans(bt)
     bn_cases = {}
     for dtype in (torch.float32, torch.bfloat16):
         for label, (rows, c) in BN_CASES:
             bn_cases[(label, dtype)] = bn_case(bt, gen, rows, c, dtype)
         bn_case(bt, gen, 8 * 3, 384, dtype, timed=False)   # a ragged grid
+    edge = torch.Generator().manual_seed(SEED + 11)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, c in BN_EDGE_SHAPES:
+            bn_case(bt, edge, rows, c, dtype, timed=False)
     for (label, dtype), (st, sc) in bn_cases.items():
         for k, r in ((bt.STATS_KERNEL, st), (bt.SCALE_KERNEL, sc)):
             log(f"  {k} {label} {dtag(dtype)}: {r['ms']:.4f} ms (eager "
@@ -4081,6 +4177,7 @@ def main(argv=None):
             check(n == 0, f"{name}: {n} {mma} (mma.sync) instructions in "
                   f"its SASS")
 
+    stats_profile()
     gen = torch.Generator().manual_seed(args.seed)
     results = kernel_phase(gen)
     at_train = train_shape_phase(gen)

@@ -11,9 +11,10 @@ formula, not Welford) returned in fp32 for the caller's running-stat
 update.  One kernel source, ``csrc/bn_act_train.cu``, two kernels:
 
 * ``batch_stats`` (row 11, ``_batch_stats``): the per-channel fp32 sum
-  and sum of squares, one partial per block of rows, the partials summed
-  in a fixed order by a second short pass (no atomics: repeatable bit for
-  bit);
+  and sum of squares in one launch: a cluster of up to 16 CTAs splits a
+  tile of channels by rows and combines its partials through distributed
+  shared memory in rank order (``stats_plan`` sizes the tiles and
+  clusters from the shape; no atomics: repeatable bit for bit);
 * ``scale_act`` (row 12, ``scale_act``): ``act(x * a + b)`` with
   per-channel fp32 ``a = gamma * rsqrt(var + eps)``, ``b = beta - mean *
   a``, in one pass, out in x's dtype.
@@ -30,6 +31,8 @@ versions on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -49,9 +52,17 @@ PLAIN_BACKWARD = "paddle_tpu/ops/pallas/conv_fused.py:301 _bn_act_train_bwd"
 # Acts whose gradient the backward rebuilds from the saved output.
 TRAIN_ACTS = ("", "relu")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TILE_C = 128              # channels a CTA covers
-CTAS_PER_SM, SMS = 4, 132  # the grid the wrappers aim for
+TILE_C = 128              # channels a CTA of scale_act covers
+CTAS_PER_SM, SMS = 4, 132  # the grid scale_act aims for
 DEFAULT_BLOCK_ROWS = 256  # the TPU kernel's row block (plain version)
+# batch_stats' plan (csrc/bn_act_train.cu: kStatsThreads, kMaxCluster and
+# the tiles its entry instantiates): CTAs a plan aims for (about one an
+# SM) and the bytes of a row a CTA reads at most where that many fit
+STATS_TILES = (16, 32, 64, 128)
+STATS_THREADS = 256
+MAX_CLUSTER = 16
+STATS_CTAS = 128
+STATS_SEGMENT = 64
 
 
 def _rows_block(n_rows: int) -> int:
@@ -88,10 +99,55 @@ def scale_act_plain(x2, a, b, act):
 
 
 def _grid(rows: int, c: int) -> Tuple[int, int]:
-    """(rows a CTA walks, row blocks): about CTAS_PER_SM CTAs on each SM."""
+    """scale_act's (rows a CTA walks, row blocks): about CTAS_PER_SM CTAs
+    on each SM."""
     blocks = max(1, min(rows, CTAS_PER_SM * SMS // (c // TILE_C)))
     rows_per = math.ceil(rows / blocks)
     return rows_per, math.ceil(rows / rows_per)
+
+
+@dataclasses.dataclass(frozen=True)
+class StatsPlan:
+    """The launch of ``batch_stats``: channel tiles of ``tile_c`` channels,
+    each one cluster of ``cluster`` CTAs, one a block of ``rows_per_cta``
+    rows (``row_blocks == cluster``; a block past the last row sums
+    nothing), ``threads`` threads a CTA."""
+    tile_c: int
+    channel_tiles: int
+    cluster: int
+    row_blocks: int
+    rows_per_cta: int
+    threads: int
+
+    @property
+    def ctas(self) -> int:
+        return self.channel_tiles * self.row_blocks
+
+
+@functools.lru_cache(maxsize=1024)
+def stats_plan(rows: int, c: int, dtype) -> StatsPlan:
+    """The plan of ``batch_stats`` over a (rows, c) array of ``dtype``,
+    from the shape alone: the channel tile of STATS_SEGMENT bytes, or
+    narrower (down to 16 channels, a 32-byte segment) where C / 8 is, so
+    that clusters of at most MAX_CLUSTER row blocks can make STATS_CTAS
+    CTAs; the cluster the smallest power of two that makes them (smaller
+    clusters wait less at their barrier), at most the largest power of two
+    up to ``rows``, the rows split evenly over it."""
+    itemsize = dtype.itemsize
+    want = max(STATS_TILES[0], min(STATS_SEGMENT // itemsize,
+                                   c // (STATS_CTAS // MAX_CLUSTER)))
+    tiles = [t for t in STATS_TILES if c % t == 0 and t * itemsize >= 32]
+    if rows < 1 or not tiles:
+        raise ValueError(f"{STATS_KERNEL}: no plan for {rows} x {c} {dtype}")
+    tile = max([t for t in tiles if t <= want] or tiles[:1])
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster * 2 <= rows \
+            and (c // tile) * cluster < STATS_CTAS:
+        cluster *= 2
+    return StatsPlan(tile_c=tile, channel_tiles=c // tile, cluster=cluster,
+                     row_blocks=cluster,
+                     rows_per_cta=math.ceil(rows / cluster),
+                     threads=STATS_THREADS)
 
 
 def _check(name, x2, *vectors):
@@ -126,16 +182,35 @@ def _check(name, x2, *vectors):
                          f" the wrapper does not copy it")
 
 
-def _entry(symbol, n_pointers):
-    """C entry ``symbol``: ``n_pointers`` pointers, rows (int64), c, rows
-    per CTA (int64), row blocks, [relu,] dtype code (int), the stream."""
+def _entry(symbol):
+    """C entry ``symbol`` of the library.  ``bn_batch_stats``: x, sum,
+    sumsq (pointers), rows (int64), c, channel tile, cluster, rows per CTA
+    (int64), dtype code, the stream.  ``bn_scale_act``: x, a, b, out, rows
+    (int64), c, rows per CTA (int64), row blocks, relu, dtype code, the
+    stream.  ``bn_stats_max_clusters``: c, channel tile, cluster, dtype
+    code, an int pointer."""
     fn = getattr(build.load(SOURCE), symbol)
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        extra = [I] if symbol == SCALE_KERNEL else []
-        fn.argtypes = [P] * n_pointers + [L, I, L, I] + extra + [I, P]
+        fn.argtypes = {STATS_KERNEL: [P] * 3 + [L, I, I, I, L, I, P],
+                       SCALE_KERNEL: [P] * 4 + [L, I, L, I, I, I, P],
+                       "bn_stats_max_clusters": [
+                           I, I, I, I, ctypes.POINTER(I)]}[symbol]
         fn.restype = I
     return fn
+
+
+def stats_max_clusters(rows, c, dtype) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of ``stats_plan(rows, c,
+    dtype)``'s launch on the current CUDA device: how many of its clusters
+    the card holds at once."""
+    plan = stats_plan(rows, c, dtype)
+    out = ctypes.c_int(0)
+    err = _entry("bn_stats_max_clusters")(
+        c, plan.tile_c, plan.cluster, _DTYPE_CODES[dtype], ctypes.pointer(out))
+    if err:
+        raise RuntimeError(f"bn_stats_max_clusters failed: CUDA error {err}")
+    return out.value
 
 
 def batch_stats(x2):
@@ -145,13 +220,11 @@ def batch_stats(x2):
     if x2.device.type == "cpu":
         return batch_stats_plain(x2)
     rows, c = x2.shape
-    rows_per, parts = _grid(rows, c)
-    part = torch.empty((2, parts, c), dtype=torch.float32, device=x2.device)
+    plan = stats_plan(rows, c, x2.dtype)
     out = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    err = _entry(STATS_KERNEL, 5)(
-        x2.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), rows, c, rows_per, parts,
-        _DTYPE_CODES[x2.dtype],
+    err = _entry(STATS_KERNEL)(
+        x2.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), rows, c,
+        plan.tile_c, plan.cluster, plan.rows_per_cta, _DTYPE_CODES[x2.dtype],
         torch.cuda.current_stream(x2.device).cuda_stream)
     if err:
         raise RuntimeError(f"{STATS_KERNEL} launch failed: CUDA error {err}")
@@ -171,7 +244,7 @@ def scale_act(x2, a, b, act):
     rows, c = x2.shape
     rows_per, parts = _grid(rows, c)
     out = torch.empty_like(x2)
-    err = _entry(SCALE_KERNEL, 4)(
+    err = _entry(SCALE_KERNEL)(
         x2.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, c,
         rows_per, parts, int(act == "relu"), _DTYPE_CODES[x2.dtype],
         torch.cuda.current_stream(x2.device).cuda_stream)

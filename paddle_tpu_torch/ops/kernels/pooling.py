@@ -3,10 +3,14 @@
 Counterpart of paddle_tpu/ops/pallas/pooling.py (row 13 of the table of
 TPU kernels: ``_pool2d_nhwc`` and its entries ``max_pool2d_nhwc``,
 ``avg_pool2d_nhwc``).  One kernel source, ``csrc/pool2d_nhwc.cu``: each
-thread takes 8 channels of one output pixel and loops over the window in
-fp32; max skips taps in the padding (the TPU kernel's -inf padding), the
-average adds them as zeros and multiplies by the fp32 value of
-``1 / (kh * kw)`` (the non-exclusive average).
+thread takes one 16-byte vector (4 fp32 or 8 bf16 channels) of one output
+pixel and issues every tap's load of the window before it combines them in
+fp32; a padding tap reads the TPU kernel's padding (-inf for max, zeros for
+the average), and the average multiplies by the fp32 value of
+``1 / (kh * kw)`` (the non-exclusive average).  ``pool_plan`` picks, from
+the shape, the kernel's compile-time window (2x2/2, 3x3/2 and 3x3/1; a
+generic instantiation for the rest), the threads a CTA (so that small
+outputs still spread over every SM) and 32- or 64-bit indexing.
 
 ``supported()`` is the JAX package's shape gate, VMEM cap included; the
 dispatch site (``nn/functional/pooling.py``) applies it.  The wrappers
@@ -18,6 +22,9 @@ input that requires grad raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 from typing import Tuple
 
 import torch
@@ -32,7 +39,15 @@ REPLACES = "paddle_tpu/ops/pallas/pooling.py:91 _pool2d_nhwc"
 VMEM_CAP_BYTES = 12 * 1024 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
-VEC = 8  # channels per thread
+C_MULTIPLE = 8  # channels: whole 16-byte vectors in either dtype
+# The plan (csrc/pool2d_nhwc.cu): window codes of the compile-time
+# instantiations (0 is the generic one), threads a CTA from largest to
+# smallest, and the CTAs a launch aims for (two for each of the 132 SMs).
+WINDOWS = {(2, 2, 2, 2): 1, (3, 3, 2, 2): 2, (3, 3, 1, 1): 3}
+GENERIC_WINDOW = 0
+POOL_THREADS = (256, 128, 64, 32)
+SMS = 132
+MIN_CTAS = 2 * SMS
 
 
 def _out_hw(size: int, k: int, stride: int, pad: int) -> int:
@@ -64,6 +79,46 @@ def supported(x, kernel, stride, padding, mode="max", exclusive=True,
     vmem = ((h + 2 * ph) * (w + 2 * pw) * c * 4
             + out_h * out_w * c * (4 + itemsize))
     return vmem <= VMEM_CAP_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolPlan:
+    """The launch of the pooling kernel: the window code (WINDOWS, or
+    GENERIC_WINDOW), ``vec`` channels a thread (one 16-byte vector), the
+    output size, ``total`` threads (one a vector of an output pixel) in
+    CTAs of ``threads``, and the index width in bits."""
+    window: int
+    vec: int
+    out_h: int
+    out_w: int
+    total: int
+    threads: int
+    index_bits: int
+
+    @property
+    def ctas(self) -> int:
+        return math.ceil(self.total / self.threads)
+
+
+@functools.lru_cache(maxsize=1024)
+def pool_plan(n, h, w, c, kh, kw, sh, sw, dtype, ph=0, pw=0) -> PoolPlan:
+    """The plan of a pool over an (n, h, w, c) array of ``dtype``, from the
+    shape alone: the compile-time window of (kh, kw, sh, sw) if there is
+    one, else the generic one; the largest CTA in POOL_THREADS that still
+    makes MIN_CTAS CTAs (the smallest where none does); 32-bit indices
+    where the input and the output have fewer than 2 ** 31 elements."""
+    vec = 16 // dtype.itemsize
+    out_h, out_w = _out_hw(h, kh, sh, ph), _out_hw(w, kw, sw, pw)
+    if c % vec or out_h < 1 or out_w < 1:
+        raise ValueError(f"pool2d_nhwc: no plan for {(n, h, w, c)} window "
+                         f"{(kh, kw)} / {(sh, sw)} / {(ph, pw)}")
+    total = n * out_h * out_w * (c // vec)
+    threads = next((t for t in POOL_THREADS
+                    if math.ceil(total / t) >= MIN_CTAS), POOL_THREADS[-1])
+    fits = max(n * h * w * c, n * out_h * out_w * c) < 2 ** 31
+    return PoolPlan(window=WINDOWS.get((kh, kw, sh, sw), GENERIC_WINDOW),
+                    vec=vec, out_h=out_h, out_w=out_w, total=total,
+                    threads=threads, index_bits=32 if fits else 64)
 
 
 def pool2d_nhwc_plain(x, kernel, stride, padding, mode):
@@ -118,8 +173,8 @@ def _check(name, x, kernel, stride, padding):
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
-    if c % VEC:
-        raise ValueError(f"{name}: needs C % {VEC} == 0, got C={c}")
+    if c % C_MULTIPLE:
+        raise ValueError(f"{name}: needs C % {C_MULTIPLE} == 0, got C={c}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be NHWC-contiguous; the wrapper "
                          f"does not copy it")
@@ -129,11 +184,12 @@ def _check(name, x, kernel, stride, padding):
 
 def _entry():
     """C entry: x, out (pointers), n, h, w, c, kh, kw, sh, sw, ph, pw,
-    is_max (int), inv_count (float), dtype code (int), the stream."""
+    is_max (int), inv_count (float), dtype code, the plan's window code,
+    threads and index bits (int), the stream."""
     fn = build.load(SOURCE).pool2d_nhwc
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P] + [I] * 11 + [ctypes.c_float, I, P]
+        fn.argtypes = [P, P] + [I] * 11 + [ctypes.c_float] + [I] * 4 + [P]
         fn.restype = I
     return fn
 
@@ -145,11 +201,13 @@ def _pool2d_nhwc(x, kernel, stride, padding, mode, name):
         return pool2d_nhwc_plain(x, kernel, stride, padding, mode)
     n, h, w, c = x.shape
     (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
-    out = torch.empty((n, _out_hw(h, kh, sh, ph), _out_hw(w, kw, sw, pw), c),
-                      dtype=x.dtype, device=x.device)
+    plan = pool_plan(n, h, w, c, kh, kw, sh, sw, x.dtype, ph, pw)
+    out = torch.empty((n, plan.out_h, plan.out_w, c), dtype=x.dtype,
+                      device=x.device)
     err = _entry()(
         x.data_ptr(), out.data_ptr(), n, h, w, c, kh, kw, sh, sw, ph, pw,
         int(mode == "max"), 1.0 / (kh * kw), _DTYPE_CODES[x.dtype],
+        plan.window, plan.threads, plan.index_bits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
