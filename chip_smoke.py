@@ -209,12 +209,54 @@ Phases (any failed check raises, so the script exits non-zero):
               program (10 / 4 launches of rows 10 / 13 under
               DEFAULT_PIPELINE), and images/s of both.
 
+14. recipe  -- ERNIE-base pretraining with the BERT-base recipe (AdamW,
+              weight decay 0.01, LinearWarmup over PolynomialDecay to a
+              1e-4 peak, ClipGradByGlobalNorm 1.0), three ways: without
+              recompute, ``ErnieConfig(enable_recompute=True)`` and
+              ``recompute_policy="dots_saveable"``.  Checks: at fp32 L2 b8
+              (dropout 0.1) each way's kernel path against its plain
+              wrappers (loss, every gradient); each recompute way's loss
+              and gradients bit for bit those without recompute at dropout
+              0 and 0.1 under one generator (fp32 L2 b8, and bf16 at full
+              width b64); the eager loop ``loss.backward(); opt.step();
+              opt.clear_grad()`` bit for bit the functional
+              ``make_train_step`` over two recipe steps; per full-width
+              bf16 b64 s512 step 12 / 12 / 24 / 24 / 2 / 2 launches of rows
+              1 / 2 / 7 / 8 / 5 / 6 without recompute and 24 / 12 / 48 / 24
+              / 2 / 2 with it (the encoder's forward kernels run again in
+              the backward).  Then each way's step ms, tokens/s, MFU
+              (579.1 MFLOP/token, the extra forward not counted) and peak
+              memory; and one GradScaler step with an injected non-finite
+              gradient (skipped; the scale halves) and one finite step.
+15. seq2seq -- Transformer-base (d512, 8 heads, 6 + 6 layers, FFN 2048,
+              dropout 0.1, post-LN; the script's shared 32000-token
+              embedding and tied output projection around it) trained with
+              Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000) at b64,
+              source and target 256 tokens, bf16 compute over fp32
+              masters.  Checks: at fp32 2 + 2 layers b8 the kernel path
+              against its plain wrappers; per full-size step 12 / 12
+              launches of rows 1 / 2 (encoder self and decoder cross
+              attention; the decoder's masked self attention takes the
+              plain route, as in the JAX package) and 30 / 30 of rows 7 /
+              8; step ms, tokens/s, peak memory.
+16. dygraph quant -- ``ImperativeQuantAware().quantize`` on ERNIE-base:
+              the fp32 L2 b8 QAT step against its plain wrappers (the
+              activation scales restored between the two runs), then QAT
+              steps at bf16 b64 s512 with the recipe (12 / 12 / 24 / 24 /
+              2 / 2 launches a step); ``PostTrainingQuantization`` of
+              ERNIE-base's 75 Linears on 3 calibration batches, the b8
+              s512 eval forward through ``Int8Linear`` (its MLM logits'
+              error against the fp32 forward, of the largest logit), and
+              ``Int8Linear``'s int32 accumulator equal to an int64 product.
+
 Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"paged": ...}``, ``{"static": ...}``, ``{"vision_train": ...}``,
-``{"int8": ...}``, ``{"cold": ...}``, ``{"static_train": ...}`` and
+``{"int8": ...}``, ``{"cold": ...}``, ``{"static_train": ...}``,
+``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}`` and
 ``{"kernels": [...]}`` JSON lines (one kernel entry for each of the 15 TPU
 kernels; rows 10 and 13-15 with their launches on the static-train path,
-rows 11-13 with their cold times) and the card's name and power limit;
+rows 11-13 with their cold times, rows 1, 2 and 5-8 with their launches
+on each path of phases 14-16) and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -1084,20 +1126,26 @@ def profile_steps(step, params, state, batch, gen, steps=2):
     return params, state
 
 
-def steps_agree(loss, grads, loss_ref, grads_ref, ref_name):
+def steps_agree(loss, grads, loss_ref, grads_ref, ref_name, floor=1e-4):
     """One fp32 train step's loss and every gradient against another run of
     the step: the loss within TOL_TRAIN_LOSS_REL, each gradient within
-    TOL_TRAIN_GRAD_REL of its largest value (floored at 1e-4 of the largest
-    gradient of all: the key-projection bias's is rounding noise)."""
+    TOL_TRAIN_GRAD_REL of its largest value, floored at ``floor`` of the
+    largest gradient of all (1e-4: the key-projection bias's is rounding
+    noise; 1 under fake quantization, where a last-bit difference ahead of
+    a quantizer moves an activation by a whole level)."""
     r = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
     check(r <= TOL_TRAIN_LOSS_REL, f"loss {loss.item():.6f} vs {ref_name} "
           f"{loss_ref.item():.6f}: rel err {r:.3g} <= {TOL_TRAIN_LOSS_REL}")
-    floor = 1e-4 * max(float(g.abs().max()) for g in grads_ref.values())
-    worst = max((max_abs(grads[k], g) / max(float(g.abs().max()), floor), k)
+    top = max(float(g.abs().max()) for g in grads_ref.values())
+    worst = max((max_abs(grads[k], g) / max(float(g.abs().max()),
+                                            floor * top), k)
                 for k, g in grads_ref.items())
+    own = max((max_abs(grads[k], g) / max(float(g.abs().max()), 1e-30), k)
+              for k, g in grads_ref.items())
+    what = "the gradient's max" if floor < 1 else "the largest gradient"
     check(worst[0] <= TOL_TRAIN_GRAD_REL, f"{len(grads_ref)} gradients vs "
-          f"{ref_name}: worst err {worst[0]:.3g} of the gradient's max "
-          f"({worst[1]}) <= {TOL_TRAIN_GRAD_REL}")
+          f"{ref_name}: worst err {worst[0]:.3g} of {what} ({worst[1]}) <= "
+          f"{TOL_TRAIN_GRAD_REL}; of its own max {own[0]:.3g} ({own[1]})")
 
 
 def train_phase(seed):
@@ -3334,7 +3382,7 @@ def int8_model(name, build, seed):
     of the int8 and fp32 programs, and a profile of one int8 forward."""
     from paddle_tpu_torch import static
     from paddle_tpu_torch.ops.kernels import config
-    from paddle_tpu_torch.slim import PostTrainingQuantization
+    from paddle_tpu_torch.slim.quant_static import PostTrainingQuantization
     from paddle_tpu_torch.static import layers as L
     from paddle_tpu_torch.static import nets
     from paddle_tpu_torch.static import passes as P
@@ -3429,7 +3477,7 @@ def int8_fc_check(seed):
     program (5% of the largest value + 1e-3)."""
     from paddle_tpu_torch import static
     from paddle_tpu_torch.ops.kernels import config
-    from paddle_tpu_torch.slim import PostTrainingQuantization
+    from paddle_tpu_torch.slim.quant_static import PostTrainingQuantization
     from paddle_tpu_torch.static import layers as L
     from paddle_tpu_torch.static import passes as P
 
@@ -4129,6 +4177,602 @@ def new_entries(bn_cases, train_counts, int8_cases, int8_counts):
         out.append(e)
     return out
 
+# -- phases 14-16: dygraph training, the rest --------------------------------
+
+# The BERT-base pretraining recipe (Devlin et al. 2019, App. A.2; ERNIE 1.0
+# follows it): AdamW, weight decay 0.01, peak LR 1e-4 after a 10000-step
+# linear warm-up, then linear decay to 0 over the run (1M steps), and the
+# global-norm clip at 1.0.
+RECIPE = dict(peak_lr=1e-4, warmup=10000, decay_steps=1_000_000,
+              weight_decay=0.01, clip=1.0)
+RECIPE_MODES = (("plain", False, None), ("recompute", True, None),
+                ("dots_saveable", True, "dots_saveable"))
+RECIPE_STEPS, RECIPE_WARM = 7, 2        # steps a mode, of them untimed
+# Transformer-base (the JAX package's Transformer defaults; Vaswani et al.
+# 2017 base): trained with Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000)
+# (ibid. 5.3) at b64, source and target 256 tokens, vocab 32000 (the
+# script's shared embedding and tied output projection).
+SEQ2SEQ = dict(vocab=32000, batch=64, src=256, tgt=256, check_batch=8,
+               check_layers=2)
+SEQ2SEQ_STEPS, SEQ2SEQ_WARM = 7, 2
+QAT_TRAIN_STEPS = 2
+PTQ_CALIB_BATCHES, PTQ_BATCH = 3, 8
+# int8 ERNIE logits against fp32, of the largest: a sanity bound (a wrong
+# int8 path reads O(1)); the reading is printed
+TOL_PTQ_REL = 0.5
+ERNIE_KERNELS = ("flash_attention_packed", "flash_attention_packed_bwd",
+                 "residual_layer_norm", "residual_layer_norm_bwd",
+                 "layer_norm", "layer_norm_bwd")
+
+
+def recipe_optimizer():
+    from paddle_tpu_torch import optimizer as O
+
+    sched = O.lr.LinearWarmup(
+        O.lr.PolynomialDecay(RECIPE["peak_lr"], RECIPE["decay_steps"],
+                             end_lr=0.0, power=1.0),
+        RECIPE["warmup"], 0.0, RECIPE["peak_lr"])
+    return O.AdamW(sched, weight_decay=RECIPE["weight_decay"],
+                   grad_clip=O.ClipGradByGlobalNorm(RECIPE["clip"]))
+
+
+def ernie_cfg(recompute=False, policy=None, **kw):
+    from paddle_tpu_torch.text.ernie import ErnieConfig
+
+    return ErnieConfig(enable_recompute=recompute, recompute_policy=policy,
+                       **kw)
+
+
+def count_one(step, *args):
+    """``step(*args)`` with every launch count set to 0 just before it;
+    returns (its result, the counts just after)."""
+    from paddle_tpu_torch.ops.kernels import config
+
+    config.reset_counts()
+    out = step(*args)
+    torch.cuda.synchronize()
+    return out, config.launch_counts()
+
+
+def check_counts(tag, counts, expect):
+    for name, want in expect.items():
+        check(counts.get(name, 0) == want,
+              f"{tag}: {name} {counts.get(name, 0)} launches a step "
+              f"({want})")
+
+
+def ernie_expect(L, recompute):
+    """Launches a pretraining step: the encoder's forward kernels (rows 1
+    and 7) run again in the backward under recompute; the embedding and
+    MLM-head LayerNorms (rows 5-6) are outside the encoder."""
+    k = 2 if recompute else 1
+    return {"flash_attention_packed": k * L,
+            "flash_attention_packed_bwd": L,
+            "residual_layer_norm": 2 * k * L,
+            "residual_layer_norm_bwd": 2 * L, "layer_norm": 2,
+            "layer_norm_bwd": 2}
+
+
+def timed_steps(step, params, state, batch, gen, steps, warm):
+    """``steps`` steps, the last ``steps - warm`` timed; returns (params,
+    state, mean ms, peak GiB over the timed steps, losses)."""
+    losses = []
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (steps - warm) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return params, state, ms, peak, torch.stack(losses).tolist()
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warnings only where an op has
+    none): the CUDA embedding backward adds duplicate ids' rows in
+    whatever order its atomics land, so the token-type gradient moves by
+    ~1e-6 between two runs of one step with or without recompute; the
+    bit-for-bit comparisons run with it off.  The port's kernels are
+    deterministic either way."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def grads_identical(ga, gb):
+    """Bit-for-bit equality of two gradient dicts; the largest difference
+    (0.0 when identical)."""
+    return max(max_abs(ga[k], gb[k]) for k in ga)
+
+
+def recipe_phase(seed):
+    """ERNIE-base pretraining with the BERT recipe, without recompute, with
+    it, and with the dots_saveable policy."""
+    from paddle_tpu_torch import convert, entry
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.text.ernie import (ErnieForPretraining,
+                                             ErniePretrainingCriterion)
+
+    base = ernie_cfg()
+    seq, b = TRAIN_SEQ, TRAIN_BATCH
+    n_mask = max(1, int(seq * 0.15))
+    crit = ErniePretrainingCriterion(base.vocab_size)
+    rng = np.random.default_rng(seed + 13)
+    small_batch = pretrain_batch(rng, 8, seq, base.vocab_size, n_mask,
+                                 pad_rows=2)
+    out = {"recipe": dict(RECIPE), "modes": {}}
+    counts_of = {}
+
+    # fp32 L2 b8: each mode's kernel path against its plain wrappers, and
+    # recompute against none (dropout 0 and 0.1, one generator)
+    small = {}
+    for rate in (0.0, 0.1):
+        for name, remat, policy in RECIPE_MODES:
+            cfg = ernie_cfg(remat, policy, num_hidden_layers=2,
+                            hidden_dropout_prob=rate,
+                            attention_probs_dropout_prob=rate)
+            model = ErnieForPretraining(
+                cfg, device=DEV, generator=torch.Generator().manual_seed(seed))
+            model.train()
+            step = entry.make_train_step(model, crit, _GradCapture())
+            params = convert.parameters_dict(model)
+            with deterministic():
+                g, _, loss = step(params, None, small_batch,
+                                  torch.Generator().manual_seed(seed))
+            small[(name, rate)] = (g, loss)
+            if rate > 0:
+                with plain_wrappers():
+                    gp, _, lp = step(params, None, small_batch,
+                                     torch.Generator().manual_seed(seed))
+                log(f"[recipe] fp32 L2 b8 s{seq} dropout {rate}, {name}: "
+                    f"kernel path vs plain wrappers")
+                steps_agree(loss, g, lp, gp, "plain")
+            del model, step, params
+    for rate in (0.0, 0.1):
+        g0, l0 = small[("plain", rate)]
+        for name in ("recompute", "dots_saveable"):
+            g1, l1 = small[(name, rate)]
+            d = grads_identical(g0, g1)
+            check(torch.equal(l0, l1) and d == 0.0,
+                  f"recipe fp32 L2 dropout {rate}: {name} loss and all "
+                  f"{len(g0)} gradients bit for bit those without recompute "
+                  f"(largest difference {d})")
+    del small
+
+    # the eager loop against the functional step, from one state (recipe,
+    # recompute on, dropout 0.1)
+    cfg = ernie_cfg(True, None, num_hidden_layers=2)
+    m1 = ErnieForPretraining(cfg, device=DEV,
+                             generator=torch.Generator().manual_seed(seed))
+    m2 = ErnieForPretraining(cfg, device=DEV,
+                             generator=torch.Generator().manual_seed(seed))
+    m1.train()
+    m2.train()
+    o1, o2 = recipe_optimizer(), recipe_optimizer()
+    o1._parameters = list(m1.parameters())
+    params = convert.parameters_dict(m2)
+    state = o2.init(params)
+    step = entry.make_train_step(m2, crit, o2)
+    for i in range(2):
+        with deterministic(), \
+                trandom.rng_scope(torch.Generator().manual_seed(seed + i)):
+            logits, nsp = m1(small_batch["input_ids"],
+                             small_batch["token_type_ids"],
+                             masked_positions=small_batch["masked_positions"])
+            loss1 = crit(logits.float(), nsp.float(),
+                         small_batch["mlm_labels"], small_batch["nsp_labels"])
+            loss1.backward()
+        o1.step()
+        o1.clear_grad()
+        with deterministic():
+            params, state, loss2 = step(
+                params, state, small_batch,
+                torch.Generator().manual_seed(seed + i))
+        check(torch.equal(loss1.detach(), loss2),
+              f"eager loop step {i}: loss {loss1.item():.6f} equals the "
+              f"functional step's")
+    d = max(max_abs(p1.detach(), p2.detach())
+            for p1, p2 in zip(m1.parameters(), m2.parameters()))
+    check(d == 0.0, f"eager loop (loss.backward; opt.step; opt.clear_grad) "
+          f"and make_train_step: parameters bit for bit after 2 recipe "
+          f"steps (largest difference {d})")
+    del m1, m2, o1, o2, params, state, step
+    torch.cuda.empty_cache()
+
+    # full width, bf16 over fp32 masters, b64: launches, timings, memory
+    L = base.num_hidden_layers
+    batch = pretrain_batch(rng, b, seq, base.vocab_size, n_mask)
+    H, I, V = base.hidden_size, base.intermediate_size, base.vocab_size
+    fwd_per_tok = (L * (8 * H * H + 4 * H * I + 4 * seq * H)
+                   + n_mask / seq * (2 * H * H + 2 * H * V)
+                   + (2 * H * H + 4 * H) / seq)
+    full_grads = {}
+    for name, remat, policy in RECIPE_MODES:
+        model = ErnieForPretraining(
+            ernie_cfg(remat, policy), device=DEV,
+            generator=torch.Generator().manual_seed(seed))
+        model.train()
+        params = convert.parameters_dict(model)
+        gstep = entry.make_train_step(model, crit, _GradCapture(),
+                                      torch.bfloat16)
+        with deterministic():
+            g, _, _ = gstep(params, None, batch,
+                            torch.Generator().manual_seed(seed))
+        full_grads[name] = g
+        if name != "plain":
+            d = grads_identical(full_grads["plain"], g)
+            check(d == 0.0, f"bf16 b{b} s{seq} dropout 0.1: {name} "
+                  f"gradients bit for bit those without recompute "
+                  f"(largest difference {d})")
+        del g
+        if name != "plain":
+            del full_grads[name]
+        opt = recipe_optimizer()
+        state = opt.init(params)
+        step = entry.make_train_step(model, crit, opt, torch.bfloat16)
+        gen = torch.Generator().manual_seed(seed)
+        (params, state, _), counts = count_one(step, params, state, batch,
+                                               gen)
+        check_counts(f"recipe {name}", counts, ernie_expect(L, remat))
+        counts_of[name] = counts
+        params, state, ms, peak, losses = timed_steps(
+            step, params, state, batch, gen, RECIPE_STEPS, RECIPE_WARM)
+        check(all(np.isfinite(losses)), f"recipe {name}: losses finite")
+        toks = b * seq / ms * 1e3
+        mfu = toks * 3 * fwd_per_tok / PEAK_FLOPS[torch.bfloat16]
+        lr = float(opt.get_lr(state["step"]))
+        log(f"[recipe] {name}: bf16 b{b} s{seq} step {ms:.2f} ms = "
+            f"{toks:.1f} tokens/s, MFU {mfu:.4f} (579.1 MFLOP/token, the "
+            f"recompute's extra forward not counted), peak {peak:.2f} GiB; "
+            f"LR at step {state['step']} {lr:.3e}; losses "
+            f"{[round(x, 4) for x in losses]}")
+        out["modes"][name] = dict(step_ms=ms, tokens_per_s=toks, mfu=mfu,
+                                  peak_gib=peak, launches=counts,
+                                  losses=losses)
+        del model, params, state, step, gstep, opt
+        torch.cuda.empty_cache()
+    del full_grads
+    base_ms = out["modes"]["plain"]["step_ms"]
+    for name in ("recompute", "dots_saveable"):
+        m = out["modes"][name]
+        m["step_vs_plain"] = m["step_ms"] / base_ms
+        log(f"[recipe] {name}: step x{m['step_vs_plain']:.3f} of no "
+            f"recompute, peak {m['peak_gib']:.2f} GiB vs "
+            f"{out['modes']['plain']['peak_gib']:.2f}")
+    out["scaler"] = scaler_check(seed)
+    return counts_of, out
+
+
+def scaler_check(seed):
+    """One GradScaler step with a non-finite gradient injected: the update
+    is skipped and the scale halves (decr_every_n_nan_or_inf=1); the next,
+    finite step updates and counts one good step."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.text.ernie import (ErnieForPretraining,
+                                             ErniePretrainingCriterion)
+
+    cfg = ernie_cfg(num_hidden_layers=2)
+    crit = ErniePretrainingCriterion(cfg.vocab_size)
+    model = ErnieForPretraining(cfg, device=DEV,
+                                generator=torch.Generator().manual_seed(seed))
+    model.train()
+    opt = recipe_optimizer()
+    opt._parameters = list(model.parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15,
+                        decr_every_n_nan_or_inf=1)
+    batch = pretrain_batch(np.random.default_rng(seed), 8, TRAIN_SEQ,
+                           cfg.vocab_size, max(1, int(TRAIN_SEQ * 0.15)))
+    ran, scales = [], []
+    for i, inject in enumerate((True, False)):
+        with trandom.rng_scope(torch.Generator().manual_seed(seed + i)):
+            logits, nsp = model(batch["input_ids"], batch["token_type_ids"],
+                                masked_positions=batch["masked_positions"])
+            loss = crit(logits.float(), nsp.float(), batch["mlm_labels"],
+                        batch["nsp_labels"])
+        scaler.scale(loss).backward()
+        if inject:
+            p = opt._parameters[5]
+            p.grad.view(-1)[7] = float("inf")
+        before = [p.detach().clone() for p in opt._parameters]
+        ran.append(scaler.step(opt))
+        scaler.update()
+        scales.append(scaler.get_scale())
+        moved = max(max_abs(a, p.detach())
+                    for a, p in zip(before, opt._parameters))
+        if inject:
+            check(not ran[-1] and moved == 0.0, "GradScaler: a non-finite "
+                  "gradient skips the update (no parameter moved)")
+        else:
+            check(ran[-1] and moved > 0.0, "GradScaler: the next finite step "
+                  "updates the parameters")
+        opt.clear_grad()
+    check(scales == [2.0 ** 14, 2.0 ** 14]
+          and scaler.state_dict()["incr_count"] == 1,
+          f"GradScaler state machine: scale {scales}, "
+          f"{scaler.state_dict()}")
+    return dict(ran=ran, scales=scales, state=scaler.state_dict())
+
+
+class Seq2Seq(torch.nn.Module):
+    """Transformer-base between the script's own pieces: one embedding of
+    the shared vocabulary (scaled by sqrt(d_model)) plus sinusoidal
+    positions and dropout on both sides, and the output projection tied to
+    the embedding (Vaswani et al. 2017, 3.4-3.5)."""
+
+    def __init__(self, vocab, layers=6, dropout=0.1, generator=None):
+        super().__init__()
+        from paddle_tpu_torch import nn as pnn
+
+        self.transformer = pnn.Transformer(
+            512, 8, layers, layers, 2048, dropout, generator=generator)
+        self.embedding = pnn.Embedding(vocab, 512, std=512 ** -0.5,
+                                       generator=generator)
+        self.dropout = pnn.Dropout(dropout)
+        self.d_model = 512
+
+    def embed(self, ids):
+        s = ids.shape[1]
+        pos = torch.arange(s, device=ids.device, dtype=torch.float32)[:, None]
+        i = torch.arange(0, self.d_model, 2, device=ids.device,
+                         dtype=torch.float32)
+        angle = pos / torch.pow(10000.0, i / self.d_model)
+        pe = torch.stack([angle.sin(), angle.cos()], -1).reshape(s, -1)
+        x = self.embedding(ids) * math.sqrt(self.d_model)
+        return self.dropout(x + pe.to(x.dtype))
+
+    def forward(self, src, tgt, tgt_mask):
+        h = self.transformer(self.embed(src), self.embed(tgt),
+                             tgt_mask=tgt_mask)
+        return torch.matmul(h, self.embedding.weight.t())
+
+
+def seq2seq_train_step(model, optimizer, compute_dtype):
+    """(params, state, batch, generator) -> (params, state, loss), as
+    ``entry.make_train_step`` builds it for ERNIE: compute in
+    ``compute_dtype`` over fp32 masters, fp32 cross-entropy over the
+    target tokens."""
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.nn import functional as F
+
+    def train_step(params, state, batch, gen):
+        names = list(params)
+        leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+        with trandom.rng_scope(gen):
+            p = {k: v.to(compute_dtype) if v.is_floating_point() else v
+                 for k, v in leaves.items()}
+            logits = torch.func.functional_call(
+                model, p, (batch["src"], batch["tgt"], batch["mask"]))
+            loss = F.cross_entropy(logits.float().reshape(
+                -1, logits.shape[-1]), batch["labels"].reshape(-1))
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        params, state = optimizer.update(dict(zip(names, grads)), state,
+                                         params)
+        return params, state, loss.detach()
+
+    return train_step
+
+
+def seq2seq_phase(seed):
+    """Transformer-base training steps at b64, 256 + 256 tokens."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.nn import Transformer
+
+    cfg = SEQ2SEQ
+    rng = np.random.default_rng(seed + 14)
+
+    def make_batch(b):
+        ids = lambda s: torch.from_numpy(rng.integers(
+            4, cfg["vocab"], (b, s))).to(DEV)
+        return {"src": ids(cfg["src"]), "tgt": ids(cfg["tgt"]),
+                "labels": ids(cfg["tgt"]),
+                "mask": Transformer.generate_square_subsequent_mask(
+                    cfg["tgt"], device=DEV)}
+
+    def noam_adam():
+        return O.Adam(O.lr.NoamDecay(512, 4000), beta1=0.9, beta2=0.98,
+                      epsilon=1e-9)
+
+    # fp32 at 2 + 2 layers, b8: kernel path vs plain wrappers at dropout 0.1
+    model = Seq2Seq(cfg["vocab"], cfg["check_layers"],
+                    generator=torch.Generator().manual_seed(seed)).to(DEV)
+    model.train()
+    batch = make_batch(cfg["check_batch"])
+    step = seq2seq_train_step(model, _GradCapture(), torch.float32)
+    params = convert.parameters_dict(model)
+    (g, _, loss), counts = count_one(step, params, None, batch,
+                                     torch.Generator().manual_seed(seed))
+    n = cfg["check_layers"]
+    check_counts("seq2seq fp32 check", counts, {
+        "flash_attention_packed": 2 * n, "flash_attention_packed_bwd": 2 * n,
+        "residual_layer_norm": 5 * n, "residual_layer_norm_bwd": 5 * n})
+    with plain_wrappers():
+        gp, _, lp = step(params, None, batch,
+                         torch.Generator().manual_seed(seed))
+    log(f"[seq2seq] fp32 Transformer {n}+{n} layers b{cfg['check_batch']}, "
+        f"dropout 0.1: kernel path vs plain wrappers")
+    steps_agree(loss, g, lp, gp, "plain")
+    del model, step, params, g, gp
+    torch.cuda.empty_cache()
+
+    # full depth, bf16 over fp32 masters, b64
+    b = cfg["batch"]
+    model = Seq2Seq(cfg["vocab"],
+                    generator=torch.Generator().manual_seed(seed)).to(DEV)
+    model.train()
+    params = convert.parameters_dict(model)
+    opt = noam_adam()
+    state = opt.init(params)
+    step = seq2seq_train_step(model, opt, torch.bfloat16)
+    batch = make_batch(b)
+    gen = torch.Generator().manual_seed(seed)
+    (params, state, _), counts = count_one(step, params, state, batch, gen)
+    # encoder self and decoder cross attention: packed kernel; decoder self
+    # attention under the (s, s) mask: the plain route
+    check_counts("seq2seq", counts, {
+        "flash_attention_packed": 12, "flash_attention_packed_bwd": 12,
+        "residual_layer_norm": 30, "residual_layer_norm_bwd": 30,
+        "layer_norm": 0, "layer_norm_bwd": 0})
+    params, state, ms, peak, losses = timed_steps(
+        step, params, state, batch, gen, SEQ2SEQ_STEPS, SEQ2SEQ_WARM)
+    check(all(np.isfinite(losses)), "seq2seq losses finite")
+    tgt_toks = b * cfg["tgt"] / ms * 1e3
+    all_toks = b * (cfg["src"] + cfg["tgt"]) / ms * 1e3
+    n_params = sum(p.numel() for p in params.values())
+    log(f"[seq2seq] Transformer-base bf16 b{b} src {cfg['src']} tgt "
+        f"{cfg['tgt']} ({n_params / 1e6:.1f} M parameters), Adam + "
+        f"NoamDecay(512, 4000): step {ms:.2f} ms = {tgt_toks:.1f} target "
+        f"tokens/s ({all_toks:.1f} source + target), peak {peak:.2f} GiB; "
+        f"losses {[round(x, 4) for x in losses]}")
+    out = dict(step_ms=ms, target_tokens_per_s=tgt_toks,
+               tokens_per_s=all_toks, peak_gib=peak, launches=counts,
+               losses=losses, parameters=n_params)
+    del model, params, state, step, opt
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def dygraph_quant_phase(seed):
+    """ERNIE-base QAT (ImperativeQuantAware) steps, PTQ to Int8Linear, and
+    the int32 accumulator against an int64 reference."""
+    from paddle_tpu_torch import convert, entry
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.slim import quant as squant
+    from paddle_tpu_torch.text.ernie import (ErnieForPretraining,
+                                             ErniePretrainingCriterion)
+
+    base = ernie_cfg()
+    seq = TRAIN_SEQ
+    n_mask = max(1, int(seq * 0.15))
+    crit = ErniePretrainingCriterion(base.vocab_size)
+    rng = np.random.default_rng(seed + 15)
+    out = {}
+
+    def scales(m):
+        return {k: v.clone() for k, v in m.named_buffers()
+                if k.endswith("in_scale")}
+
+    def restore(m, saved):
+        with torch.no_grad():
+            for k, v in m.named_buffers():
+                if k in saved:
+                    v.copy_(saved[k])
+
+    # fp32 L2 b8: the QAT step's kernel path against its plain wrappers
+    model = ErnieForPretraining(ernie_cfg(num_hidden_layers=2), device=DEV,
+                                generator=torch.Generator().manual_seed(seed))
+    slim.ImperativeQuantAware().quantize(model)
+    model.train()
+    step = entry.make_train_step(model, crit, _GradCapture())
+    params = convert.parameters_dict(model)
+    batch = pretrain_batch(rng, 8, seq, base.vocab_size, n_mask, pad_rows=2)
+    s0 = scales(model)
+    (g, _, loss), _ = count_one(step, params, None, batch,
+                                torch.Generator().manual_seed(seed))
+    s1 = scales(model)
+    restore(model, s0)
+    with plain_wrappers():
+        gp, _, lp = step(params, None, batch,
+                         torch.Generator().manual_seed(seed))
+    log("[qat] fp32 L2 b8 QAT step: kernel path vs plain wrappers")
+    steps_agree(loss, g, lp, gp, "plain", floor=1.0)
+    sd = max(abs(float(s1[k]) - float(v)) / float(v)
+             for k, v in scales(model).items())
+    check(all(float(v) > 0 for v in s1.values()) and sd <= 1 / 127,
+          f"{len(s1)} activation scales learned, the two paths' within "
+          f"{sd:.3g} relative (<= one int8 level, 1/127: a rounding "
+          f"difference ahead of a quantizer moves an activation by a "
+          f"level, and the abs-maxes after it)")
+    del model, step, params, g, gp
+    torch.cuda.empty_cache()
+
+    # full width bf16 b64: QAT steps with the recipe
+    b = TRAIN_BATCH
+    model = ErnieForPretraining(base, device=DEV,
+                                generator=torch.Generator().manual_seed(seed))
+    slim.ImperativeQuantAware().quantize(model)
+    model.train()
+    params = convert.parameters_dict(model)
+    opt = recipe_optimizer()
+    state = opt.init(params)
+    step = entry.make_train_step(model, crit, opt, torch.bfloat16)
+    batch = pretrain_batch(rng, b, seq, base.vocab_size, n_mask)
+    gen = torch.Generator().manual_seed(seed)
+    (params, state, _), qat_counts = count_one(step, params, state, batch,
+                                               gen)
+    check_counts("qat", qat_counts, ernie_expect(base.num_hidden_layers,
+                                                 False))
+    params, state, ms, peak, losses = timed_steps(
+        step, params, state, batch, gen, QAT_TRAIN_STEPS + 1, 1)
+    check(all(np.isfinite(losses)), "QAT losses finite")
+    log(f"[qat] ERNIE-base QAT bf16 b{b} s{seq}: step {ms:.2f} ms = "
+        f"{b * seq / ms * 1e3:.1f} tokens/s, peak {peak:.2f} GiB")
+    out["qat"] = dict(step_ms=ms, tokens_per_s=b * seq / ms * 1e3,
+                      peak_gib=peak, launches=qat_counts, losses=losses)
+    del model, params, state, step, opt
+    torch.cuda.empty_cache()
+
+    # PTQ: calibrate ERNIE-base's Linears, convert, the b8 eval forward
+    model = ErnieForPretraining(base, device=DEV,
+                                generator=torch.Generator().manual_seed(seed))
+    model.eval()
+    ids = lambda: torch.from_numpy(rng.integers(5, base.vocab_size,
+                                                (PTQ_BATCH, seq))).to(DEV)
+    x = ids()
+    with torch.no_grad():
+        ref = model(x)[0].float()
+    ptq = slim.PostTrainingQuantization(model)
+    for _ in range(PTQ_CALIB_BATCHES):
+        ptq.sample(ids())
+    ptq.convert()
+    n_int8 = sum(isinstance(m, squant.Int8Linear) for m in model.modules())
+    with torch.no_grad():
+        (got, _), ptq_counts = count_one(model, x)
+    err = rel_err(got.float(), ref)
+    check(n_int8 == 6 * base.num_hidden_layers + 3 and torch.isfinite(
+        got).all() and err <= TOL_PTQ_REL,
+        f"PTQ ERNIE-base: {n_int8} Int8Linear layers; the int8 b{PTQ_BATCH} "
+        f"s{seq} MLM logits within {err:.4f} of the largest fp32 logit "
+        f"(<= {TOL_PTQ_REL})")
+    check_counts("PTQ forward", ptq_counts, {
+        "flash_attention_packed": base.num_hidden_layers,
+        "residual_layer_norm": 2 * base.num_hidden_layers, "layer_norm": 2})
+    # Int8Linear's int32 accumulator against an int64 product
+    lin = model.ernie.encoder.layers[0].linear1
+    h = torch.randn(PTQ_BATCH * seq, base.hidden_size, device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(seed))
+    xq = lin.quantize_input(h * 2.0)
+    acc = squant.int8_matmul(xq, lin.w_int8)
+    ref64 = xq.cpu().to(torch.int64) @ lin.w_int8.cpu().to(torch.int64)
+    check(acc.dtype == torch.int32 and torch.equal(acc.cpu().to(torch.int64),
+                                                   ref64),
+          f"Int8Linear int32 accumulator ({tuple(acc.shape)}, |max| "
+          f"{int(ref64.abs().max())}) equals the int64 product exactly")
+    odd = squant.int8_matmul(xq[:5, :40], lin.w_int8[:40, :6])
+    odd64 = xq[:5, :40].cpu().to(torch.int64) @ \
+        lin.w_int8[:40, :6].cpu().to(torch.int64)
+    check(torch.equal(odd.cpu().to(torch.int64), odd64),
+          "int8_matmul padded to torch._int_mm's shape rules (5 x 40 x 6) "
+          "exact")
+    log(f"[ptq] ERNIE-base int8 b{PTQ_BATCH} s{seq}: logits rel err {err:.4f}"
+        f" of the largest; launches {ptq_counts}")
+    out["ptq"] = dict(rel_err=err, int8_layers=n_int8, launches=ptq_counts)
+    del model, ptq
+    torch.cuda.empty_cache()
+    return qat_counts, ptq_counts, out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4209,6 +4853,12 @@ def main(argv=None):
     cold, cold_rows = cold_phase(args.seed)
     torch.cuda.empty_cache()
     qat_counts, float_counts, static_train = static_train_phase(args.seed)
+    torch.cuda.empty_cache()
+    recipe_counts, recipe = recipe_phase(args.seed)
+    torch.cuda.empty_cache()
+    seq2seq_counts, seq2seq = seq2seq_phase(args.seed)
+    torch.cuda.empty_cache()
+    dyq_counts, ptq_counts, dygraph_quant = dygraph_quant_phase(args.seed)
     torch.cuda.empty_cache()
 
     kernels = []
@@ -4335,6 +4985,16 @@ def main(argv=None):
             entry["cold_cases"] = cold_cases
             entry["cold_forward"] = [r for r in cold_rows
                                      if r["name"] == entry["name"]]
+    # this slice's paths: each recipe mode, Transformer-base, the QAT
+    # step and the PTQ forward, each counted from 0 around one step
+    slice_paths = {f"recipe_{m}_launches": c for m, c in
+                   recipe_counts.items()}
+    slice_paths.update(seq2seq_launches=seq2seq_counts,
+                       qat_launches=dyq_counts, ptq_launches=ptq_counts)
+    for entry in kernels:
+        if entry["name"] in ERNIE_KERNELS:
+            for key, c in slice_paths.items():
+                entry[key] = c.get(entry["name"], 0)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"bhsd": dict(bhsd_model, kernel_a_max_abs_err=cross)}),
           flush=True)
@@ -4345,6 +5005,9 @@ def main(argv=None):
     print(json.dumps({"cold": {"cases": list(cold.values()),
                                "forward": cold_rows}}), flush=True)
     print(json.dumps({"static_train": static_train}), flush=True)
+    print(json.dumps({"recipe": recipe}), flush=True)
+    print(json.dumps({"seq2seq": seq2seq}), flush=True)
+    print(json.dumps({"dygraph_quant": dygraph_quant}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

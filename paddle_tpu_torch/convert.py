@@ -1,5 +1,6 @@
 """Weights and state from the JAX package into the port (counterpart of
-paddle_tpu/autograd ``parameters_dict``; static programs' persistables).
+paddle_tpu/autograd ``parameters_dict``; static programs' persistables;
+optimizer, LR-scheduler and loss-scaler state mid-run).
 
 The port's parameter names are the JAX package's qualified names, and
 Linear weights keep Paddle's (in, out) layout, so conversion is a checked
@@ -21,28 +22,39 @@ def parameters_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     return dict(model.named_parameters())
 
 
-def from_jax_params(np_params: Dict[str, np.ndarray], model: nn.Module,
-                    dtype: Optional[torch.dtype] = None) -> nn.Module:
-    """Copy the JAX package's ``parameters_dict(model)`` output (as numpy
-    arrays) into ``model`` in place, with strict key and shape checks.
-    ``dtype`` casts every floating parameter afterwards (bfloat16 to serve);
-    tied parameters stay tied.  Returns ``model``."""
-    own = parameters_dict(model)
-    missing = sorted(set(own) - set(np_params))
-    unexpected = sorted(set(np_params) - set(own))
+def _checked_copy(own, np_values, what):
+    missing = sorted(set(own) - set(np_values))
+    unexpected = sorted(set(np_values) - set(own))
     if missing or unexpected:
-        raise KeyError(f"from_jax_params: missing keys {missing}, "
-                       f"unexpected keys {unexpected}")
+        raise KeyError(f"from_jax_params: missing {what} {missing}, "
+                       f"unexpected {what} {unexpected}")
     with torch.no_grad():
         for name, p in own.items():
-            arr = np.asarray(np_params[name])
+            arr = np.asarray(np_values[name])
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"from_jax_params: {name} has shape "
                                  f"{arr.shape}, the model expects "
                                  f"{tuple(p.shape)}")
             if arr.dtype.kind == "f" and arr.dtype != np.float64:
                 arr = arr.astype(np.float32)
-            p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            p.copy_(torch.from_numpy(np.array(arr, order="C")))
+
+
+def from_jax_params(np_params: Dict[str, np.ndarray], model: nn.Module,
+                    dtype: Optional[torch.dtype] = None,
+                    buffers: Optional[Dict[str, np.ndarray]] = None
+                    ) -> nn.Module:
+    """Copy the JAX package's ``parameters_dict(model)`` output (as numpy
+    arrays) into ``model`` in place, with strict key and shape checks: an
+    ERNIE, a ``Transformer``, or a model after ``ImperativeQuantAware``
+    (whose wrapped weights are ``<layer>.inner.weight``).  ``buffers``, the
+    JAX ``buffers_dict(model)`` (a QAT model's ``in_scale`` EMA scales),
+    is copied into the model's buffers the same way.  ``dtype`` casts every
+    floating parameter afterwards (bfloat16 to serve); tied parameters stay
+    tied.  Returns ``model``."""
+    _checked_copy(parameters_dict(model), np_params, "keys")
+    if buffers is not None:
+        _checked_copy(dict(model.named_buffers()), buffers, "buffers")
     if dtype is not None:
         model.to(dtype)
     return model
@@ -117,3 +129,58 @@ def static_state_from_jax(jax_program, jax_state: Dict[str, np.ndarray],
         scope.set(d.name, torch.from_numpy(np.array(arr)).to(
             device=dev, dtype=d.dtype))
     return scope
+
+
+def _slots_to_torch(slots, like: torch.Tensor):
+    """A JAX optimizer slot (an array, a tuple of arrays or ``()``) as
+    tensors on ``like``'s device, each keeping its dtype."""
+    if isinstance(slots, (tuple, list)):
+        return tuple(_slots_to_torch(s, like) for s in slots)
+    arr = np.array(slots)
+    if arr.dtype.name == "bfloat16":          # ml_dtypes' numpy bfloat16
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=like.device, dtype=torch.bfloat16)
+    return torch.from_numpy(arr).to(like.device)
+
+
+def optimizer_state_from_jax(jax_state, params: Dict[str, torch.Tensor]):
+    """The port's optimizer state for ``params`` ({name: tensor}) from a
+    JAX ``opt.init`` / ``opt.update`` state over the same names.
+
+    The JAX state's ``per_param`` is a list in ``tree_leaves`` order, which
+    for a dict of parameters is sorted key order, and its ``step`` a traced
+    int32; the port keys slots by name, so each slot is matched by name
+    (never by the port dict's own order), shape-checked, and the step
+    becomes an int."""
+    names = sorted(params)
+    per = list(jax_state["per_param"])
+    if len(per) != len(names):
+        raise ValueError(f"optimizer_state_from_jax: the JAX state has "
+                         f"{len(per)} slots, the port {len(names)} "
+                         f"parameters")
+    out = {}
+    for name, slots in zip(names, per):
+        t = _slots_to_torch(slots, params[name])
+        for s in (t if isinstance(t, tuple) else (t,)):
+            if tuple(s.shape) != tuple(params[name].shape):
+                raise ValueError(f"optimizer_state_from_jax: a slot of "
+                                 f"{name} has shape {tuple(s.shape)}, the "
+                                 f"parameter {tuple(params[name].shape)}")
+        out[name] = t
+    return {"per_param": {n: out[n] for n in params},
+            "step": int(np.asarray(jax_state["step"]))}
+
+
+def scheduler_state_from_jax(jax_state: Dict) -> Dict:
+    """A JAX ``LRScheduler.state_dict()`` as the port scheduler's
+    ``set_state_dict`` argument (plain Python numbers)."""
+    return {"last_epoch": int(jax_state["last_epoch"]),
+            "last_lr": float(jax_state["last_lr"])}
+
+
+def grad_scaler_state_from_jax(jax_state: Dict) -> Dict:
+    """A JAX ``GradScaler.state_dict()`` as the port scaler's
+    ``load_state_dict`` argument."""
+    return {"scale": float(jax_state["scale"]),
+            "incr_count": int(jax_state["incr_count"]),
+            "decr_count": int(jax_state["decr_count"])}

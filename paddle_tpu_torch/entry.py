@@ -6,7 +6,10 @@
 * ``make_train_step(model, criterion, optimizer, compute_dtype)`` builds
   the pretraining step that ``bench.py`` runs: forward in
   ``compute_dtype`` over fp32 master parameters, MLM + NSP loss, backward,
-  optimizer update.
+  optimizer update.  Recompute comes with the model
+  (``ErnieConfig(enable_recompute=..., recompute_policy=...)``); the
+  optimizer is any of ``paddle_tpu_torch.optimizer``'s, its gradient clip,
+  weight decay and LR schedule applied inside ``update``.
 """
 from __future__ import annotations
 
@@ -59,7 +62,9 @@ def make_train_step(model, criterion, optimizer,
     optionally ``masked_positions`` (fed to the model, so only the masked
     tokens reach the vocabulary decoder).  Logits go to fp32 before the
     criterion.  Dropout draws from ``generator``, a CPU ``torch.Generator``
-    opened as the active one (``core.random.rng_scope``).  Gradients with
+    opened as the active one (``core.random.rng_scope``); under recompute
+    the backward's replay draws the forward's seeds again
+    (``autograd.recompute``).  Gradients with
     respect to the masters come from ``torch.autograd.grad``; then
     ``optimizer.update`` applies them (in place for the port's
     optimizers).  ``loss`` is a detached fp32 scalar tensor.

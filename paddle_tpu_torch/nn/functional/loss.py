@@ -1,6 +1,8 @@
-"""Cross-entropy losses (counterpart of paddle_tpu/nn/functional/loss.py
-``softmax_with_cross_entropy`` and ``cross_entropy``), with the
-reference's parameter order.
+"""Losses (counterpart of paddle_tpu/nn/functional/loss.py), with the
+reference's parameter order: the cross-entropies, ``nll_loss``, the
+regression losses, the binary cross-entropies, ``kl_div``, ``log_loss``,
+``hinge_loss`` and ``margin_ranking_loss``.  ``ctc_loss`` is not ported
+(ROADMAP.md).
 
 The log-softmax is taken in fp32 whatever the logits' type, for bf16
 stability.  Hard labels equal to ``ignore_index`` give a loss of 0 and no
@@ -52,3 +54,98 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def nll_loss(log_probs, label, weight=None, ignore_index=-100,
+             reduction="mean"):
+    """-log_probs at the label over the last axis; ignored labels give 0;
+    ``weight`` scales by the label's class.  "mean" divides by every
+    label's count, as the JAX package does."""
+    label = label.long()
+    picked = torch.gather(log_probs, -1,
+                          label.clamp_min(0)[..., None])[..., 0]
+    loss = torch.where(label == ignore_index, torch.zeros_like(picked),
+                       -picked)
+    if weight is not None:
+        loss = loss * weight[label.clamp_min(0)]
+    return _reduce(loss, reduction)
+
+
+def mse_loss(input, label, reduction="mean"):
+    return _reduce(torch.square(input - label), reduction)
+
+
+def square_error_cost(input, label):
+    """Per-element squared error."""
+    return torch.square(input - label)
+
+
+def l1_loss(input, label, reduction="mean"):
+    return _reduce(torch.abs(input - label), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    diff = torch.abs(input - label)
+    loss = torch.where(diff < delta, 0.5 * diff * diff / delta,
+                       diff - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean"):
+    """On probabilities, each log clipped at 1e-12."""
+    eps = 1e-12
+    loss = -(label * torch.log(input.clamp_min(eps))
+             + (1 - label) * torch.log((1 - input).clamp_min(eps)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    """On logits, the stable form in fp32: (1 - y) x + w (log(1 +
+    exp(-|x|)) + max(-x, 0)), w = (pos_weight - 1) y + 1 (1 without
+    ``pos_weight``); the loss goes back to the logits' dtype."""
+    x = logit.float()
+    y = label.float()
+    max_val = (-x).clamp_min(0)
+    soft = torch.log1p(torch.exp(-x.abs()))
+    if pos_weight is not None:
+        log_w = (pos_weight - 1) * y + 1
+        loss = (1 - y) * x + log_w * (soft + max_val)
+    else:
+        loss = (1 - y) * x + max_val + soft
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss.to(logit.dtype), reduction)
+
+
+def kl_div(input, label, reduction="mean"):
+    """label (log label - input), ``input`` in log space; "batchmean"
+    divides the sum by the batch."""
+    loss = label * (torch.log(label.clamp_min(1e-12)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+def log_loss(input, label, epsilon=1e-4):
+    return -(label * torch.log(input + epsilon)
+             + (1 - label) * torch.log(1 - input + epsilon))
+
+
+def hinge_loss(input, label):
+    return (1 - input * (2 * label - 1)).clamp_min(0)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
+    return _reduce((-label * (input - other) + margin).clamp_min(0),
+                   reduction)

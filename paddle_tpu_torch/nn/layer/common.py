@@ -6,49 +6,53 @@ every device; a model moves them to its device afterwards.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-from ...core import dtype as _dtype
 from .. import functional as F
+from .. import initializer as I
 
 
-def xavier_uniform(shape, generator: Optional[torch.Generator] = None):
-    """Glorot uniform over (fan_in, fan_out) = shape[:2], as the JAX
-    package's XavierUniform for a 2-D weight."""
-    fan_in, fan_out = shape[0], shape[1]
-    limit = math.sqrt(6.0 / (fan_in + fan_out))
-    u = torch.rand(shape, generator=generator, dtype=torch.float32)
-    return (u * (2.0 * limit) - limit).to(_dtype.get_default_dtype())
+def param_init(attr, default):
+    """The initializer of a ``weight_attr`` / ``bias_attr``: any object with
+    an ``.initializer`` (the JAX package has no ParamAttr class and reads
+    the attribute), else ``default``."""
+    return getattr(attr, "initializer", None) or default
 
 
-def normal(shape, std, generator: Optional[torch.Generator] = None):
-    w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
-    return w.to(_dtype.get_default_dtype())
+def make_param(module, name, init, shape,
+               generator: Optional[torch.Generator] = None):
+    """Register ``name`` on ``module`` drawn from ``init`` and record the
+    initializer on the module (``_initializers``), so a cloned stack can
+    draw its copies anew from it (transformer ``_reinit``)."""
+    if "_initializers" not in module.__dict__:
+        module._initializers = {}
+    module._initializers[name] = init
+    setattr(module, name, nn.Parameter(init(shape, generator=generator)))
 
 
 class Linear(nn.Module):
     """y = x W + b with W: (in_features, out_features), Paddle's layout
-    (not torch's (out, in)), so converted weights keep their shape."""
+    (not torch's (out, in)), so converted weights keep their shape.  The
+    weight is XavierUniform and the bias 0 unless ``weight_attr`` /
+    ``bias_attr`` carry an initializer; ``bias_attr=False`` means no bias.
+    ``name`` is accepted (a module has no parameter names of its own)."""
 
-    def __init__(self, in_features, out_features,
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(
-            xavier_uniform((in_features, out_features), generator))
-        self.bias = nn.Parameter(torch.zeros(
-            out_features, dtype=_dtype.get_default_dtype()))
-
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        with torch.no_grad():
-            self.weight.copy_(xavier_uniform(tuple(self.weight.shape),
-                                             generator))
-            self.bias.zero_()
+        make_param(self, "weight", param_init(weight_attr, I.XavierUniform()),
+                   (in_features, out_features), generator)
+        if bias_attr is False:
+            self.register_parameter("bias", None)
+        else:
+            make_param(self, "bias", param_init(bias_attr, I.Constant(0.0)),
+                       (out_features,), generator)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -59,10 +63,11 @@ class Linear(nn.Module):
 
 class Embedding(nn.Module):
     """ref nn/layer/common.py Embedding, with the reference's parameter
-    order.  ``padding_idx`` zeroes that id's output row.  The port's
-    initialisation is N(0, ``std``) from ``generator`` (keyword-only);
-    ``sparse=True`` and a ``weight_attr`` are not ported and raise, and
-    ``name`` is accepted (a module has no parameter names of its own)."""
+    order.  ``padding_idx`` zeroes that id's output row.  The weight is
+    drawn from ``weight_attr``'s initializer, else N(0, ``std``) (``std``
+    and ``generator`` keyword-only; the reference's default is N(0, 1)).
+    ``sparse=True`` (a sparse gradient) is not ported and raises; ``name``
+    is accepted (a module has no parameter names of its own)."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *, std=1.0,
@@ -72,16 +77,12 @@ class Embedding(nn.Module):
             raise NotImplementedError(
                 "Embedding(sparse=True) is not ported to paddle_tpu_torch "
                 "yet")
-        if weight_attr is not None:
-            raise NotImplementedError(
-                "Embedding(weight_attr=...) is not ported to "
-                "paddle_tpu_torch yet; pass std= and generator=")
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.padding_idx = padding_idx
         self.sparse = sparse
-        self.weight = nn.Parameter(
-            normal((num_embeddings, embedding_dim), std, generator))
+        make_param(self, "weight", param_init(weight_attr, I.Normal(0.0, std)),
+                   (num_embeddings, embedding_dim), generator)
 
     def forward(self, x):
         return F.embedding(x, self.weight, padding_idx=self.padding_idx)
@@ -91,12 +92,16 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    def __init__(self, p=0.5):
+    """Dropout in the reference's modes (``upscale_in_train``,
+    ``downgrade_in_infer``)."""
+
+    def __init__(self, p=0.5, mode="upscale_in_train"):
         super().__init__()
         self.p = p
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, p=self.p, training=self.training)
+        return F.dropout(x, p=self.p, training=self.training, mode=self.mode)
 
     def extra_repr(self):
         return f"p={self.p}"

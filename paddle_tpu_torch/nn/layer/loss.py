@@ -1,0 +1,114 @@
+"""Loss layers (counterpart of paddle_tpu/nn/layer/loss.py): each holds its
+options and calls the functional loss."""
+from __future__ import annotations
+
+from torch import nn
+
+from .. import functional as F
+
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
+           "BCELoss", "BCEWithLogitsLoss", "NLLLoss", "KLDivLoss",
+           "MarginRankingLoss"]
+
+
+class CrossEntropyLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1):
+        super().__init__()
+        self._weight_arr = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+        self.soft_label = soft_label
+        self.axis = axis
+
+    def forward(self, input, label):
+        return F.cross_entropy(input, label, weight=self._weight_arr,
+                               ignore_index=self.ignore_index,
+                               reduction=self.reduction,
+                               soft_label=self.soft_label, axis=self.axis)
+
+
+class MSELoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, reduction=self.reduction)
+
+
+class L1Loss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.l1_loss(input, label, reduction=self.reduction)
+
+
+class SmoothL1Loss(nn.Module):
+    def __init__(self, reduction="mean", delta=1.0):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, reduction=self.reduction,
+                                delta=self.delta)
+
+
+class BCELoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean"):
+        super().__init__()
+        self._weight_arr = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, weight=self._weight_arr,
+                                      reduction=self.reduction)
+
+
+class BCEWithLogitsLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None):
+        super().__init__()
+        self._weight_arr = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, weight=self._weight_arr, reduction=self.reduction,
+            pos_weight=self.pos_weight)
+
+
+class NLLLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean"):
+        super().__init__()
+        self._weight_arr = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, weight=self._weight_arr,
+                          ignore_index=self.ignore_index,
+                          reduction=self.reduction)
+
+
+class KLDivLoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, reduction=self.reduction)
+
+
+class MarginRankingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean"):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, margin=self.margin,
+                                     reduction=self.reduction)

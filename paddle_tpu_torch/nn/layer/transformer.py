@@ -11,7 +11,12 @@ place, and runs ``ops.attention.flash_attention`` (that kernel where its
 gates hold, else the plain reference), or the explicit softmax when
 ``need_weights``.  The post-LN sublayer tail
 ``LN(residual + dropout(out))`` goes to the fused residual + LayerNorm
-kernel.  The decoder and recompute wait for later slices.
+kernel, in the encoder and the decoder alike.  ``TransformerEncoder``
+with ``enable_recompute`` runs each layer under ``autograd.recompute`` in
+training (the layer's forward, kernels included, runs again inside the
+backward, with the same dropout draws).  Parameters are built on the CPU
+from ``generator`` (keyword-only; torch's default generator when None);
+the caller moves the model to its device.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from ...core import flags
+from ...core.device import resolve_device
 from ...core import random as _random
 from ...ops import attention as attn_ops
 from ...ops.kernels import layer_norm as _fln
@@ -43,7 +49,8 @@ class MultiHeadAttention(nn.Module):
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
-                 vdim=None, need_weights=False,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.embed_dim = embed_dim
@@ -54,10 +61,12 @@ class MultiHeadAttention(nn.Module):
                              f"num_heads {num_heads}")
         self.dropout = dropout
         self.need_weights = need_weights
-        self.q_proj = Linear(embed_dim, embed_dim, generator=generator)
-        self.k_proj = Linear(kdim or embed_dim, embed_dim, generator=generator)
-        self.v_proj = Linear(vdim or embed_dim, embed_dim, generator=generator)
-        self.out_proj = Linear(embed_dim, embed_dim, generator=generator)
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                     generator=generator)
+        self.q_proj = Linear(embed_dim, embed_dim, **attrs)
+        self.k_proj = Linear(kdim or embed_dim, embed_dim, **attrs)
+        self.v_proj = Linear(vdim or embed_dim, embed_dim, **attrs)
+        self.out_proj = Linear(embed_dim, embed_dim, **attrs)
 
     def _split_heads(self, x):
         b, s, _ = x.shape
@@ -142,6 +151,7 @@ def _sublayer_epilogue(layer, out, residual, norm, dropout_layer):
     otherwise the composition runs."""
     rate = float(dropout_layer.p) if layer.training else 0.0
     if (not layer.normalize_before
+            and norm.weight is not None and norm.bias is not None
             and flags.get_flag("use_fused_layer_norm")
             and len(norm.normalized_shape) == 1):
         seed = _random.draw_seed() if rate > 0.0 else None
@@ -159,16 +169,18 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False,
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.normalize_before = normalize_before
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                     generator=generator)
         self.self_attn = MultiHeadAttention(
             d_model, nhead,
             dropout=attn_dropout if attn_dropout is not None else dropout,
-            generator=generator)
-        self.linear1 = Linear(d_model, dim_feedforward, generator=generator)
-        self.linear2 = Linear(dim_feedforward, d_model, generator=generator)
+            **attrs)
+        self.linear1 = Linear(d_model, dim_feedforward, **attrs)
+        self.linear2 = Linear(dim_feedforward, d_model, **attrs)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.dropout1 = Dropout(dropout)
@@ -200,33 +212,45 @@ class TransformerEncoderLayer(nn.Module):
         return src if cache is None else (src, cache)
 
 
+def _clones(layer, num_layers, generator):
+    """``layer`` and ``num_layers - 1`` deep copies of it, each copy's
+    parameters drawn anew (``_reinit``)."""
+    layers = [layer]
+    for _ in range(num_layers - 1):
+        clone = copy.deepcopy(layer)
+        _reinit(clone, generator)
+        layers.append(clone)
+    return nn.ModuleList(layers)
+
+
 class TransformerEncoder(nn.Module):
-    """``num_layers`` copies of ``encoder_layer``; the copies' Linear
-    weights are drawn anew, as the JAX package re-initialises its deep
-    copies."""
+    """``num_layers`` copies of ``encoder_layer``, the copies' parameters
+    drawn anew.  ``enable_recompute`` recomputes each layer's activations
+    in the backward (training mode, no cache), under ``recompute_policy``
+    (``autograd.checkpoint_policy``'s names)."""
 
     def __init__(self, encoder_layer, num_layers, norm=None,
+                 enable_recompute=False, recompute_policy=None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        layers = [encoder_layer]
-        for _ in range(num_layers - 1):
-            layer = copy.deepcopy(encoder_layer)
-            for m in layer.modules():
-                if isinstance(m, Linear):
-                    m.reset_parameters(generator)
-            layers.append(layer)
-        self.layers = nn.ModuleList(layers)
+        self.layers = _clones(encoder_layer, num_layers, generator)
         self.num_layers = num_layers
         self.norm = norm
+        self.enable_recompute = enable_recompute
+        self.recompute_policy = recompute_policy
 
     def forward(self, src, src_mask=None, cache=None):
         """The stack's output; with ``cache`` (one attention ``Cache`` per
         layer, as ``gen_cache`` makes), ``(output, grown caches)``."""
         output = src
         new_caches = []
+        remat = self.enable_recompute and self.training and cache is None
         for i, layer in enumerate(self.layers):
             if cache is None:
-                output = layer(output, src_mask=src_mask)
+                if remat:
+                    output = self._recompute_layer(layer, output, src_mask)
+                else:
+                    output = layer(output, src_mask=src_mask)
             else:
                 output, c = layer(output, src_mask=src_mask, cache=cache[i])
                 new_caches.append(c)
@@ -237,3 +261,179 @@ class TransformerEncoder(nn.Module):
     def gen_cache(self, src):
         """One empty attention ``Cache`` per layer."""
         return [layer.self_attn.gen_cache(src) for layer in self.layers]
+
+    def _recompute_layer(self, layer, x, mask):
+        """``layer(x, src_mask=mask)`` under ``autograd.recompute``.  The
+        replay runs in the backward, after a ``functional_call`` that bound
+        other tensors to the parameters (a train step's compute-dtype casts)
+        has restored the module's own: so the tensors bound now go in as
+        inputs, and the function binds them again each time it runs."""
+        from ...autograd import recompute
+
+        names, tensors = zip(*layer.named_parameters())
+
+        def run(x, m, *bound):
+            return torch.func.functional_call(
+                layer, dict(zip(names, bound)), (x,), {"src_mask": m})
+
+        return recompute(run, x, mask, *tensors,
+                         policy=self.recompute_policy)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self attention + cross attention over ``memory`` + FFN;
+    ``normalize_before`` toggles pre-/post-LN.  A ``cache`` is the pair
+    (self-attention ``Cache``, cross-attention ``StaticCache`` or None)."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.normalize_before = normalize_before
+        ad = attn_dropout if attn_dropout is not None else dropout
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                     generator=generator)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout=ad,
+                                            **attrs)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, dropout=ad,
+                                             **attrs)
+        self.linear1 = Linear(d_model, dim_feedforward, **attrs)
+        self.linear2 = Linear(dim_feedforward, d_model, **attrs)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.act_dropout = Dropout(act_dropout if act_dropout is not None
+                                   else dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            out = self.self_attn(tgt, tgt, tgt, attn_mask=tgt_mask)
+        else:
+            out, sc = self.self_attn(tgt, tgt, tgt, attn_mask=tgt_mask,
+                                     cache=cache[0])
+        tgt = _sublayer_epilogue(self, out, residual, self.norm1,
+                                 self.dropout1)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        static = (cache[1] if cache is not None and isinstance(
+            cache[1], MultiHeadAttention.StaticCache) else None)
+        out = self.cross_attn(tgt, memory, memory, attn_mask=memory_mask,
+                              cache=static)
+        tgt = _sublayer_epilogue(self, out, residual, self.norm2,
+                                 self.dropout2)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.act_dropout(self.activation(
+            self.linear1(tgt))))
+        tgt = _sublayer_epilogue(self, tgt, residual, self.norm3,
+                                 self.dropout3)
+        return tgt if cache is None else (tgt, (sc, cache[1]))
+
+
+class TransformerDecoder(nn.Module):
+    """``num_layers`` copies of ``decoder_layer``, the copies' parameters
+    drawn anew."""
+
+    def __init__(self, decoder_layer, num_layers, norm=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layers = _clones(decoder_layer, num_layers, generator)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        """The stack's output; with ``cache`` (one layer cache each, as
+        ``gen_cache`` makes), ``(output, grown caches)``."""
+        output = tgt
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                output = layer(output, memory, tgt_mask=tgt_mask,
+                               memory_mask=memory_mask)
+            else:
+                output, c = layer(output, memory, tgt_mask=tgt_mask,
+                                  memory_mask=memory_mask, cache=cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+
+class Transformer(nn.Module):
+    """Encoder-decoder (Vaswani et al. 2017; the reference's defaults are
+    Transformer-base): ``forward(src, tgt)`` returns the decoder's output
+    over the encoded ``src``.  Built on the CPU from ``generator``."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        args = (d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            self.encoder = TransformerEncoder(
+                TransformerEncoderLayer(*args, generator=generator),
+                num_encoder_layers,
+                LayerNorm(d_model) if normalize_before else None,
+                generator=generator)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            self.decoder = TransformerDecoder(
+                TransformerDecoderLayer(*args, generator=generator),
+                num_decoder_layers,
+                LayerNorm(d_model) if normalize_before else None,
+                generator=generator)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask=src_mask)
+        return self.decoder(tgt, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length, *, device=None):
+        """Additive fp32 causal mask (length, length): 0 on and below the
+        diagonal, -1e9 above, on ``device`` (default CUDA)."""
+        dev = resolve_device(device)
+        keep = torch.ones((length, length), dtype=torch.bool,
+                          device=dev).tril()
+        return torch.where(keep, 0.0, -1e9).to(torch.float32)
+
+
+def _reinit(layer, generator=None):
+    """Draw a deep-copied layer tree's parameters anew from each one's
+    recorded initializer (so a ``weight_attr``'s distribution holds across
+    the cloned stack); a parameter with none and two or more dimensions
+    takes XavierUniform, as in the JAX package."""
+    from .. import initializer as init
+
+    with torch.no_grad():
+        for m in layer.modules():
+            inits = m.__dict__.get("_initializers", {})
+            for name, p in m.named_parameters(recurse=False):
+                ini = inits.get(name)
+                if ini is None and p.dim() >= 2:
+                    ini = init.XavierUniform()
+                if ini is not None:
+                    p.copy_(ini(tuple(p.shape), p.dtype, generator=generator))

@@ -1,5 +1,16 @@
-"""Optimizers of the port (counterpart of paddle_tpu.optimizer)."""
+"""Optimizers of the port (counterpart of paddle_tpu.optimizer): the
+optimizer base with weight decay, gradient clipping and LR schedules, the
+ten optimizers, the clips and the schedulers (``lr``)."""
+from . import lr
+from .grad_clip import (ClipGradByGlobalNorm, ClipGradByNorm,
+                        ClipGradByValue, GradientClipByGlobalNorm,
+                        GradientClipByNorm, GradientClipByValue)
 from .optimizer import Optimizer
-from .optimizers import Adam
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                         LarsMomentum, Momentum, RMSProp)
 
-__all__ = ["Optimizer", "Adam"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "Adadelta", "RMSProp", "Lamb", "LarsMomentum",
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "GradientClipByValue", "GradientClipByNorm",
+           "GradientClipByGlobalNorm"]

@@ -24,7 +24,8 @@ class ErnieConfig:
                  num_attention_heads=12, intermediate_size=3072,
                  hidden_act="gelu", hidden_dropout_prob=0.1,
                  attention_probs_dropout_prob=0.1, max_position_embeddings=513,
-                 type_vocab_size=2, initializer_range=0.02, pad_token_id=0):
+                 type_vocab_size=2, initializer_range=0.02, pad_token_id=0,
+                 enable_recompute=False, recompute_policy=None):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_hidden_layers = num_hidden_layers
@@ -37,6 +38,11 @@ class ErnieConfig:
         self.type_vocab_size = type_vocab_size
         self.initializer_range = initializer_range
         self.pad_token_id = pad_token_id
+        # per-layer recompute of the encoder in training, under an
+        # autograd.checkpoint_policy name (e.g. "dots_saveable" keeps the
+        # matrix products and recomputes the rest)
+        self.enable_recompute = enable_recompute
+        self.recompute_policy = recompute_policy
 
 
 class ErnieEmbeddings(nn.Module):
@@ -100,7 +106,9 @@ class ErnieModel(nn.Module):
             attn_dropout=config.attention_probs_dropout_prob, act_dropout=0.0,
             generator=generator)
         self.encoder = pnn.TransformerEncoder(
-            enc_layer, config.num_hidden_layers, generator=generator)
+            enc_layer, config.num_hidden_layers,
+            enable_recompute=config.enable_recompute,
+            recompute_policy=config.recompute_policy, generator=generator)
         self.pooler = ErniePooler(config.hidden_size, generator)
         self.to(dev)
 

@@ -49,8 +49,8 @@ def _kernel_modules():
 
 def test_import_scan_covers_every_package_of_the_port():
     names = _all_modules()
-    for pkg in ("core", "nn", "ops.kernels", "optimizer", "serving",
-                "slim", "static", "text", "utils"):
+    for pkg in ("amp", "autograd", "core", "nn", "ops.kernels",
+                "optimizer", "serving", "slim", "static", "text", "utils"):
         assert f"paddle_tpu_torch.{pkg}" in names, pkg
     for mod in ("serving.paged", "serving.slo", "serving.continuous",
                 "utils.monitor", "core.errors", "ops.kernels.paged_attention",
@@ -61,7 +61,8 @@ def test_import_scan_covers_every_package_of_the_port():
                 "static.nets", "static.ops", "static.ops_fused",
                 "static.passes", "static.executor", "static.ops_tail",
                 "ops.kernels.bn_act_train", "ops.kernels.int8", "slim.quant",
-                "slim.quant_static"):
+                "slim.quant_static", "optimizer.lr", "optimizer.grad_clip",
+                "nn.layer.conv", "nn.layer.loss"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 

@@ -29,6 +29,7 @@ from paddle_tpu.static import analysis as janalysis
 from paddle_tpu_torch import convert
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.nn import initializer as tinit
 from paddle_tpu_torch.serving import paged as TPG
 from paddle_tpu_torch.static import passes as TP
 
@@ -117,8 +118,13 @@ def test_embedding_port_arguments_are_keyword_only_and_unported_raise():
         tnn.Embedding(6, 3, None, False, None, None, 0.5)
     with pytest.raises(NotImplementedError):
         tnn.Embedding(6, 3, None, True)
-    with pytest.raises(NotImplementedError):
-        tnn.Embedding(6, 3, None, False, object())
+    # a weight_attr is read as the JAX package reads it: its .initializer
+    # when it has one, else the default
+    attr = type("A", (), {"initializer": tinit.Constant(0.25)})()
+    assert float(tnn.Embedding(6, 3, None, False, attr).weight.min()) == 0.25
+    assert tnn.Embedding(6, 3, None, False, object(), std=0.5,
+                         generator=torch.Generator().manual_seed(0)
+                         ).weight.abs().max() > 0
     with pytest.raises(NotImplementedError):
         TF.embedding(torch.zeros(2, dtype=torch.int32), emb.weight, None,
                      True)
@@ -151,3 +157,254 @@ def test_diagnostic_fields_in_the_reference_order():
     assert tf == jf
     assert [getattr(t, n) for n in tf] == [getattr(j, n) for n in jf]
     assert TP.Diagnostic("PV011", "error", "m", var="v").block == 0
+
+
+# -- the dygraph-training slice: every class and function it adds or
+# touches binds positional arguments as the reference does ----------------
+
+import inspect  # noqa: E402
+
+from paddle_tpu import amp as jamp  # noqa: E402
+from paddle_tpu import autograd as jautograd  # noqa: E402
+from paddle_tpu import optimizer as jopt  # noqa: E402
+from paddle_tpu import slim as jslim  # noqa: E402
+from paddle_tpu.nn import initializer as jinit  # noqa: E402
+from paddle_tpu.text import ernie as jernie  # noqa: E402
+from paddle_tpu_torch import amp as tamp  # noqa: E402
+from paddle_tpu_torch import autograd as tautograd  # noqa: E402
+from paddle_tpu_torch import optimizer as topt  # noqa: E402
+from paddle_tpu_torch import slim as tslim  # noqa: E402
+from paddle_tpu_torch.text import ernie as ternie  # noqa: E402
+
+_NN_CLASSES = ["Linear", "Embedding", "Dropout", "LayerNorm",
+               "MultiHeadAttention", "TransformerEncoderLayer",
+               "TransformerEncoder", "TransformerDecoderLayer",
+               "TransformerDecoder", "Transformer", "Conv2D",
+               "CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
+               "BCELoss", "BCEWithLogitsLoss", "NLLLoss", "KLDivLoss",
+               "MarginRankingLoss"]
+_LOSS_FUNCTIONS = ["nll_loss", "mse_loss", "square_error_cost", "l1_loss",
+                   "smooth_l1_loss", "binary_cross_entropy",
+                   "binary_cross_entropy_with_logits", "kl_div", "log_loss",
+                   "hinge_loss", "margin_ranking_loss"]
+_INITIALIZERS = ["Constant", "Uniform", "Normal", "TruncatedNormal",
+                 "XavierUniform", "XavierNormal", "KaimingUniform",
+                 "KaimingNormal", "Assign", "Bilinear"]
+_OPTIMIZERS = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+               "Adagrad", "Adadelta", "RMSProp", "Lamb", "LarsMomentum"]
+_OPTIMIZER_METHODS = ["init", "update", "step", "get_lr", "set_lr",
+                      "state_dict", "set_state_dict", "clear_grad",
+                      "clear_gradients", "minimize"]
+_SCHEDULERS = ["LRScheduler", "NoamDecay", "ExponentialDecay",
+               "NaturalExpDecay", "InverseTimeDecay", "PolynomialDecay",
+               "PiecewiseDecay", "CosineAnnealingDecay", "LinearWarmup",
+               "StepDecay", "MultiStepDecay", "LambdaDecay",
+               "ReduceOnPlateau"]
+_SCHEDULER_METHODS = ["get_lr_at", "get_lr", "step", "state_dict",
+                      "set_state_dict"]
+_CLIPS = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+          "GradientClipByValue", "GradientClipByNorm",
+          "GradientClipByGlobalNorm"]
+_SCALER_METHODS = ["scale", "unscale_", "update", "step", "minimize",
+                   "state_dict", "load_state_dict", "get_scale",
+                   "is_enable"]
+_QUANT = ["QuantizedLinear", "QuantizedConv2D", "ImperativeQuantAware",
+          "PostTrainingQuantization", "Int8Linear"]
+
+
+def _callables():
+    """(label, reference callable, port callable) for every class (its
+    constructor), method and function of the slice."""
+    pairs = []
+    for n in _NN_CLASSES:
+        pairs.append((f"nn.{n}", getattr(jnn, n), getattr(tnn, n)))
+    pairs.append(("Transformer.generate_square_subsequent_mask",
+                  jnn.Transformer.generate_square_subsequent_mask,
+                  tnn.Transformer.generate_square_subsequent_mask))
+    for n in ("forward", "gen_cache"):
+        pairs.append((f"TransformerEncoder.{n}",
+                      getattr(jnn.TransformerEncoder, n),
+                      getattr(tnn.TransformerEncoder, n)))
+    for c in ("TransformerDecoderLayer", "TransformerDecoder", "Transformer"):
+        pairs.append((f"{c}.forward", getattr(jnn, c).forward,
+                      getattr(tnn, c).forward))
+    for n in _LOSS_FUNCTIONS:
+        pairs.append((f"F.{n}", getattr(JF, n), getattr(TF, n)))
+    for n in _INITIALIZERS:
+        pairs.append((f"initializer.{n}", getattr(jinit, n),
+                      getattr(tinit, n)))
+        pairs.append((f"initializer.{n}.__call__",
+                      getattr(jinit, n).__call__, getattr(tinit, n).__call__))
+    for n in _OPTIMIZERS:
+        pairs.append((f"optimizer.{n}", getattr(jopt, n), getattr(topt, n)))
+    for m in _OPTIMIZER_METHODS:
+        pairs.append((f"Optimizer.{m}", getattr(jopt.Optimizer, m),
+                      getattr(topt.Optimizer, m)))
+    for n in _SCHEDULERS:
+        pairs.append((f"lr.{n}", getattr(jopt.lr, n), getattr(topt.lr, n)))
+        for m in _SCHEDULER_METHODS:
+            pairs.append((f"lr.{n}.{m}", getattr(getattr(jopt.lr, n), m),
+                          getattr(getattr(topt.lr, n), m)))
+    for n in _CLIPS:
+        pairs.append((f"optimizer.{n}", getattr(jopt, n), getattr(topt, n)))
+    for n in ("auto_cast", "amp_guard", "amp_cast", "decorate",
+              "GradScaler", "AmpScaler"):
+        pairs.append((f"amp.{n}", getattr(jamp, n), getattr(tamp, n)))
+    for m in _SCALER_METHODS:
+        pairs.append((f"GradScaler.{m}", getattr(jamp.GradScaler, m),
+                      getattr(tamp.GradScaler, m)))
+    for n in ("recompute", "checkpoint_policy"):
+        pairs.append((f"autograd.{n}", getattr(jautograd, n),
+                      getattr(tautograd, n)))
+    for n in _QUANT:
+        pairs.append((f"slim.{n}", getattr(jslim.quant, n),
+                      getattr(tslim.quant, n)))
+    pairs.append(("slim._CalibHook", jslim.quant._CalibHook,
+                  tslim.quant._CalibHook))
+    for m in ("quantize",):
+        pairs.append((f"ImperativeQuantAware.{m}",
+                      jslim.ImperativeQuantAware.quantize,
+                      tslim.ImperativeQuantAware.quantize))
+    for m in ("sample", "convert"):
+        pairs.append((f"PostTrainingQuantization.{m}",
+                      getattr(jslim.PostTrainingQuantization, m),
+                      getattr(tslim.PostTrainingQuantization, m)))
+    pairs.append(("ErnieConfig", jernie.ErnieConfig, ternie.ErnieConfig))
+    return pairs
+
+
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+               inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _positional(fn):
+    sig = inspect.signature(fn)
+    return [(p.name, p.default) for p in sig.parameters.values()
+            if p.kind in _POSITIONAL and p.name != "self"], \
+        [p.kind for p in sig.parameters.values()
+         if p.kind in (inspect.Parameter.VAR_POSITIONAL,
+                       inspect.Parameter.VAR_KEYWORD)]
+
+
+def _plain(v):
+    return v is None or isinstance(v, (bool, int, float, str, tuple))
+
+
+@pytest.mark.parametrize("label,ref,port", _callables(),
+                         ids=[c[0] for c in _callables()])
+def test_positional_parameters_match_the_reference(label, ref, port):
+    """The same positional parameter names in the same order (extras of
+    the port are keyword-only), the same variadic parameters, and the same
+    defaults where both are plain values (dtypes and arrays aside)."""
+    (rp, rv), (pp, pv) = _positional(ref), _positional(port)
+    assert [n for n, _ in pp] == [n for n, _ in rp], label
+    assert pv == rv, label
+    for (name, rd), (_, pd) in zip(rp, pp):
+        if _plain(rd) and _plain(pd) and rd is not inspect.Parameter.empty:
+            assert pd == rd, (label, name, pd, rd)
+
+
+def test_repaired_constructors_called_positionally_in_both_packages():
+    jattr = type("A", (), {"initializer": jinit.Constant(0.5)})()
+    tattr = type("A", (), {"initializer": tinit.Constant(0.5)})()
+    # Linear(in, out, weight_attr, bias_attr, name)
+    jl, tl = jnn.Linear(4, 3, jattr, False, "n"), tnn.Linear(4, 3, tattr,
+                                                             False, "n")
+    assert jl.bias is None and tl.bias is None
+    np.testing.assert_array_equal(tl.weight.detach().numpy(),
+                                  np.asarray(jl.weight.value))
+    # MultiHeadAttention(..., need_weights, weight_attr, bias_attr)
+    jm = jnn.MultiHeadAttention(8, 2, 0.0, None, None, False, jattr, False)
+    tm = tnn.MultiHeadAttention(8, 2, 0.0, None, None, False, tattr, False)
+    for j, t in ((jm.q_proj, tm.q_proj), (jm.out_proj, tm.out_proj)):
+        assert j.bias is None and t.bias is None
+        np.testing.assert_array_equal(t.weight.detach().numpy(),
+                                      np.asarray(j.weight.value))
+    # TransformerEncoderLayer(..., normalize_before, weight_attr, bias_attr)
+    jel = jnn.TransformerEncoderLayer(8, 2, 16, 0.0, "relu", None, None,
+                                      True, jattr, False)
+    tel = tnn.TransformerEncoderLayer(8, 2, 16, 0.0, "relu", None, None,
+                                      True, tattr, False)
+    assert jel.normalize_before and tel.normalize_before
+    assert tel.linear1.bias is None and jel.linear1.bias is None
+    assert float(tel.linear2.weight.min()) == 0.5
+    # TransformerEncoder(encoder_layer, num_layers, norm, enable_recompute,
+    #                    recompute_policy)
+    je = jnn.TransformerEncoder(jel, 2, None, True, "dots_saveable")
+    te = tnn.TransformerEncoder(tel, 2, None, True, "dots_saveable")
+    for e in (je, te):
+        assert e.enable_recompute is True
+        assert e.recompute_policy == "dots_saveable"
+        assert e.norm is None and e.num_layers == 2
+    # LayerNorm(normalized_shape, epsilon, weight_attr, bias_attr)
+    jn, tn = jnn.LayerNorm(8, 1e-6, False, None), tnn.LayerNorm(8, 1e-6,
+                                                              False, None)
+    assert jn.weight is None and tn.weight is None
+    assert tn.bias is not None and tn.epsilon == jn.epsilon == 1e-6
+    x = np.random.default_rng(0).normal(0, 1, (3, 8)).astype(np.float32)
+    np.testing.assert_allclose(tn(torch.from_numpy(x)).detach().numpy(),
+                               np.asarray(jn(jnp.asarray(x))), rtol=1e-5,
+                               atol=1e-6)
+    # Dropout(p, mode)
+    jd = jnn.Dropout(0.25, "downgrade_in_infer")
+    td = tnn.Dropout(0.25, "downgrade_in_infer")
+    jd.eval()
+    td.eval()
+    assert td.mode == jd.mode == "downgrade_in_infer"
+    np.testing.assert_allclose(td(torch.from_numpy(x)).numpy(),
+                               np.asarray(jd(jnp.asarray(x))), rtol=1e-6)
+
+
+def test_generator_is_keyword_only_on_the_repaired_constructors():
+    gen = torch.Generator().manual_seed(0)
+    for cls, args in ((tnn.Linear, (4, 3)),
+                      (tnn.MultiHeadAttention, (8, 2)),
+                      (tnn.TransformerEncoderLayer, (8, 2, 16)),
+                      (tnn.TransformerDecoderLayer, (8, 2, 16))):
+        cls(*args, generator=gen)
+        p = inspect.signature(cls).parameters["generator"]
+        assert p.kind is inspect.Parameter.KEYWORD_ONLY, cls
+    layer = tnn.TransformerEncoderLayer(8, 2, 16)
+    p = inspect.signature(tnn.TransformerEncoder).parameters["generator"]
+    assert p.kind is inspect.Parameter.KEYWORD_ONLY
+    with pytest.raises(TypeError):
+        tnn.TransformerEncoder(layer, 2, None, False, None, gen)
+
+
+@pytest.mark.parametrize("name", ["Constant", "Assign", "Bilinear"])
+def test_fixed_initializers_equal_the_reference(name):
+    shape = (2, 3, 4, 4)
+    args = {"Constant": (0.75,),
+            "Assign": (np.arange(96, dtype=np.float32).reshape(shape),),
+            "Bilinear": ()}[name]
+    ref = np.asarray(getattr(jinit, name)(*args)(shape))
+    got = getattr(tinit, name)(*args)(shape, torch.float32)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("name,args,check", [
+    ("Uniform", (-0.3, 0.2), ("range", -0.3, 0.2)),
+    ("Normal", (0.5, 2.0), ("moments", 0.5, 2.0)),
+    ("TruncatedNormal", (0.0, 1.0), ("range", -2.0, 2.0)),
+    ("XavierUniform", (), ("range", -np.sqrt(6 / 1000), np.sqrt(6 / 1000))),
+    ("XavierNormal", (), ("moments", 0.0, np.sqrt(2 / 1000))),
+    ("KaimingUniform", (), ("range", -np.sqrt(6 / 400), np.sqrt(6 / 400))),
+    ("KaimingNormal", (), ("moments", 0.0, np.sqrt(2 / 400))),
+])
+def test_random_initializers_draw_the_reference_distribution(name, args,
+                                                             check):
+    """(400, 600) draws: the reference's bounds, or its mean and standard
+    deviation within 5 %; one generator seed gives one draw."""
+    shape = (400, 600)
+    init = getattr(tinit, name)(*args)
+    a = init(shape, generator=torch.Generator().manual_seed(1))
+    b = init(shape, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and a.dtype == torch.float32
+    ref = np.asarray(getattr(jinit, name)(*args)(shape))
+    for x in (a.numpy(), ref):
+        if check[0] == "range":
+            assert x.min() >= check[1] - 1e-6 and x.max() <= check[2] + 1e-6
+            assert x.max() - x.min() > 0.99 * (check[2] - check[1])
+        else:
+            assert abs(x.mean() - check[1]) < 0.05 * check[2] + 1e-3
+            assert abs(x.std() - check[2]) < 0.05 * check[2]
