@@ -248,15 +248,50 @@ Phases (any failed check raises, so the script exits non-zero):
               s512 eval forward through ``Int8Linear`` (its MLM logits'
               error against the fp32 forward, of the largest logit), and
               ``Int8Linear``'s int32 accumulator equal to an int64 product.
+17. ops     -- every exported op of the tensor op library
+              (``paddle_tpu_torch.ops.cases``: 250 ops, the table the CPU
+              parity test holds against the JAX package) on the card and
+              on the CPU on the same inputs: every output a tensor on the
+              card; data movement, integers, booleans and creation bit for
+              bit, elementwise and reductions within rtol 1e-5 / atol
+              1e-6, products, solves and the flash-attention op within
+              1e-4 / 1e-5, decompositions by their reconstructions (1e-4);
+              random ops in range and repeated bit for bit under one seed
+              on the card.
+18. dygraph -- ERNIE-base fine-tuned for sentence classification
+              (``ErnieForSequenceClassification``, 2 classes) through the
+              book's loop under ``dygraph.guard()``: ``loss =
+              mean(cross_entropy(model(ids, types, attention_mask=mask),
+              labels)); loss.backward(); opt.minimize(loss);
+              model.clear_gradients()``, BERT's GLUE recipe (b32 s128,
+              lengths 16-128 from --seed, dropout 0.1, AdamW 2e-5 with
+              weight decay 0.01, 10% linear warm-up into a linear decay,
+              global-norm clip 1.0, fp32, TF32 off), the weights put in
+              with ``set_state_dict`` as numpy arrays under the JAX
+              package's names.  Checks: at fp32 L2 the loop's step on the
+              kernels against its plain wrappers (loss, every gradient at
+              TOL_TRAIN_*), and two steps bit for bit those of
+              ``autograd.value_and_grad`` + ``opt.update`` (deterministic
+              algorithms on); at full width 12 / 12 / 24 / 24 / 1 / 1
+              launches of rows 1 / 2 / 7 / 8 / 5 / 6 a step, 2 warm-up and
+              5 timed steps (step ms, sequences/s, real tokens/s, peak
+              memory, finite losses); then one eval batch under
+              ``no_grad`` (12 / 24 / 1 forward launches, finite logits,
+              accuracy by ``argmax`` / ``equal`` / ``cast`` / ``mean``),
+              and a torch.profiler split of two more steps.
+Phases 17 and 18 run right after the build (and row 11's profile),
+before the first CUDA graph capture: the card's profiler loses eager
+launches after one.
 
 Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"paged": ...}``, ``{"static": ...}``, ``{"vision_train": ...}``,
 ``{"int8": ...}``, ``{"cold": ...}``, ``{"static_train": ...}``,
-``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}`` and
-``{"kernels": [...]}`` JSON lines (one kernel entry for each of the 15 TPU
-kernels; rows 10 and 13-15 with their launches on the static-train path,
-rows 11-13 with their cold times, rows 1, 2 and 5-8 with their launches
-on each path of phases 14-16) and the card's name and power limit;
+``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}``,
+``{"ops": ...}``, ``{"dygraph": ...}`` and ``{"kernels": [...]}`` JSON
+lines (one kernel entry for each of the 15 TPU kernels; rows 10 and 13-15
+with their launches on the static-train path, rows 11-13 with their cold
+times, rows 1, 2 and 5-8 with their launches on each path of phases 14-16
+and 18) and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -1085,10 +1120,23 @@ def pretrain_batch(rng, b, s, vocab, n_mask, pad_rows=0):
 
 
 def profile_steps(step, params, state, batch, gen, steps=2):
-    """Device time of ``steps`` train steps by kernel, from torch.profiler:
-    the top kernels, the split into the port's kernels / matrix products /
-    the rest, and the device's busy share of the wall time (the profiler's
-    own host cost is in the wall time)."""
+    """``profile_split`` of ``steps`` train steps of ``make_train_step``'s
+    form; returns the parameters and state after them."""
+    box = [params, state]
+
+    def run():
+        box[0], box[1], _ = step(box[0], box[1], batch, gen)
+
+    profile_split(run, steps)
+    return box[0], box[1]
+
+
+def profile_split(run, steps=2):
+    """Device time of ``steps`` calls of ``run`` (a train step) by kernel,
+    from torch.profiler: the top kernels, the split into the port's
+    kernels / matrix products / the rest, and the device's busy share of
+    the wall time (the profiler's own host cost is in the wall time).
+    Returns the split per step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1096,7 +1144,7 @@ def profile_steps(step, params, state, batch, gen, steps=2):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            params, state, _ = step(params, state, batch, gen)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(((us / 1e3 / steps, count // steps, name)
@@ -1123,16 +1171,18 @@ def profile_steps(step, params, state, batch, gen, steps=2):
                                              key=lambda kv: -kv[1])))
     for ms, count, name in kernels[:20]:
         log(f"  {ms:8.3f} ms  x{count:<4d} {name[:100]}")
-    return params, state
+    return dict(busy_ms=busy, wall_ms=step_ms, kinds=kinds, port=ours)
 
 
-def steps_agree(loss, grads, loss_ref, grads_ref, ref_name, floor=1e-4):
+def steps_agree(loss, grads, loss_ref, grads_ref, ref_name, floor=1e-4,
+                grad_tol=TOL_TRAIN_GRAD_REL):
     """One fp32 train step's loss and every gradient against another run of
     the step: the loss within TOL_TRAIN_LOSS_REL, each gradient within
-    TOL_TRAIN_GRAD_REL of its largest value, floored at ``floor`` of the
-    largest gradient of all (1e-4: the key-projection bias's is rounding
-    noise; 1 under fake quantization, where a last-bit difference ahead of
-    a quantizer moves an activation by a whole level)."""
+    ``grad_tol`` (TOL_TRAIN_GRAD_REL unless a phase names its own) of its
+    largest value, floored at ``floor`` of the largest gradient of all
+    (1e-4: the key-projection bias's is rounding noise; 1 under fake
+    quantization, where a last-bit difference ahead of a quantizer moves an
+    activation by a whole level)."""
     r = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
     check(r <= TOL_TRAIN_LOSS_REL, f"loss {loss.item():.6f} vs {ref_name} "
           f"{loss_ref.item():.6f}: rel err {r:.3g} <= {TOL_TRAIN_LOSS_REL}")
@@ -1143,9 +1193,9 @@ def steps_agree(loss, grads, loss_ref, grads_ref, ref_name, floor=1e-4):
     own = max((max_abs(grads[k], g) / max(float(g.abs().max()), 1e-30), k)
               for k, g in grads_ref.items())
     what = "the gradient's max" if floor < 1 else "the largest gradient"
-    check(worst[0] <= TOL_TRAIN_GRAD_REL, f"{len(grads_ref)} gradients vs "
+    check(worst[0] <= grad_tol, f"{len(grads_ref)} gradients vs "
           f"{ref_name}: worst err {worst[0]:.3g} of {what} ({worst[1]}) <= "
-          f"{TOL_TRAIN_GRAD_REL}; of its own max {own[0]:.3g} ({own[1]})")
+          f"{grad_tol}; of its own max {own[0]:.3g} ({own[1]})")
 
 
 def train_phase(seed):
@@ -3684,9 +3734,11 @@ TRAIN_FUSED = {"vgg16_bn_drop": 13, "resnet32": 33}
 # in its last bit (each pixel times 1 +- 2^-24, rounded to fp32), moves
 # them by a few 1e-3 of the largest, and every fp32 run, card or CPU,
 # lands about as far from it (1.7e-3 - 3.8e-3 on the H100 and its host,
-# PERF.md).  A step on another batch reads above 1.
-TOL_TRAIN_LOSS_REL = 1e-5
-TOL_TRAIN_GRAD_REL = 1e-2
+# PERF.md).  A step on another batch reads above 1.  These limits hold
+# this section alone; the dygraph phases keep TOL_TRAIN_LOSS_REL /
+# TOL_TRAIN_GRAD_REL.
+TOL_STATIC_TRAIN_LOSS_REL = 1e-5
+TOL_STATIC_TRAIN_GRAD_REL = 1e-2
 # A real fault must read far above the gradient limit: the card's first
 # step on another batch (a feed bound to the wrong data) against the
 # witness must exceed FAULT_MARGIN times it.
@@ -3876,16 +3928,17 @@ def train_cpu_check(name, seed, batch):
                 "CPU fp32"):
         r = out[run]
         check(np.isfinite(outs[run][0][0])
-              and r["loss_rel_err"] <= TOL_TRAIN_LOSS_REL
-              and r["grad_err_of_largest"] <= TOL_TRAIN_GRAD_REL,
+              and r["loss_rel_err"] <= TOL_STATIC_TRAIN_LOSS_REL
+              and r["grad_err_of_largest"] <= TOL_STATIC_TRAIN_GRAD_REL,
               f"{name} b{batch} step 1, {run} vs the float64 witness: loss "
-              f"rel err {r['loss_rel_err']:.3g} <= {TOL_TRAIN_LOSS_REL}, "
+              f"rel err {r['loss_rel_err']:.3g} <= "
+              f"{TOL_STATIC_TRAIN_LOSS_REL}, "
               f"{len(grads)} gradients {r['grad_err_of_largest']:.3g} of "
-              f"the largest <= {TOL_TRAIN_GRAD_REL}")
+              f"the largest <= {TOL_STATIC_TRAIN_GRAD_REL}")
     fault = out["card, another batch"]["grad_err_of_largest"]
-    check(fault > FAULT_MARGIN * TOL_TRAIN_GRAD_REL,
+    check(fault > FAULT_MARGIN * TOL_STATIC_TRAIN_GRAD_REL,
           f"{name}: the step on another batch reads {fault:.3g} of the "
-          f"largest gradient > {FAULT_MARGIN} x {TOL_TRAIN_GRAD_REL}")
+          f"largest gradient > {FAULT_MARGIN} x {TOL_STATIC_TRAIN_GRAD_REL}")
     return out
 
 
@@ -4196,6 +4249,17 @@ SEQ2SEQ = dict(vocab=32000, batch=64, src=256, tgt=256, check_batch=8,
                check_layers=2)
 SEQ2SEQ_STEPS, SEQ2SEQ_WARM = 7, 2
 QAT_TRAIN_STEPS = 2
+# The kernel path against its plain wrappers, each gradient of its largest
+# value.  Transformer-base's decoder: its ReLU FFN switches where an input
+# sits at 0, and a last-bit difference on either side of 0 flips the
+# decision and the whole unit's gradient with it (a decoder linear1.bias
+# read 5.09e-3 on an H100).  QAT: a last-bit difference ahead of a
+# quantizer moves an activation by a whole int8 level (held against the
+# largest gradient of all, 4.77e-3 on an H100).  Each phase's limit is
+# about twice its reading; phases 4, 5, 14 and 18 keep
+# TOL_TRAIN_GRAD_REL.
+TOL_SEQ2SEQ_GRAD_REL = 1e-2
+TOL_QAT_GRAD_REL = 1e-2
 PTQ_CALIB_BATCHES, PTQ_BATCH = 3, 8
 # int8 ERNIE logits against fp32, of the largest: a sanity bound (a wrong
 # int8 path reads O(1)); the reading is printed
@@ -4602,7 +4666,7 @@ def seq2seq_phase(seed):
                          torch.Generator().manual_seed(seed))
     log(f"[seq2seq] fp32 Transformer {n}+{n} layers b{cfg['check_batch']}, "
         f"dropout 0.1: kernel path vs plain wrappers")
-    steps_agree(loss, g, lp, gp, "plain")
+    steps_agree(loss, g, lp, gp, "plain", grad_tol=TOL_SEQ2SEQ_GRAD_REL)
     del model, step, params, g, gp
     torch.cuda.empty_cache()
 
@@ -4686,7 +4750,8 @@ def dygraph_quant_phase(seed):
         gp, _, lp = step(params, None, batch,
                          torch.Generator().manual_seed(seed))
     log("[qat] fp32 L2 b8 QAT step: kernel path vs plain wrappers")
-    steps_agree(loss, g, lp, gp, "plain", floor=1.0)
+    steps_agree(loss, g, lp, gp, "plain", floor=1.0,
+                grad_tol=TOL_QAT_GRAD_REL)
     sd = max(abs(float(s1[k]) - float(v)) / float(v)
              for k, v in scales(model).items())
     check(all(float(v) > 0 for v in s1.values()) and sd <= 1 / 127,
@@ -4772,6 +4837,323 @@ def dygraph_quant_phase(seed):
     torch.cuda.empty_cache()
     return qat_counts, ptq_counts, out
 
+# -- phase 17: the tensor op library ---------------------------------------
+
+def ops_phase(seed):
+    """Every exported op of the library (``paddle_tpu_torch.ops.cases``, the
+    table the CPU parity test runs against the JAX package) on the card
+    and on the CPU on the same inputs: every tensor out lies on the card;
+    exact families bit for bit, the rest within ``cases.TOLERANCE``,
+    decompositions by their reconstructions (1e-4), random ops by their
+    range and by repeating under one seed on the card."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.ops import cases as C
+
+    def on(dev):
+        return lambda a: torch.from_numpy(a).to(dev)
+
+    t0 = time.perf_counter()
+    worst = {}
+    names = set()
+    for i, case in enumerate(C.CASES):
+        args, kwargs = case.make(np.random.default_rng(seed + i))
+        fn = getattr(P, case.name)
+        names.add(case.name)
+        tag = f"{case.name} (case {i})"
+        if case.family == "random":
+            draws = []
+            with P.device_guard(DEV):
+                for _ in range(2):
+                    P.seed(seed + i)
+                    draws.append(fn(*C.to_framework(args, on(DEV)),
+                                    **kwargs))
+            a, b = draws
+            ok = (a.device.type == torch.device(DEV).type
+                  and torch.equal(a, b)
+                  and case.check(args, a.cpu().numpy()))
+            if not ok:
+                check(False, f"ops {tag}: a draw on the card, repeated under "
+                      f"one seed, in range")
+            continue
+        with P.device_guard("cpu"):
+            ref = fn(*C.to_framework(args, on("cpu")),
+                     **C.to_framework(kwargs, on("cpu")))
+        with P.device_guard(DEV):
+            got = fn(*C.to_framework(args, on(DEV)),
+                     **C.to_framework(kwargs, on(DEV)))
+        rl, gl = C.leaves(ref), C.leaves(got)
+        if len(rl) != len(gl) or not all(
+                isinstance(g, torch.Tensor)
+                and g.device.type == torch.device(DEV).type for g in gl):
+            check(False, f"ops {tag}: every output a tensor on the card")
+        gl = [g.cpu() for g in gl]
+        if case.family == "decomp":
+            out = [g.numpy() for g in gl]
+            err = case.check(args, out if len(out) > 1 else out[0])
+            ok = err < 1e-4
+        else:
+            err = 0.0
+            ok = all(r.shape == g.shape and r.dtype == g.dtype
+                     for r, g in zip(rl, gl))
+            for r, g in zip(rl, gl):
+                if not ok:
+                    break
+                if case.family == "exact" or not (r.is_floating_point()
+                                                 or r.is_complex()):
+                    same = (r == g) | (r.isnan() & g.isnan()) if (
+                        r.is_floating_point()) else (r == g)
+                    ok = bool(same.all())
+                else:
+                    rtol, atol = C.TOLERANCE[case.family]
+                    ok = torch.allclose(g, r, rtol=rtol, atol=atol,
+                                        equal_nan=True)
+                    d = (g - r).abs()
+                    d = d[~d.isnan()]
+                    if d.numel():
+                        err = max(err, float(d.max()))
+        if not ok:
+            check(False, f"ops {tag} [{case.family}]: the card's result "
+                  f"against the CPU's (err {err:.3g})")
+        worst[case.family] = max(worst.get(case.family, 0.0), err)
+    secs = time.perf_counter() - t0
+    families = {f: sum(c.family == f for c in C.CASES)
+                for f in sorted({c.family for c in C.CASES})}
+    check(names == {n for n in P.ops.__all__
+                    if callable(getattr(P.ops, n))},
+          f"ops: all {len(names)} exported ops ran, {len(C.CASES)} cases "
+          f"({families}) on the card against the CPU in {secs:.1f} s; "
+          f"exact bit for bit, worst abs err by family "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()
+                      if k != "exact"))
+    return dict(ops=len(names), cases=len(C.CASES), families=families,
+                worst_abs_err=worst, seconds=secs)
+
+
+# -- phase 18: ERNIE-base fine-tuning through the dygraph loop ----------------
+
+# BERT's GLUE fine-tuning (Devlin et al. 2019, 4.1 and App. A.3): batch 32,
+# sequences of 128 (lengths drawn from --seed in 16-128, so the packed
+# kernel's key bias runs), dropout 0.1, AdamW at lr 2e-5 with weight decay
+# 0.01, LinearWarmup over the first 10% into a linear decay, global-norm
+# clip 1.0, fp32 with TF32 off (what the JAX package's dygraph loop
+# computes).  The schedule spans 3 epochs of MRPC's 3668 training pairs
+# (345 steps, 34 of warm-up).
+FINETUNE = dict(batch=32, seq=128, len_lo=16, len_hi=128, lr=2e-5,
+                weight_decay=0.01, clip=1.0, num_classes=2, total_steps=345,
+                warmup=34, check_layers=2, steps=7, warm=2)
+# Launches of rows 1, 2, 7, 8, 5 and 6 per fine-tuning step: the encoder's
+# attention and its two residual LayerNorms a layer, the embedding
+# LayerNorm once (no MLM head).
+FINETUNE_LAUNCHES = {"flash_attention_packed": 12,
+                     "flash_attention_packed_bwd": 12,
+                     "residual_layer_norm": 24, "residual_layer_norm_bwd": 24,
+                     "layer_norm": 1, "layer_norm_bwd": 1}
+
+
+def finetune_optimizer(parameters=None):
+    from paddle_tpu_torch import optimizer as O
+
+    cfg = FINETUNE
+    sched = O.lr.LinearWarmup(
+        O.lr.PolynomialDecay(cfg["lr"], cfg["total_steps"], end_lr=0.0,
+                             power=1.0), cfg["warmup"], 0.0, cfg["lr"])
+    return O.AdamW(sched, parameters=parameters,
+                   weight_decay=cfg["weight_decay"],
+                   grad_clip=O.ClipGradByGlobalNorm(cfg["clip"]))
+
+
+def finetune_batch(rng, vocab):
+    """Sentence pairs as token ids: lengths in [len_lo, len_hi], segment 1
+    after a random split, padding 0 past the length; labels 0 / 1."""
+    import paddle_tpu_torch as P
+
+    cfg = FINETUNE
+    b, s = cfg["batch"], cfg["seq"]
+    lens = rng.integers(cfg["len_lo"], cfg["len_hi"] + 1, b)
+    mask = (np.arange(s)[None] < lens[:, None]).astype(np.int64)
+    ids = rng.integers(5, vocab, (b, s)) * mask
+    split = (lens * rng.uniform(0.3, 0.7, b)).astype(np.int64)
+    types = ((np.arange(s)[None] >= split[:, None]) * mask).astype(np.int64)
+    labels = rng.integers(0, cfg["num_classes"], b)
+    return [P.to_tensor(a) for a in (ids, types, mask, labels)], int(
+        lens.sum())
+
+
+def finetune_model(cfg, state, seed):
+    """``ErnieForSequenceClassification`` on the card with ``state`` (the
+    JAX package's ``state_dict()`` form: numpy arrays under its names) put
+    in through ``set_state_dict``."""
+    from paddle_tpu_torch.text.ernie import ErnieForSequenceClassification
+
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=FINETUNE["num_classes"], device=DEV,
+        generator=torch.Generator().manual_seed(seed + 1))
+    missing, unexpected = model.set_state_dict(state)
+    check(missing == [] and unexpected == [],
+          f"finetune: set_state_dict took all {len(state)} weights")
+    return model
+
+
+def finetune_state(cfg, seed):
+    from paddle_tpu_torch.text.ernie import ErnieForSequenceClassification
+
+    src = ErnieForSequenceClassification(
+        cfg, num_classes=FINETUNE["num_classes"], device="cpu",
+        generator=torch.Generator().manual_seed(seed))
+    return {k: v.numpy() for k, v in src.state_dict().items()}
+
+
+def finetune_loss(model, batch):
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+
+    ids, types, mask, labels = batch
+    return P.mean(F.cross_entropy(model(ids, types, attention_mask=mask),
+                                  labels))
+
+
+def finetune_phase(seed):
+    """The book's dygraph loop (``loss.backward(); opt.minimize(loss);
+    model.clear_gradients()``) fine-tuning ERNIE-base for sentence
+    classification, then one eval batch."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import autograd, dygraph
+    from paddle_tpu_torch.core import random as trandom
+
+    rng = np.random.default_rng(seed + 18)
+    cfg = FINETUNE
+    base = ernie_cfg()
+    out = {"recipe": dict(cfg)}
+
+    # fp32 L2: the loop's step on the kernels against its plain wrappers,
+    # and against autograd.value_and_grad + opt.update bit for bit
+    small = ernie_cfg(num_hidden_layers=cfg["check_layers"])
+    state = finetune_state(small, seed)
+    batch, _ = finetune_batch(rng, base.vocab_size)
+    model = finetune_model(small, state, seed)
+    model.train()
+
+    def grads_of_one_step():
+        with dygraph.guard(), \
+                trandom.rng_scope(torch.Generator().manual_seed(seed)):
+            loss = finetune_loss(model, batch)
+            loss.backward()
+        g = {k: p.grad.detach().clone()
+             for k, p in model.named_parameters()}
+        model.clear_gradients()
+        return loss.detach(), g
+
+    with deterministic():
+        loss, g = grads_of_one_step()
+        with plain_wrappers():
+            lp, gp = grads_of_one_step()
+    log(f"[finetune] fp32 L{cfg['check_layers']} b{cfg['batch']} "
+        f"s{cfg['seq']} dropout 0.1: the loop's kernel path vs plain "
+        f"wrappers")
+    steps_agree(loss, g, lp, gp, "plain")
+    del g, gp
+
+    eager = finetune_model(small, state, seed)
+    eager.train()
+    opt = finetune_optimizer(eager.parameters())
+    func = finetune_model(small, state, seed)
+    func.train()
+    fopt = finetune_optimizer()
+    params = autograd.parameters_dict(func)
+    fstate = fopt.init(params)
+    vag = autograd.value_and_grad(func, lambda *b: finetune_loss(func, b))
+    with deterministic():
+        for i in range(2):
+            with dygraph.guard(), trandom.rng_scope(
+                    torch.Generator().manual_seed(seed + i)):
+                loss1 = finetune_loss(eager, batch)
+                loss1.backward()
+                opt.minimize(loss1)
+                eager.clear_gradients()
+            loss2, grads = vag(params, *batch,
+                               rng=torch.Generator().manual_seed(seed + i))
+            params, fstate = fopt.update(grads, fstate, params)
+            check(torch.equal(loss1.detach(), loss2),
+                  f"finetune loop step {i}: loss {loss1.item():.6f} equals "
+                  f"autograd.value_and_grad's")
+    d = max(max_abs(a, b) for a, b in zip(eager.state_dict().values(),
+                                          func.state_dict().values()))
+    check(d == 0.0, f"finetune: the dygraph loop and value_and_grad + "
+          f"opt.update, parameters bit for bit after 2 recipe steps "
+          f"(largest difference {d})")
+    del model, eager, func, opt, fopt, params, fstate, vag, grads
+    torch.cuda.empty_cache()
+
+    # full width: launches a step, timed steps, peak memory, one eval batch
+    L = base.num_hidden_layers
+    model = finetune_model(base, finetune_state(base, seed), seed)
+    model.train()
+    opt = finetune_optimizer(model.parameters())
+    batches = [finetune_batch(rng, base.vocab_size) for _ in range(2)]
+
+    def step(batch):
+        with dygraph.guard():
+            loss = finetune_loss(model, batch)
+            loss.backward()
+            opt.minimize(loss)
+            model.clear_gradients()
+        return loss.detach()
+
+    _, counts = count_one(step, batches[0][0])
+    check_counts("finetune", counts, FINETUNE_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(cfg["steps"]):
+        if i == cfg["warm"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(batches[i % 2][0]))
+    torch.cuda.synchronize()
+    timed = cfg["steps"] - cfg["warm"]
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).tolist()
+    check(all(np.isfinite(losses)), "finetune losses finite")
+    seqs = cfg["batch"] / ms * 1e3
+    toks = sum(batches[i % 2][1] for i in range(cfg["warm"], cfg["steps"])
+               ) / timed / ms * 1e3
+    lr = float(opt.get_lr())
+    prof = profile_split(lambda: step(batches[0][0]))
+    log(f"[finetune] ERNIE-base fp32 b{cfg['batch']} s{cfg['seq']} "
+        f"(lengths {cfg['len_lo']}-{cfg['len_hi']}): step {ms:.2f} ms = "
+        f"{seqs:.1f} sequences/s ({toks:.1f} real tokens/s), peak "
+        f"{peak:.2f} GiB; LR after {cfg['steps'] + 3} steps {lr:.3e}; "
+        f"losses {[round(x, 4) for x in losses]}; launches {counts}")
+
+    ids, types, mask, labels = finetune_batch(rng, base.vocab_size)[0]
+    model.eval()
+    with P.no_grad():
+        (logits, acc), eval_counts = count_one(
+            lambda: _eval(model, ids, types, mask, labels))
+    check(logits.shape == (cfg["batch"], cfg["num_classes"])
+          and bool(torch.isfinite(logits).all()) and 0.0 <= acc <= 1.0
+          and not logits.requires_grad,
+          f"finetune eval: logits {tuple(logits.shape)} finite, accuracy "
+          f"{acc:.4f}")
+    check_counts("finetune eval forward", eval_counts, {
+        "flash_attention_packed": L, "residual_layer_norm": 2 * L,
+        "layer_norm": 1, "flash_attention_packed_bwd": 0})
+    out.update(step_ms=ms, sequences_per_s=seqs, tokens_per_s=toks,
+               peak_gib=peak, launches=counts, eval_launches=eval_counts,
+               losses=losses, eval_accuracy=acc, profile=prof)
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def _eval(model, ids, types, mask, labels):
+    import paddle_tpu_torch as P
+
+    logits = model(ids, types, attention_mask=mask)
+    acc = P.mean(P.cast(P.equal(P.argmax(logits, -1), labels), "float32"))
+    return logits, float(acc)
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4822,6 +5204,11 @@ def main(argv=None):
                   f"its SASS")
 
     stats_profile()
+    # phases 17-18 before the first CUDA graph capture: the card's profiler
+    # loses eager launches after one, and phase 18 profiles its steps
+    ops_out = ops_phase(args.seed)
+    finetune_counts, finetune = finetune_phase(args.seed)
+    torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(args.seed)
     results = kernel_phase(gen)
     at_train = train_shape_phase(gen)
@@ -4990,7 +5377,8 @@ def main(argv=None):
     slice_paths = {f"recipe_{m}_launches": c for m, c in
                    recipe_counts.items()}
     slice_paths.update(seq2seq_launches=seq2seq_counts,
-                       qat_launches=dyq_counts, ptq_launches=ptq_counts)
+                       qat_launches=dyq_counts, ptq_launches=ptq_counts,
+                       finetune_launches=finetune_counts)
     for entry in kernels:
         if entry["name"] in ERNIE_KERNELS:
             for key, c in slice_paths.items():
@@ -5008,6 +5396,8 @@ def main(argv=None):
     print(json.dumps({"recipe": recipe}), flush=True)
     print(json.dumps({"seq2seq": seq2seq}), flush=True)
     print(json.dumps({"dygraph_quant": dygraph_quant}), flush=True)
+    print(json.dumps({"ops": ops_out}), flush=True)
+    print(json.dumps({"dygraph": finetune}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

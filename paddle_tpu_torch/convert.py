@@ -15,11 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-
-def parameters_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """{qualified_name: parameter}, each tied tensor once, as the JAX
-    package's ``parameters_dict``."""
-    return dict(model.named_parameters())
+from .autograd import parameters_dict  # noqa: F401 (re-exported)
 
 
 def _checked_copy(own, np_values, what):

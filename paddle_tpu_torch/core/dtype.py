@@ -5,13 +5,30 @@ variables also name integer and bool types.
 As in the JAX package, which runs with x64 off, the names "float64" and
 "int64" resolve to their 32-bit types (``resolve`` does the same for a
 torch dtype): a program that declares or is fed 64-bit values computes in
-32 bits."""
+32 bits.
+
+The op library (``paddle_tpu_torch.ops``) takes dtypes as Paddle declares
+them instead: ``exact_dtype("int64")`` is ``torch.int64``, and the
+module-level names (``int64``, ``float64``, ... exported at the top level)
+are the torch dtypes of those names.  The JAX package returns 32-bit
+values there (x64 off); the port returns the declared type."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-float32 = torch.float32
+bool_ = torch.bool
+uint8 = torch.uint8
+int8 = torch.int8
+int16 = torch.int16
+int32 = torch.int32
+int64 = torch.int64
+float16 = torch.float16
 bfloat16 = torch.bfloat16
+float32 = torch.float32
+float64 = torch.float64
+complex64 = torch.complex64
+complex128 = torch.complex128
 
 _NAME_TO_DTYPE = {
     "float32": torch.float32,
@@ -47,6 +64,28 @@ def convert_dtype(dtype):
     name = dtype if isinstance(dtype, str) else getattr(dtype, "name", None)
     try:
         return _NAME_TO_DTYPE[name]
+    except KeyError:
+        raise ValueError(f"Unknown dtype name: {dtype!r}") from None
+
+
+_EXACT = {"bool": bool_, "uint8": uint8, "int8": int8, "int16": int16,
+          "int32": int32, "int64": int64, "float16": float16,
+          "fp16": float16, "bfloat16": bfloat16, "bf16": bfloat16,
+          "float32": float32, "fp32": float32, "float64": float64,
+          "fp64": float64, "complex64": complex64,
+          "complex128": complex128}
+
+
+def exact_dtype(dtype):
+    """A dtype spec (name, numpy dtype or type, torch dtype) as the
+    torch dtype of that name, 64-bit types kept; None stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, type):                 # numpy scalar types
+        dtype = np.dtype(dtype)
+    name = dtype if isinstance(dtype, str) else getattr(dtype, "name", None)
+    try:
+        return _EXACT[name]
     except KeyError:
         raise ValueError(f"Unknown dtype name: {dtype!r}") from None
 

@@ -58,6 +58,16 @@ def set_flags(flags: Dict[str, Any]):
             _FLAGS[name] = value
 
 
+def get_flags(names=None) -> Dict[str, Any]:
+    """{name: value} of ``names`` (one name or a list), else of every
+    flag."""
+    if names is None:
+        return dict(_FLAGS)
+    if isinstance(names, str):
+        names = [names]
+    return {n: get_flag(n) for n in names}
+
+
 define_flag("use_flash_attention", True, "Use the flash-attention CUDA "
             "kernels on CUDA tensors where the attention semantics allow "
             "it: packed (ops/kernels/flash_attention_packed.py) and "

@@ -1,6 +1,10 @@
 """Functional ops of the port (counterpart of paddle_tpu.nn.functional)."""
 from ...ops.attention import flash_attention, scaled_dot_product_attention
-from .activation import gelu, relu
+from .activation import (celu, elu, gelu, glu, hardshrink, hardsigmoid,
+                         hardswish, hardtanh, leaky_relu, log_sigmoid,
+                         log_softmax, mish, prelu, relu, relu6, selu,
+                         sigmoid, silu, softmax, softplus, softshrink,
+                         softsign, swish, tanh, tanhshrink)
 from .common import dropout, linear
 from .conv import conv2d
 from .input import embedding
@@ -13,7 +17,11 @@ from .norm import batch_norm, bn_inference_scale_bias, layer_norm
 from .pooling import (adaptive_avg_pool2d, adaptive_max_pool2d, avg_pool1d,
                       avg_pool2d, max_pool1d, max_pool2d)
 
-__all__ = ["gelu", "relu", "dropout", "linear", "conv2d", "embedding",
+__all__ = ["celu", "elu", "gelu", "glu", "hardshrink", "hardsigmoid",
+           "hardswish", "hardtanh", "leaky_relu", "log_sigmoid",
+           "log_softmax", "mish", "prelu", "relu", "relu6", "selu",
+           "sigmoid", "silu", "softmax", "softplus", "softshrink",
+           "softsign", "swish", "tanh", "tanhshrink", "dropout", "linear", "conv2d", "embedding",
            "cross_entropy", "softmax_with_cross_entropy", "nll_loss",
            "mse_loss", "square_error_cost", "l1_loss", "smooth_l1_loss",
            "binary_cross_entropy", "binary_cross_entropy_with_logits",

@@ -9,10 +9,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from .. import functional as F
 from .. import initializer as I
+from .base import Layer, Parameter
 
 
 def param_init(attr, default):
@@ -24,16 +24,14 @@ def param_init(attr, default):
 
 def make_param(module, name, init, shape,
                generator: Optional[torch.Generator] = None):
-    """Register ``name`` on ``module`` drawn from ``init`` and record the
-    initializer on the module (``_initializers``), so a cloned stack can
+    """Register ``name`` on ``module``: a ``Parameter`` drawn from ``init``,
+    which it records (``Parameter.initializer``), so a cloned stack can
     draw its copies anew from it (transformer ``_reinit``)."""
-    if "_initializers" not in module.__dict__:
-        module._initializers = {}
-    module._initializers[name] = init
-    setattr(module, name, nn.Parameter(init(shape, generator=generator)))
+    setattr(module, name, Parameter(init(shape, generator=generator),
+                                    initializer=init))
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """y = x W + b with W: (in_features, out_features), Paddle's layout
     (not torch's (out, in)), so converted weights keep their shape.  The
     weight is XavierUniform and the bias 0 unless ``weight_attr`` /
@@ -61,7 +59,7 @@ class Linear(nn.Module):
         return f"in={self.in_features}, out={self.out_features}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """ref nn/layer/common.py Embedding, with the reference's parameter
     order.  ``padding_idx`` zeroes that id's output row.  The weight is
     drawn from ``weight_attr``'s initializer, else N(0, ``std``) (``std``
@@ -91,7 +89,7 @@ class Embedding(nn.Module):
         return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Dropout in the reference's modes (``upscale_in_train``,
     ``downgrade_in_infer``)."""
 

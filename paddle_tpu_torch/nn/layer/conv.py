@@ -7,10 +7,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import functional as F
 from .. import initializer as I
+from .base import Layer
 from .common import make_param, param_init
 
 
@@ -18,7 +18,7 @@ def _pair(v, n=2):
     return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
 
 
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     """Weight (out, in / groups, kh, kw): KaimingUniform(fan_in,
     leaky_relu, slope sqrt(5)) unless ``weight_attr`` carries an
     initializer; bias 0, none with ``bias_attr=False``.  ``padding_mode``

@@ -2,16 +2,15 @@
 options and calls the functional loss."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .base import Layer
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
            "BCELoss", "BCEWithLogitsLoss", "NLLLoss", "KLDivLoss",
            "MarginRankingLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1):
         super().__init__()
@@ -28,7 +27,7 @@ class CrossEntropyLoss(nn.Module):
                                soft_label=self.soft_label, axis=self.axis)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -37,7 +36,7 @@ class MSELoss(nn.Module):
         return F.mse_loss(input, label, reduction=self.reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -46,7 +45,7 @@ class L1Loss(nn.Module):
         return F.l1_loss(input, label, reduction=self.reduction)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0):
         super().__init__()
         self.reduction = reduction
@@ -57,7 +56,7 @@ class SmoothL1Loss(nn.Module):
                                 delta=self.delta)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean"):
         super().__init__()
         self._weight_arr = weight
@@ -68,7 +67,7 @@ class BCELoss(nn.Module):
                                       reduction=self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None):
         super().__init__()
         self._weight_arr = weight
@@ -81,7 +80,7 @@ class BCEWithLogitsLoss(nn.Module):
             pos_weight=self.pos_weight)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean"):
         super().__init__()
         self._weight_arr = weight
@@ -94,7 +93,7 @@ class NLLLoss(nn.Module):
                           reduction=self.reduction)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -103,7 +102,7 @@ class KLDivLoss(nn.Module):
         return F.kl_div(input, label, reduction=self.reduction)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean"):
         super().__init__()
         self.margin = margin

@@ -2,13 +2,13 @@
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...core import dtype as _dtype
 from .. import functional as F
+from .base import Layer, Parameter
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """Scale 1 and shift 0 over ``normalized_shape``; ``weight_attr`` /
     ``bias_attr`` False drop the scale / the shift, as in the JAX package
     (which reads no initializer from them)."""
@@ -21,9 +21,9 @@ class LayerNorm(nn.Module):
         self.normalized_shape = tuple(normalized_shape)
         self.epsilon = epsilon
         dt = _dtype.get_default_dtype()
-        self.weight = None if weight_attr is False else nn.Parameter(
+        self.weight = None if weight_attr is False else Parameter(
             torch.ones(self.normalized_shape, dtype=dt))
-        self.bias = None if bias_attr is False else nn.Parameter(
+        self.bias = None if bias_attr is False else Parameter(
             torch.zeros(self.normalized_shape, dtype=dt))
 
     def forward(self, x):

@@ -26,7 +26,6 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ...core import flags
 from ...core.device import resolve_device
@@ -34,11 +33,12 @@ from ...core import random as _random
 from ...ops import attention as attn_ops
 from ...ops.kernels import layer_norm as _fln
 from .. import functional as F
+from .base import Layer, LayerList
 from .common import Dropout, Linear
 from .norm import LayerNorm
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """q/k/v/out projections around scaled-dot-product attention: self or
     cross attention (``kdim`` / ``vdim`` size the key and value inputs),
     the attention weights returned beside the output (``need_weights``),
@@ -164,7 +164,7 @@ def _sublayer_epilogue(layer, out, residual, norm, dropout_layer):
     return src
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self attention + FFN; ``normalize_before`` toggles pre-/post-LN."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
@@ -220,10 +220,10 @@ def _clones(layer, num_layers, generator):
         clone = copy.deepcopy(layer)
         _reinit(clone, generator)
         layers.append(clone)
-    return nn.ModuleList(layers)
+    return LayerList(layers)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer``, the copies' parameters
     drawn anew.  ``enable_recompute`` recomputes each layer's activations
     in the backward (training mode, no cache), under ``recompute_policy``
@@ -280,7 +280,7 @@ class TransformerEncoder(nn.Module):
                          policy=self.recompute_policy)
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self attention + cross attention over ``memory`` + FFN;
     ``normalize_before`` toggles pre-/post-LN.  A ``cache`` is the pair
     (self-attention ``Cache``, cross-attention ``StaticCache`` or None)."""
@@ -341,7 +341,7 @@ class TransformerDecoderLayer(nn.Module):
         return tgt if cache is None else (tgt, (sc, cache[1]))
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` copies of ``decoder_layer``, the copies' parameters
     drawn anew."""
 
@@ -371,7 +371,7 @@ class TransformerDecoder(nn.Module):
         return output if cache is None else (output, new_caches)
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """Encoder-decoder (Vaswani et al. 2017; the reference's defaults are
     Transformer-base): ``forward(src, tgt)`` returns the decoder's output
     over the encoded ``src``.  Built on the CPU from ``generator``."""
@@ -430,9 +430,8 @@ def _reinit(layer, generator=None):
 
     with torch.no_grad():
         for m in layer.modules():
-            inits = m.__dict__.get("_initializers", {})
-            for name, p in m.named_parameters(recurse=False):
-                ini = inits.get(name)
+            for p in m.parameters(recurse=False):
+                ini = getattr(p, "initializer", None)
                 if ini is None and p.dim() >= 2:
                     ini = init.XavierUniform()
                 if ini is not None:

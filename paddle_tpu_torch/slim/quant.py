@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..nn import functional as F
+from ..nn.layer.base import Layer
 
 _WEIGHT_QUANT_AXIS = {
     "conv2d": 0, "depthwise_conv2d": 0, "conv3d": 0,
@@ -128,7 +129,7 @@ def _ema_scale_step(layer, x):
     return x_q.to(x.dtype)
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(Layer):
     """Linear with a channel-wise fake-quantized weight (output channels on
     axis 1 of the (in, out) weight) and a moving-average fake-quantized
     activation; the scale is the ``in_scale`` buffer."""
@@ -150,7 +151,7 @@ class QuantizedLinear(nn.Module):
         return F.linear(x_q, w_q, self.inner.bias)
 
 
-class QuantizedConv2D(nn.Module):
+class QuantizedConv2D(Layer):
     """Conv2D with a channel-wise fake-quantized filter (axis 0) and a
     moving-average fake-quantized activation (``in_scale``)."""
 
@@ -211,7 +212,7 @@ class ImperativeQuantAware:
 
 
 # ------------------------------------------------------------------- PTQ --
-class _CalibHook(nn.Module):
+class _CalibHook(Layer):
     """Records the largest |input| over calibration forwards (one host read
     a call, as in the JAX package)."""
 
@@ -253,7 +254,7 @@ def int8_matmul(x_q, w):
     return acc[:m, :n].reshape(*lead, n)
 
 
-class Int8Linear(nn.Module):
+class Int8Linear(Layer):
     """A PTQ-converted Linear: the input quantized to int8 against the
     calibrated ``in_scale`` (step in_scale / qmax), the exact int32 product
     with the int8 (in, out) weight, then the fp32 rescale ``acc *

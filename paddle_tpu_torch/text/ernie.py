@@ -3,18 +3,21 @@ encoder, pooler, the MLM + NSP heads and the pretraining criterion
 (counterpart of paddle_tpu/text/ernie.py).
 
 Parameter names match the JAX package's ``parameters_dict`` names, so
-``paddle_tpu_torch.convert.from_jax_params`` is a renaming-free copy.  The
-MLM decoder is tied to ``word_embeddings.weight``.
+``paddle_tpu_torch.convert.from_jax_params`` is a renaming-free copy, and
+``Layer.set_state_dict`` takes the JAX model's ``state_dict()`` (as numpy
+arrays).  The MLM decoder is tied to ``word_embeddings.weight``.
+``ErnieForSequenceClassification`` puts a dropout and a Linear classifier
+on the pooled output (the fine-tuning head); ``Bert*`` are aliases.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from .. import nn as pnn
+from ..nn.layer.base import Layer, Parameter
 
 
 class ErnieConfig:
@@ -45,7 +48,7 @@ class ErnieConfig:
         self.recompute_policy = recompute_policy
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     def __init__(self, config: ErnieConfig, generator=None):
         super().__init__()
         std = config.initializer_range
@@ -73,7 +76,7 @@ class ErnieEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class ErniePooler(nn.Module):
+class ErniePooler(Layer):
     def __init__(self, hidden_size, generator=None):
         super().__init__()
         self.dense = pnn.Linear(hidden_size, hidden_size, generator=generator)
@@ -88,9 +91,10 @@ def padding_mask(input_ids, pad_token_id):
     return torch.where(pad, -1e4, 0.0).to(torch.float32)
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     """Embeddings + N-layer transformer encoder + pooler.  Built on
-    ``device`` (default: the CUDA device, which must exist)."""
+    ``device`` (default: the current device, CUDA unless ``set_device``
+    says otherwise; it must exist)."""
 
     def __init__(self, config: Optional[ErnieConfig] = None, device=None,
                  generator: Optional[torch.Generator] = None, **kwargs):
@@ -125,10 +129,10 @@ class ErnieModel(nn.Module):
         return seq_out, self.pooler(seq_out)
 
 
-class ErnieLMHead(nn.Module):
+class ErnieLMHead(Layer):
     """MLM head whose decoder is the tied word-embedding matrix."""
 
-    def __init__(self, config: ErnieConfig, embedding_weights: nn.Parameter,
+    def __init__(self, config: ErnieConfig, embedding_weights: Parameter,
                  generator=None):
         super().__init__()
         self.transform = pnn.Linear(config.hidden_size, config.hidden_size,
@@ -137,7 +141,7 @@ class ErnieLMHead(nn.Module):
         self.layer_norm = pnn.LayerNorm(config.hidden_size)
         # tied: the same Parameter object, listed once by named_parameters()
         self.decoder_weight = embedding_weights
-        self.decoder_bias = nn.Parameter(torch.zeros(
+        self.decoder_bias = Parameter(torch.zeros(
             config.vocab_size, dtype=embedding_weights.dtype,
             device=embedding_weights.device))
 
@@ -150,7 +154,7 @@ class ErnieLMHead(nn.Module):
         return torch.matmul(x, self.decoder_weight.t()) + self.decoder_bias
 
 
-class ErniePretrainingHeads(nn.Module):
+class ErniePretrainingHeads(Layer):
     def __init__(self, config: ErnieConfig, embedding_weights, generator=None):
         super().__init__()
         self.predictions = ErnieLMHead(config, embedding_weights, generator)
@@ -162,9 +166,10 @@ class ErniePretrainingHeads(nn.Module):
                 self.seq_relationship(pooled_output))
 
 
-class ErnieForPretraining(nn.Module):
+class ErnieForPretraining(Layer):
     """MLM + NSP model: returns ``(mlm_logits, nsp_logits)``.  Built on
-    ``device`` (default: the CUDA device, which must exist)."""
+    ``device`` (default: the current device, CUDA unless ``set_device``
+    says otherwise; it must exist)."""
 
     def __init__(self, config: Optional[ErnieConfig] = None, device=None,
                  generator: Optional[torch.Generator] = None, **kwargs):
@@ -184,7 +189,7 @@ class ErnieForPretraining(nn.Module):
         return self.cls(seq_out, pooled, masked_positions)
 
 
-class ErniePretrainingCriterion(nn.Module):
+class ErniePretrainingCriterion(Layer):
     """Masked-LM cross-entropy (labels of -1 ignored) plus NSP
     cross-entropy, each a mean, as the JAX package's criterion."""
 
@@ -203,3 +208,36 @@ class ErniePretrainingCriterion(nn.Module):
                               next_sentence_labels.reshape(-1),
                               reduction="mean")
         return mlm + nsp
+
+
+class ErnieForSequenceClassification(Layer):
+    """Sentence classification: ``classifier(dropout(pooled))``, logits of
+    ``num_classes``; the dropout is ``hidden_dropout_prob`` unless
+    ``dropout`` is given.  Built on ``device`` (default: the current
+    device) from ``generator``, both keyword-only."""
+
+    def __init__(self, config: Optional[ErnieConfig] = None, num_classes=2,
+                 dropout=None, *, device=None,
+                 generator: Optional[torch.Generator] = None, **kwargs):
+        super().__init__()
+        dev = resolve_device(device)
+        self.ernie = ErnieModel(config, device="cpu", generator=generator,
+                                **kwargs)
+        cfg = self.ernie.config
+        self.dropout = pnn.Dropout(dropout if dropout is not None
+                                   else cfg.hidden_dropout_prob)
+        self.classifier = pnn.Linear(cfg.hidden_size, num_classes,
+                                     generator=generator)
+        self.to(dev)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        _, pooled = self.ernie(input_ids, token_type_ids, position_ids,
+                               attention_mask)
+        return self.classifier(self.dropout(pooled))
+
+
+# BERT aliases (same architecture family)
+BertConfig = ErnieConfig
+BertModel = ErnieModel
+BertForPretraining = ErnieForPretraining

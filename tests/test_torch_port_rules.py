@@ -49,7 +49,7 @@ def _kernel_modules():
 
 def test_import_scan_covers_every_package_of_the_port():
     names = _all_modules()
-    for pkg in ("amp", "autograd", "core", "nn", "ops.kernels",
+    for pkg in ("amp", "autograd", "core", "dygraph", "nn", "ops.kernels",
                 "optimizer", "serving", "slim", "static", "text", "utils"):
         assert f"paddle_tpu_torch.{pkg}" in names, pkg
     for mod in ("serving.paged", "serving.slo", "serving.continuous",
@@ -62,7 +62,10 @@ def test_import_scan_covers_every_package_of_the_port():
                 "static.passes", "static.executor", "static.ops_tail",
                 "ops.kernels.bn_act_train", "ops.kernels.int8", "slim.quant",
                 "slim.quant_static", "optimizer.lr", "optimizer.grad_clip",
-                "nn.layer.conv", "nn.layer.loss"):
+                "nn.layer.conv", "nn.layer.loss", "nn.layer.base",
+                "nn.layer.activation", "core.tape", "ops.creation",
+                "ops.manipulation", "ops.math", "ops.logic", "ops.search",
+                "ops.random", "ops.linalg", "ops.extra", "ops.cases"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 

@@ -408,3 +408,109 @@ def test_random_initializers_draw_the_reference_distribution(name, args,
         else:
             assert abs(x.mean() - check[1]) < 0.05 * check[2] + 1e-3
             assert abs(x.std() - check[2]) < 0.05 * check[2]
+
+
+# -- the op library and the dygraph core: every function and class the
+# slice adds or rebases binds positional arguments as the reference does --
+
+import paddle_tpu as jtop  # noqa: E402
+import paddle_tpu.dygraph as jdygraph  # noqa: E402
+import paddle_tpu.ops as jops  # noqa: E402
+import paddle_tpu_torch as ttop  # noqa: E402
+import paddle_tpu_torch.dygraph as tdygraph  # noqa: E402
+
+_LAYER_METHODS = ["add_parameter", "add_sublayer", "register_buffer",
+                  "create_parameter", "named_parameters", "parameters",
+                  "named_sublayers", "sublayers", "named_buffers",
+                  "clear_gradients", "state_dict", "set_state_dict",
+                  "load_dict", "register_forward_pre_hook",
+                  "register_forward_post_hook", "apply"]
+_REBASED = ["Linear", "Embedding", "Dropout", "LayerNorm", "Conv2D",
+            "MultiHeadAttention", "TransformerEncoderLayer",
+            "TransformerEncoder", "TransformerDecoderLayer",
+            "TransformerDecoder", "Transformer"]
+_ACT_LAYERS = ["ReLU", "ReLU6", "Sigmoid", "Tanh", "GELU", "SiLU", "Mish",
+               "Hardswish", "Hardsigmoid", "Hardtanh", "ELU", "CELU", "SELU",
+               "Softplus", "Softsign", "Softshrink", "Hardshrink",
+               "Tanhshrink", "LogSigmoid", "LeakyReLU", "PReLU", "Softmax",
+               "LogSoftmax"]
+
+
+def _ops():
+    return sorted(n for n in ttop.ops.__all__
+                  if callable(getattr(ttop.ops, n)))
+
+
+def _slice_callables():
+    pairs = []
+    for n in _ops():
+        ref = jops.manipulation.chunk if n == "chunk" else getattr(jops, n)
+        pairs.append((f"ops.{n}", ref, getattr(ttop.ops, n)))
+    for n in ("set_device", "get_device", "device_guard", "seed",
+              "get_flags", "set_flags", "set_default_dtype",
+              "get_default_dtype", "is_tensor", "CPUPlace", "CUDAPlace",
+              "TPUPlace"):
+        pairs.append((n, getattr(jtop, n), getattr(ttop, n)))
+    for n in ("guard", "to_variable", "grad", "backward", "enable_tape",
+              "disable_tape", "enable_dygraph", "disable_dygraph"):
+        pairs.append((f"dygraph.{n}", getattr(jdygraph, n),
+                      getattr(tdygraph, n)))
+    for n in ("parameters_dict", "buffers_dict", "load_parameters",
+              "load_buffers", "functional_call", "value_and_grad", "grad",
+              "partial_grad", "backward"):
+        pairs.append((f"autograd.{n}", getattr(jautograd, n),
+                      getattr(tautograd, n)))
+    for m in _LAYER_METHODS:
+        pairs.append((f"Layer.{m}", getattr(jnn.Layer, m),
+                      getattr(tnn.Layer, m)))
+    for c in ("Parameter", "LayerList", "Sequential", "ParameterList"):
+        pairs.append((f"nn.{c}", getattr(jnn, c), getattr(tnn, c)))
+    for m in ("set_value", "numpy", "clear_grad", "clear_gradient"):
+        pairs.append((f"Parameter.{m}", getattr(jnn.Parameter, m),
+                      getattr(tnn.Parameter, m)))
+    for c in _REBASED:
+        pairs.append((f"{c}.forward", getattr(jnn, c).forward,
+                      getattr(tnn, c).forward))
+    for n in TF.__all__:
+        if getattr(TF, n).__module__.endswith("activation") and n != "tanh":
+            pairs.append((f"F.{n}", getattr(JF, n), getattr(TF, n)))
+    for c in _ACT_LAYERS:
+        pairs.append((f"nn.{c}", getattr(jnn, c), getattr(tnn, c)))
+        pairs.append((f"nn.{c}.forward", getattr(jnn, c).forward,
+                      getattr(tnn, c).forward))
+    for c in ("ErnieModel", "ErnieForPretraining", "ErniePooler",
+              "ErnieForSequenceClassification"):
+        pairs.append((f"{c}.forward", getattr(jernie, c).forward,
+                      getattr(ternie, c).forward))
+    pairs.append(("ErnieForSequenceClassification",
+                  jernie.ErnieForSequenceClassification,
+                  ternie.ErnieForSequenceClassification))
+    return pairs
+
+
+def _public(params):
+    """The reference's positional parameters without its private ones
+    (``named_parameters``' ``_memo`` recursion slot)."""
+    return [(n, d) for n, d in params if not n.startswith("_")]
+
+
+@pytest.mark.parametrize("label,ref,port", _slice_callables(),
+                         ids=[c[0] for c in _slice_callables()])
+def test_slice_positional_parameters_match_the_reference(label, ref, port):
+    """As ``test_positional_parameters_match_the_reference``, for the op
+    library, the places and flags, ``dygraph``, ``autograd``, the Layer
+    API, the activations and the sentence classifier; extras of the port
+    are keyword-only."""
+    (rp, rv), (pp, pv) = _positional(ref), _positional(port)
+    rp = _public(rp)
+    assert [n for n, _ in pp] == [n for n, _ in rp], label
+    assert pv == rv, label
+    for (name, rd), (_, pd) in zip(rp, pp):
+        if _plain(rd) and _plain(pd) and rd is not inspect.Parameter.empty:
+            assert pd == rd, (label, name, pd, rd)
+
+
+def test_slice_signature_list_covers_every_exported_op():
+    labels = {c[0] for c in _slice_callables()}
+    assert len(_ops()) == 250
+    assert all(f"ops.{n}" in labels for n in _ops())
