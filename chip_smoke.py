@@ -249,15 +249,20 @@ Phases (any failed check raises, so the script exits non-zero):
               error against the fp32 forward, of the largest logit), and
               ``Int8Linear``'s int32 accumulator equal to an int64 product.
 17. ops     -- every exported op of the tensor op library
-              (``paddle_tpu_torch.ops.cases``: 250 ops, the table the CPU
-              parity test holds against the JAX package) on the card and
-              on the CPU on the same inputs: every output a tensor on the
-              card; data movement, integers, booleans and creation bit for
-              bit, elementwise and reductions within rtol 1e-5 / atol
-              1e-6, products, solves and the flash-attention op within
-              1e-4 / 1e-5, decompositions by their reconstructions (1e-4);
-              random ops in range and repeated bit for bit under one seed
-              on the card.
+              (``paddle_tpu_torch.ops.cases``: 295 ops, the LoD family,
+              CTC, chunk_eval and the operator tail among them, the table
+              the CPU parity test holds against the JAX package) and the
+              12 ``nn.functional`` functions of its sibling table
+              ``FUNCTIONAL_CASES`` (pad, interpolate, the norms, one_hot,
+              ctc_loss, dropout2d, ...) on the card and on the CPU on the
+              same inputs: every output a tensor on the card; data
+              movement, integers, booleans and creation bit for bit,
+              elementwise and reductions within rtol 1e-5 / atol 1e-6,
+              bicubic interpolation within 1e-5 / 1e-5, products, solves,
+              ctc_loss and the flash-attention op within 1e-4 / 1e-5,
+              decompositions by their reconstructions (1e-4); random ops
+              in range and repeated bit for bit under one seed on the
+              card.
 18. dygraph -- ERNIE-base fine-tuned for sentence classification
               (``ErnieForSequenceClassification``, 2 classes) through the
               book's loop under ``dygraph.guard()``: ``loss =
@@ -279,19 +284,51 @@ Phases (any failed check raises, so the script exits non-zero):
               ``no_grad`` (12 / 24 / 1 forward launches, finite logits,
               accuracy by ``argmax`` / ``equal`` / ``cast`` / ``mean``),
               and a torch.profiler split of two more steps.
-Phases 17 and 18 run right after the build (and row 11's profile),
-before the first CUDA graph capture: the card's profiler loses eager
-launches after one.
+19. tagging -- ERNIE-base + CRF NER fine-tuning (ERNIE 1.0's MSRA-NER
+              task with PaddleNLP's CRF head): ``ErnieModel``, dropout, an
+              emission Linear(768, 7) over the IOB tags of PER / ORG / LOC
+              (O = 6) and ``ops.crf.linear_chain_crf``, through phase 18's
+              loop, recipe and batches (random IOB labels).  Checks: at
+              fp32 L2 the step on the kernels against its plain wrappers
+              (loss and every gradient, the CRF transition's among them,
+              at TOL_TRAIN_*); at full width 12 / 12 / 24 / 24 / 1 / 1
+              launches of rows 1 / 2 / 7 / 8 / 5 / 6 a step, 2 warm-up and
+              5 timed steps (step ms, sequences/s, peak memory, finite
+              losses) and a torch.profiler split of two more; one eval
+              batch under ``no_grad`` (12 / 24 / 1 forward launches):
+              ``crf_decoding`` on the card equal to the CPU's on the same
+              emissions wherever the best path beats the runner-up by more
+              than 1e-4 (float64 max-marginals), ``chunk_eval``'s counts
+              exact against the CPU on those rows, on the model's
+              emissions and on a noisy probe of them; P / R / F1 printed.
+20. rnn     -- Baidu's LAC BiGRU-CRF tagger at its published widths (word
+              embedding 128 with sparse=True, two stacked bidirectional
+              GRUs of hidden 128, 57 tags, b300, up to 64 words; a guessed
+              vocabulary of 60,000 ids), no port kernel under it.
+              Checks: the GRU's outputs and final states and the loss and
+              every gradient on the card against the CPU, ragged lengths,
+              at TOL_TRAIN_*; no port kernel launched in a step; 2 warm-up
+              and 5 timed ``Lookahead(Adam(1e-3))`` steps with an EMA of
+              the weights (step ms, words/s, peak memory, a profiler split
+              with the busy share); the decode and chunk_eval checks of
+              phase 19 on the EMA weights; Ftrl, Dpsgd (sigma 0),
+              DGCMomentum and ModelAverage 3 steps each on a 1-layer copy,
+              the card's eager optimizer against the CPU's on the same
+              gradients.
+Phases 17-20 run right after the build (and row 11's profile), before
+the first CUDA graph capture: the card's profiler loses eager launches
+after one.
 
 Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"paged": ...}``, ``{"static": ...}``, ``{"vision_train": ...}``,
 ``{"int8": ...}``, ``{"cold": ...}``, ``{"static_train": ...}``,
 ``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}``,
-``{"ops": ...}``, ``{"dygraph": ...}`` and ``{"kernels": [...]}`` JSON
-lines (one kernel entry for each of the 15 TPU kernels; rows 10 and 13-15
-with their launches on the static-train path, rows 11-13 with their cold
-times, rows 1, 2 and 5-8 with their launches on each path of phases 14-16
-and 18) and the card's name and power limit;
+``{"ops": ...}``, ``{"dygraph": ...}``, ``{"tagging": ...}``,
+``{"rnn": ...}`` and ``{"kernels": [...]}`` JSON lines (one kernel entry
+for each of the 15 TPU kernels; rows 10 and 13-15 with their launches on
+the static-train path, rows 11-13 with their cold times, rows 1, 2 and
+5-8 with their launches on each path of phases 14-16, 18 and 19) and the
+card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -4841,12 +4878,15 @@ def dygraph_quant_phase(seed):
 
 def ops_phase(seed):
     """Every exported op of the library (``paddle_tpu_torch.ops.cases``, the
-    table the CPU parity test runs against the JAX package) on the card
-    and on the CPU on the same inputs: every tensor out lies on the card;
-    exact families bit for bit, the rest within ``cases.TOLERANCE``,
-    decompositions by their reconstructions (1e-4), random ops by their
-    range and by repeating under one seed on the card."""
+    table the CPU parity test runs against the JAX package) and every
+    ``nn.functional`` function of its sibling table ``FUNCTIONAL_CASES``
+    on the card and on the CPU on the same inputs: every tensor out lies
+    on the card; exact families bit for bit, the rest within
+    ``cases.TOLERANCE``, decompositions by their reconstructions (1e-4),
+    random ops by their range and by repeating under one seed on the
+    card."""
     import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
     from paddle_tpu_torch.ops import cases as C
 
     def on(dev):
@@ -4854,79 +4894,86 @@ def ops_phase(seed):
 
     t0 = time.perf_counter()
     worst = {}
-    names = set()
-    for i, case in enumerate(C.CASES):
-        args, kwargs = case.make(np.random.default_rng(seed + i))
-        fn = getattr(P, case.name)
-        names.add(case.name)
-        tag = f"{case.name} (case {i})"
-        if case.family == "random":
-            draws = []
-            with P.device_guard(DEV):
-                for _ in range(2):
-                    P.seed(seed + i)
-                    draws.append(fn(*C.to_framework(args, on(DEV)),
-                                    **kwargs))
-            a, b = draws
-            ok = (a.device.type == torch.device(DEV).type
-                  and torch.equal(a, b)
-                  and case.check(args, a.cpu().numpy()))
-            if not ok:
-                check(False, f"ops {tag}: a draw on the card, repeated under "
-                      f"one seed, in range")
-            continue
-        with P.device_guard("cpu"):
-            ref = fn(*C.to_framework(args, on("cpu")),
-                     **C.to_framework(kwargs, on("cpu")))
-        with P.device_guard(DEV):
-            got = fn(*C.to_framework(args, on(DEV)),
-                     **C.to_framework(kwargs, on(DEV)))
-        rl, gl = C.leaves(ref), C.leaves(got)
-        if len(rl) != len(gl) or not all(
-                isinstance(g, torch.Tensor)
-                and g.device.type == torch.device(DEV).type for g in gl):
-            check(False, f"ops {tag}: every output a tensor on the card")
-        gl = [g.cpu() for g in gl]
-        if case.family == "decomp":
-            out = [g.numpy() for g in gl]
-            err = case.check(args, out if len(out) > 1 else out[0])
-            ok = err < 1e-4
-        else:
-            err = 0.0
-            ok = all(r.shape == g.shape and r.dtype == g.dtype
-                     for r, g in zip(rl, gl))
-            for r, g in zip(rl, gl):
+    names = {"ops": set(), "nn.functional": set()}
+    tables = (("ops", P, C.CASES, 0),
+              ("nn.functional", F, C.FUNCTIONAL_CASES, len(C.CASES)))
+    for table, mod, cases, offset in tables:
+        for j, case in enumerate(cases):
+            i = offset + j
+            args, kwargs = case.make(np.random.default_rng(seed + i))
+            fn = getattr(mod, case.name)
+            names[table].add(case.name)
+            tag = f"{table} {case.name} (case {j})"
+            if case.family == "random":
+                draws = []
+                with P.device_guard(DEV):
+                    for _ in range(2):
+                        P.seed(seed + i)
+                        draws.append(fn(*C.to_framework(args, on(DEV)),
+                                        **kwargs))
+                a, b = draws
+                ok = (a.device.type == torch.device(DEV).type
+                      and torch.equal(a, b)
+                      and case.check(args, a.cpu().numpy()))
                 if not ok:
-                    break
-                if case.family == "exact" or not (r.is_floating_point()
-                                                 or r.is_complex()):
-                    same = (r == g) | (r.isnan() & g.isnan()) if (
-                        r.is_floating_point()) else (r == g)
-                    ok = bool(same.all())
-                else:
-                    rtol, atol = C.TOLERANCE[case.family]
-                    ok = torch.allclose(g, r, rtol=rtol, atol=atol,
-                                        equal_nan=True)
-                    d = (g - r).abs()
-                    d = d[~d.isnan()]
-                    if d.numel():
-                        err = max(err, float(d.max()))
-        if not ok:
-            check(False, f"ops {tag} [{case.family}]: the card's result "
-                  f"against the CPU's (err {err:.3g})")
-        worst[case.family] = max(worst.get(case.family, 0.0), err)
+                    check(False, f"{tag}: a draw on the card, repeated "
+                          f"under one seed, in range")
+                continue
+            with P.device_guard("cpu"):
+                ref = fn(*C.to_framework(args, on("cpu")),
+                         **C.to_framework(kwargs, on("cpu")))
+            with P.device_guard(DEV):
+                got = fn(*C.to_framework(args, on(DEV)),
+                         **C.to_framework(kwargs, on(DEV)))
+            rl, gl = C.leaves(ref), C.leaves(got)
+            if len(rl) != len(gl) or not all(
+                    isinstance(g, torch.Tensor)
+                    and g.device.type == torch.device(DEV).type for g in gl):
+                check(False, f"{tag}: every output a tensor on the card")
+            gl = [g.cpu() for g in gl]
+            if case.family == "decomp":
+                out = [g.numpy() for g in gl]
+                err = case.check(args, out if len(out) > 1 else out[0])
+                ok = err < 1e-4
+            else:
+                err = 0.0
+                ok = all(r.shape == g.shape and r.dtype == g.dtype
+                         for r, g in zip(rl, gl))
+                for r, g in zip(rl, gl):
+                    if not ok:
+                        break
+                    if case.family == "exact" or not (r.is_floating_point()
+                                                     or r.is_complex()):
+                        same = (r == g) | (r.isnan() & g.isnan()) if (
+                            r.is_floating_point()) else (r == g)
+                        ok = bool(same.all())
+                    else:
+                        rtol, atol = C.TOLERANCE[case.family]
+                        ok = torch.allclose(g, r, rtol=rtol, atol=atol,
+                                            equal_nan=True)
+                        d = (g - r).abs()
+                        d = d[~d.isnan()]
+                        if d.numel():
+                            err = max(err, float(d.max()))
+            if not ok:
+                check(False, f"{tag} [{case.family}]: the card's result "
+                      f"against the CPU's (err {err:.3g})")
+            worst[case.family] = max(worst.get(case.family, 0.0), err)
     secs = time.perf_counter() - t0
-    families = {f: sum(c.family == f for c in C.CASES)
-                for f in sorted({c.family for c in C.CASES})}
-    check(names == {n for n in P.ops.__all__
-                    if callable(getattr(P.ops, n))},
-          f"ops: all {len(names)} exported ops ran, {len(C.CASES)} cases "
-          f"({families}) on the card against the CPU in {secs:.1f} s; "
-          f"exact bit for bit, worst abs err by family "
+    cases = C.CASES + C.FUNCTIONAL_CASES
+    families = {f: sum(c.family == f for c in cases)
+                for f in sorted({c.family for c in cases})}
+    check(names["ops"] == {n for n in P.ops.__all__
+                           if callable(getattr(P.ops, n))},
+          f"ops: all {len(names['ops'])} exported ops and "
+          f"{len(names['nn.functional'])} nn.functional functions ran, "
+          f"{len(cases)} cases ({families}) on the card against the CPU in "
+          f"{secs:.1f} s; exact bit for bit, worst abs err by family "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()
                       if k != "exact"))
-    return dict(ops=len(names), cases=len(C.CASES), families=families,
-                worst_abs_err=worst, seconds=secs)
+    return dict(ops=len(names["ops"]),
+                functional=len(names["nn.functional"]), cases=len(cases),
+                families=families, worst_abs_err=worst, seconds=secs)
 
 
 # -- phase 18: ERNIE-base fine-tuning through the dygraph loop ----------------
@@ -5155,6 +5202,526 @@ def _eval(model, ids, types, mask, labels):
     return logits, float(acc)
 
 
+# -- phases 19-20: sequence labelling -----------------------------------------
+
+# Phase 19: ERNIE 1.0's MSRA-NER task (Sun et al. 2019, 4) with a CRF head,
+# as PaddleNLP's ERNIE-CRF taggers: ERNIE-base, dropout, an emission
+# Linear(768, 7) and ``ops.crf.linear_chain_crf``; the 7 tags are the IOB
+# tags of PER, ORG and LOC in chunk_eval's convention (type * 2 + tag, O =
+# 6).  Phase 18's recipe and batches (b32 s128, lengths 16-128 from
+# --seed, dropout 0.1, AdamW 2e-5 with decay 0.01, clip 1.0, fp32 with TF32
+# off); labels are random IOB chunkings.
+TAGGING = dict(num_tags=7, num_chunk_types=3, check_layers=2, steps=7, warm=2)
+# Phase 20: Baidu's LAC (Jiao et al. 2018; PaddlePaddle/models
+# lexical_analysis, the Fluid-era net): word embedding 128 (is_sparse, a
+# dense gradient in the port), two stacked bidirectional GRUs of hidden
+# 128, an emission to 57 tags (28 chunk types in IOB, O = 56) and Fluid's
+# linear_chain_crf / crf_decoding / chunk_eval, at batch 300 and sequences
+# up to 64 words, as its training script sets them.  LAC's dictionary is
+# not in the repo and its size is not confirmed: the vocabulary, 60,000
+# ids, is a guess, and the embedding table's share of the step time and
+# the peak memory goes with it.  Lookahead(Adam(1e-3)), an EMA of the
+# weights applied for the eval decode.
+LAC = dict(vocab=60000, emb=128, hidden=128, layers=2, num_tags=57,
+           num_chunk_types=28, batch=300, max_len=64, len_lo=4, lr=1e-3,
+           lookahead_alpha=0.5, lookahead_k=5, ema_decay=0.999, steps=7,
+           warm=2, extras_steps=3)
+# Decoded paths are compared where the best path beats every other path by
+# more than this (the max-marginal margin, float64 on the host)
+VITERBI_MARGIN = 1e-4
+
+_TAGGING_MODELS = None
+
+
+def tagging_models():
+    """The two sequence-labelling models of phases 19-20, as port layers:
+    (ErnieCrfTagger, BiGruCrfTagger).  Built on the first call (the script
+    imports the port only once a card is found)."""
+    global _TAGGING_MODELS
+    if _TAGGING_MODELS is not None:
+        return _TAGGING_MODELS
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.nn import initializer as I
+    from paddle_tpu_torch.nn.layer.common import make_param
+    from paddle_tpu_torch.ops import crf
+    from paddle_tpu_torch.text.ernie import ErnieModel
+
+    class _CrfTagger(nn.Layer):
+        """A linear-chain CRF over the emissions of ``forward``; the
+        transition in Fluid's layout (start, stop, then [from, to]),
+        XavierUniform as Fluid's default."""
+
+        def _transition(self, num_tags, generator):
+            make_param(self, "transition", I.XavierUniform(),
+                       (num_tags + 2, num_tags), generator)
+
+        def loss(self, emission, labels, lengths):
+            return P.mean(crf.linear_chain_crf(emission, labels,
+                                               self.transition, lengths))
+
+        def decode(self, emission, lengths):
+            return crf.crf_decoding(emission, self.transition, lengths)
+
+    class ErnieCrfTagger(_CrfTagger):
+        """ERNIE, dropout, an emission Linear and a CRF."""
+
+        def __init__(self, config, num_tags, *, device=None, generator=None):
+            super().__init__()
+            self.ernie = ErnieModel(config, device="cpu",
+                                    generator=generator)
+            self.dropout = nn.Dropout(config.hidden_dropout_prob)
+            self.emission = nn.Linear(config.hidden_size, num_tags,
+                                      generator=generator)
+            self._transition(num_tags, generator)
+            self.to(resolve_device(device))
+
+        def forward(self, input_ids, token_type_ids, attention_mask):
+            seq, _ = self.ernie(input_ids, token_type_ids,
+                                attention_mask=attention_mask)
+            return self.emission(self.dropout(seq))
+
+    class BiGruCrfTagger(_CrfTagger):
+        """LAC's net: a word embedding, stacked bidirectional GRUs over the
+        ragged batch, an emission Linear and a CRF."""
+
+        def __init__(self, vocab, emb_dim, hidden, num_layers, num_tags, *,
+                     device=None, generator=None):
+            super().__init__()
+            # sparse=True as LAC's is_sparse (the gradient is dense)
+            self.word_emb = nn.Embedding(vocab, emb_dim, None, True,
+                                         std=0.1, generator=generator)
+            self.gru = nn.GRU(emb_dim, hidden, num_layers, "bidirect",
+                              generator=generator)
+            self.emission = nn.Linear(2 * hidden, num_tags,
+                                      generator=generator)
+            self._transition(num_tags, generator)
+            self.to(resolve_device(device))
+
+        def forward(self, word_ids, lengths):
+            out, _ = self.gru(self.word_emb(word_ids),
+                              sequence_length=lengths)
+            return self.emission(out)
+
+    _TAGGING_MODELS = ErnieCrfTagger, BiGruCrfTagger
+    return _TAGGING_MODELS
+
+
+def iob_tags(rng, lengths, s, n_types):
+    """Random IOB chunkings (chunks of 1-4 steps of a random type, O
+    between), type * 2 + tag with O = 2 * n_types, O past each length."""
+    other = 2 * n_types
+    tags = np.full((len(lengths), s), other, np.int64)
+    for i, n in enumerate(lengths):
+        t = 0
+        while t < n:
+            if rng.random() < 0.4:
+                typ, k = int(rng.integers(0, n_types)), int(
+                    min(rng.integers(1, 5), n - t))
+                tags[i, t] = 2 * typ
+                tags[i, t + 1:t + k] = 2 * typ + 1
+                t += k
+            else:
+                t += 1
+    return tags
+
+
+def tagging_batch(rng, vocab):
+    """Phase 18's sentence batches with IOB labels: (ids, types, mask,
+    labels, lengths) on the current device."""
+    import paddle_tpu_torch as P
+
+    b, s = FINETUNE["batch"], FINETUNE["seq"]
+    lens = rng.integers(FINETUNE["len_lo"], FINETUNE["len_hi"] + 1, b)
+    mask = (np.arange(s)[None] < lens[:, None]).astype(np.int64)
+    ids = rng.integers(5, vocab, (b, s)) * mask
+    labels = iob_tags(rng, lens, s, TAGGING["num_chunk_types"])
+    return [P.to_tensor(a) for a in (ids, np.zeros_like(ids), mask, labels,
+                                     lens)]
+
+
+def tagging_loss(model, batch):
+    ids, types, mask, labels, lens = batch
+    return model.loss(model(ids, types, mask), labels, lens)
+
+
+def viterbi_margins(emission, transition, lengths):
+    """For each sequence, its best path's score minus the best score of any
+    path that differs from it somewhere, from max-marginals (max-product
+    forward and backward messages) in float64 on the host."""
+    e = emission.detach().cpu().double().numpy()
+    tr = transition.detach().cpu().double().numpy()
+    start, stop, trans = tr[0], tr[1], tr[2:]
+    out = []
+    for b, n in enumerate(lengths.tolist()):
+        fwd = [start + e[b, 0]]
+        for t in range(1, n):
+            fwd.append((fwd[-1][:, None] + trans).max(0) + e[b, t])
+        bwd = [stop]
+        for t in range(n - 2, -1, -1):
+            bwd.append((trans + (e[b, t + 1] + bwd[-1])[None, :]).max(1))
+        m = np.stack(fwd) + np.stack(bwd[::-1])                  # (n, D)
+        best = m.max()
+        m[np.arange(n), m.argmax(1)] = -np.inf
+        out.append(best - m.max())
+    return np.asarray(out)
+
+
+def decode_check(tag, model, emission, labels, lens, n_types, seed):
+    """The card's Viterbi paths against the CPU's on the same emissions,
+    wherever the best path beats the runner-up by more than
+    VITERBI_MARGIN, and chunk_eval's counts there exact; on the model's
+    emissions and on them plus N(0, 3^2) noise from ``seed`` (a model
+    this briefly trained tags nearly everything O: the noisy probe gives
+    paths with chunks).  Returns the card's P / R / F1 of the model's
+    paths over every row and the compared shares."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.ops import crf
+
+    noise = torch.randn(emission.shape, generator=torch.Generator()
+                        .manual_seed(seed)).to(emission.device)
+    out = {}
+    for name, em in (("model", emission), ("probe", emission + 3 * noise)):
+        paths = model.decode(em, lens)
+        with P.device_guard("cpu"):
+            cpu_paths = crf.crf_decoding(em.cpu(), model.transition.cpu(),
+                                         lens.cpu())
+        clear = torch.from_numpy(viterbi_margins(em, model.transition, lens)
+                                 > VITERBI_MARGIN)
+        same = (paths.cpu() == cpu_paths).all(1)
+        check(bool(same[clear].all()) and bool(clear.any()),
+              f"{tag} {name}: crf_decoding on the card equals the CPU's on "
+              f"{int(clear.sum())} of {len(clear)} rows with a margin over "
+              f"{VITERBI_MARGIN} ({int(same.sum())} rows equal in all)")
+        rows = clear.nonzero()[:, 0]
+        got = P.chunk_eval(paths[rows.to(paths.device)],
+                           labels[rows.to(labels.device)],
+                           lens[rows.to(lens.device)], "IOB", n_types)
+        with P.device_guard("cpu"):
+            ref = P.chunk_eval(cpu_paths[rows], labels.cpu()[rows],
+                               lens.cpu()[rows], "IOB", n_types)
+        counts = [int(x) for x in got[3:]]
+        check(counts == [int(x) for x in ref[3:]]
+              and (name == "model" or min(counts) > 0),
+              f"{tag} {name}: chunk_eval counts (inferred, labelled, "
+              f"correct) {counts} on the card equal the CPU's on those rows")
+        prf = [float(x) for x in P.chunk_eval(paths, labels, lens, "IOB",
+                                              n_types)[:3]]
+        log(f"[{tag}] {name} paths: P / R / F1 {prf[0]:.4f} / {prf[1]:.4f} "
+            f"/ {prf[2]:.4f} (random weights and labels)")
+        out[name] = dict(precision=prf[0], recall=prf[1], f1=prf[2],
+                         counts=counts, compared_rows=int(clear.sum()),
+                         rows=len(clear), equal_rows=int(same.sum()))
+    return out
+
+
+def tagging_phase(seed):
+    """ERNIE-base + CRF NER fine-tuning through the book's dygraph loop,
+    then one eval batch decoded on the card."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core import random as trandom
+
+    ErnieCrfTagger, _ = tagging_models()
+    rng = np.random.default_rng(seed + 19)
+    cfg = TAGGING
+    base = ernie_cfg()
+    out = {"recipe": dict(FINETUNE, **cfg)}
+
+    # fp32 L2: the loop's step on the kernels against its plain wrappers
+    small = ernie_cfg(num_hidden_layers=cfg["check_layers"])
+    model = ErnieCrfTagger(small, cfg["num_tags"], device=DEV,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    batch = tagging_batch(rng, base.vocab_size)
+
+    def grads_of_one_step():
+        with dygraph.guard(), \
+                trandom.rng_scope(torch.Generator().manual_seed(seed)):
+            loss = tagging_loss(model, batch)
+            loss.backward()
+        g = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+        model.clear_gradients()
+        return loss.detach(), g
+
+    with deterministic():
+        loss, g = grads_of_one_step()
+        with plain_wrappers():
+            lp, gp = grads_of_one_step()
+    check("transition" in g and set(g) == set(gp),
+          f"tagging: {len(g)} gradients, the CRF transition's among them")
+    log(f"[tagging] fp32 L{cfg['check_layers']} b{FINETUNE['batch']} "
+        f"s{FINETUNE['seq']} dropout 0.1: the loop's kernel path vs plain "
+        f"wrappers")
+    steps_agree(loss, g, lp, gp, "plain")
+    del model, g, gp
+    torch.cuda.empty_cache()
+
+    # full width: launches a step, timed steps, peak memory, one eval batch
+    L = base.num_hidden_layers
+    model = ErnieCrfTagger(base, cfg["num_tags"], device=DEV,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    opt = finetune_optimizer(model.parameters())
+    batches = [tagging_batch(rng, base.vocab_size) for _ in range(2)]
+
+    def step(batch):
+        with dygraph.guard():
+            loss = tagging_loss(model, batch)
+            loss.backward()
+            opt.minimize(loss)
+            model.clear_gradients()
+        return loss.detach()
+
+    _, counts = count_one(step, batches[0])
+    check_counts("tagging", counts, FINETUNE_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(cfg["steps"]):
+        if i == cfg["warm"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(batches[i % 2]))
+    torch.cuda.synchronize()
+    timed = cfg["steps"] - cfg["warm"]
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).tolist()
+    check(all(np.isfinite(losses)), "tagging losses finite")
+    seqs = FINETUNE["batch"] / ms * 1e3
+    prof = profile_split(lambda: step(batches[0]))
+    log(f"[tagging] ERNIE-base + CRF fp32 b{FINETUNE['batch']} "
+        f"s{FINETUNE['seq']}: step {ms:.2f} ms = {seqs:.1f} sequences/s, "
+        f"peak {peak:.2f} GiB, device busy {prof.get('busy_ms', 0.0):.2f} "
+        f"ms of it (profiled); losses {[round(x, 3) for x in losses]}; "
+        f"launches {counts}")
+
+    ids, types, mask, labels, lens = tagging_batch(rng, base.vocab_size)
+    model.eval()
+    with P.no_grad():
+        emission, eval_counts = count_one(lambda: model(ids, types, mask))
+        check(tuple(emission.shape) == (FINETUNE["batch"], FINETUNE["seq"],
+                                        cfg["num_tags"])
+              and bool(torch.isfinite(emission).all()),
+              f"tagging eval: emissions {tuple(emission.shape)} finite")
+        check_counts("tagging eval forward", eval_counts, {
+            "flash_attention_packed": L, "residual_layer_norm": 2 * L,
+            "layer_norm": 1, "flash_attention_packed_bwd": 0})
+        evaluation = decode_check("tagging", model, emission, labels, lens,
+                                  cfg["num_chunk_types"], seed)
+    out.update(step_ms=ms, sequences_per_s=seqs, peak_gib=peak,
+               launches=counts, eval_launches=eval_counts, losses=losses,
+               eval=evaluation, profile=prof,
+               busy_share_of_step=prof.get("busy_ms", 0.0) / ms)
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def lac_batch(rng):
+    """LAC-shaped batches: word ids in [1, vocab), lengths in [len_lo,
+    max_len], random IOB labels over 28 chunk types; on the current
+    device."""
+    import paddle_tpu_torch as P
+
+    cfg = LAC
+    b, s = cfg["batch"], cfg["max_len"]
+    lens = rng.integers(cfg["len_lo"], s + 1, b)
+    ids = rng.integers(1, cfg["vocab"], (b, s)) * (
+        np.arange(s)[None] < lens[:, None])
+    labels = iob_tags(rng, lens, s, cfg["num_chunk_types"])
+    return [P.to_tensor(a) for a in (ids, lens, labels)]
+
+
+def lac_model(seed, device, layers=None):
+    _, BiGruCrfTagger = tagging_models()
+    cfg = LAC
+    return BiGruCrfTagger(cfg["vocab"], cfg["emb"], cfg["hidden"],
+                          layers or cfg["layers"], cfg["num_tags"],
+                          device=device,
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def lac_grads(model, batch):
+    ids, lens, labels = batch
+    loss = model.loss(model(ids, lens), labels, lens)
+    loss.backward()
+    g = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    model.clear_gradients()
+    return loss.detach(), g
+
+
+def to_cpu(batch):
+    return [t.cpu() for t in batch]
+
+
+def lac_extras(seed, batch):
+    """Ftrl, Dpsgd (sigma 0), DGCMomentum and ModelAverage (over SGD), 3
+    steps each on a 1-layer copy: the card's eager optimizer against the
+    CPU's functional one on the card's gradients; each parameter within
+    TOL_TRAIN_GRAD_REL of the largest change the CPU made to it."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import optimizer as O
+
+    makers = {
+        "Ftrl": lambda ps: O.Ftrl(0.05, 0.01, 0.01, parameters=ps),
+        "Dpsgd": lambda ps: O.Dpsgd(0.05, 1.0, LAC["batch"], 0.0,
+                                    parameters=ps),
+        "DGCMomentum": lambda ps: O.DGCMomentum(0.05, 0.9, ps, 0.99),
+        "ModelAverage": lambda ps: O.SGD(0.1, parameters=ps),
+    }
+    out = {}
+    for name, make in makers.items():
+        model = lac_model(seed, DEV, layers=1)
+        start = {k: p.detach().cpu().clone()
+                 for k, p in model.named_parameters()}
+        cpu = {k: v.clone() for k, v in start.items()}
+        opt, ref = make(list(model.parameters())), make(None)
+        avg = avg_ref = None
+        if name == "ModelAverage":
+            avg, avg_ref = O.ModelAverage(0.15, 2, 2), O.ModelAverage(
+                0.15, 2, 2)
+        with P.device_guard("cpu"):
+            state = ref.init(cpu)
+        for _ in range(LAC["extras_steps"]):
+            ids, lens, labels = batch
+            model.loss(model(ids, lens), labels, lens).backward()
+            grads = {k: p.grad.detach().cpu()
+                     for k, p in model.named_parameters()}
+            opt.step()
+            model.clear_gradients()
+            with P.device_guard("cpu"):
+                cpu, state = ref.update(grads, state, cpu)
+            if avg is not None:
+                got = avg.update({k: p.detach() for k, p in
+                                  model.named_parameters()})
+                want = avg_ref.update(cpu)
+        if avg is not None:
+            card, host = got, want
+        else:
+            card, host = dict(model.named_parameters()), cpu
+        worst = max((max_abs(card[k].detach().cpu(), host[k])
+                     / max(float((host[k] - start[k]).abs().max()), 1e-30),
+                     k) for k in host)
+        check(worst[0] <= TOL_TRAIN_GRAD_REL,
+              f"rnn extras {name}: {LAC['extras_steps']} steps on the card "
+              f"vs the CPU on the same gradients, worst err {worst[0]:.3g} "
+              f"of the CPU's change ({worst[1]}) <= {TOL_TRAIN_GRAD_REL}")
+        out[name] = worst[0]
+        del model, opt
+    return out
+
+
+def lac_phase(seed):
+    """LAC's BiGRU-CRF tagger at its published widths: the GRU on the card
+    against the CPU, timed Lookahead(Adam) steps with an EMA, the EMA
+    weights' eval decode, and the long-tail optimizers."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import optimizer as O
+
+    cfg = LAC
+    rng = np.random.default_rng(seed + 20)
+    batch = lac_batch(rng)
+    out = {"config": dict(cfg)}
+
+    # the GRU's outputs, final states and every gradient, card vs CPU
+    card = lac_model(seed, DEV)
+    with P.device_guard("cpu"):
+        host = lac_model(seed, "cpu")
+        cb = to_cpu(batch)
+        ids, lens = cb[0], cb[1]
+        ref_out, ref_final = host.gru(host.word_emb(ids),
+                                      sequence_length=lens)
+        ref_loss, ref_g = lac_grads(host, cb)
+    got_out, got_final = card.gru(card.word_emb(batch[0]),
+                                  sequence_length=batch[1])
+    errs = [max_abs(a.detach().cpu(), b.detach())
+            / float(b.detach().abs().max())
+            for a, b in ((got_out, ref_out), (got_final, ref_final))]
+    check(max(errs) <= TOL_TRAIN_GRAD_REL,
+          f"rnn: the BiGRU's outputs / final states on the card vs the CPU "
+          f"(b{cfg['batch']}, lengths {cfg['len_lo']}-{cfg['max_len']}): "
+          f"errs {errs[0]:.3g} / {errs[1]:.3g} of their max <= "
+          f"{TOL_TRAIN_GRAD_REL}")
+    loss, g = lac_grads(card, batch)
+    log("[rnn] BiGRU-CRF fp32 loss and gradients, the card vs the CPU")
+    steps_agree(loss, {k: v.cpu() for k, v in g.items()}, ref_loss, ref_g,
+                "the CPU")
+    out.update(gru_output_err=errs[0], gru_final_err=errs[1])
+    del host, ref_g
+
+    del card
+    torch.cuda.empty_cache()
+
+    # training: Lookahead(Adam), an EMA of the weights
+    model = lac_model(seed, DEV)
+    model.train()
+    opt = O.Lookahead(O.Adam(cfg["lr"], parameters=model.parameters()),
+                      cfg["lookahead_alpha"], cfg["lookahead_k"])
+    ema = O.ExponentialMovingAverage(cfg["ema_decay"])
+    batches = [batch, lac_batch(rng)]
+
+    def step(b):
+        ids, lens, labels = b
+        loss = model.loss(model(ids, lens), labels, lens)
+        loss.backward()
+        opt.minimize(loss)
+        opt.clear_grad()
+        ema.update(dict(model.named_parameters()))
+        return loss.detach()
+
+    _, counts = count_one(step, batches[0])
+    check(sum(counts.values()) == 0, f"rnn: a LAC step launches no port "
+          f"kernel ({counts})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(cfg["steps"]):
+        if i == cfg["warm"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(batches[i % 2]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (cfg["steps"] - cfg["warm"]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).tolist()
+    check(all(np.isfinite(losses)), "rnn losses finite")
+    prof = profile_split(lambda: step(batches[0]))
+    words = int(sum(b[1].sum() for b in batches)) / 2
+    log(f"[rnn] LAC BiGRU-CRF fp32 b{cfg['batch']} s{cfg['max_len']}: step "
+        f"{ms:.2f} ms = {cfg['batch'] / ms * 1e3:.1f} sequences/s "
+        f"({words / ms * 1e3:.0f} words/s), peak {peak:.2f} GiB, device "
+        f"busy {prof.get('busy_ms', 0.0):.2f} ms of it (profiled); losses "
+        f"{[round(x, 3) for x in losses]}; port kernel launches {counts}")
+
+    # the eval decode on the EMA's weights
+    ids, lens, labels = lac_batch(rng)
+    shadow = ema.apply()
+    saved = {k: p.detach().clone() for k, p in model.named_parameters()}
+    model.eval()
+    with P.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(shadow[k])
+        emission = model(ids, lens)
+        evaluation = decode_check("rnn", model, emission, labels, lens,
+                                  cfg["num_chunk_types"], seed)
+        for k, p in model.named_parameters():
+            p.copy_(saved[k])
+    del model, opt, ema, saved, shadow
+    torch.cuda.empty_cache()
+    extras = lac_extras(seed, batch)
+    out.update(step_ms=ms, sequences_per_s=cfg["batch"] / ms * 1e3,
+               words_per_s=words / ms * 1e3, peak_gib=peak, losses=losses,
+               port_kernel_launches=counts, profile=prof, eval=evaluation,
+               busy_share_of_step=prof.get("busy_ms", 0.0) / ms,
+               extras_worst_err=extras)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5204,11 +5771,21 @@ def main(argv=None):
                   f"its SASS")
 
     stats_profile()
-    # phases 17-18 before the first CUDA graph capture: the card's profiler
-    # loses eager launches after one, and phase 18 profiles its steps
+    # phases 17-20 before the first CUDA graph capture: the card's profiler
+    # loses eager launches after one, and phases 18-20 profile their steps
+    t_phase = time.perf_counter()
     ops_out = ops_phase(args.seed)
     finetune_counts, finetune = finetune_phase(args.seed)
     torch.cuda.empty_cache()
+    t_tagging = time.perf_counter()
+    tagging_counts, tagging = tagging_phase(args.seed)
+    t_rnn = time.perf_counter()
+    rnn = lac_phase(args.seed)
+    t_end = time.perf_counter()
+    tagging["phase_s"], rnn["phase_s"] = t_rnn - t_tagging, t_end - t_rnn
+    log(f"[phases 17-20] {t_end - t_phase:.1f} s: ops and dygraph "
+        f"{t_tagging - t_phase:.1f} s, tagging {t_rnn - t_tagging:.1f} s, "
+        f"rnn {t_end - t_rnn:.1f} s")
     gen = torch.Generator().manual_seed(args.seed)
     results = kernel_phase(gen)
     at_train = train_shape_phase(gen)
@@ -5378,7 +5955,8 @@ def main(argv=None):
                    recipe_counts.items()}
     slice_paths.update(seq2seq_launches=seq2seq_counts,
                        qat_launches=dyq_counts, ptq_launches=ptq_counts,
-                       finetune_launches=finetune_counts)
+                       finetune_launches=finetune_counts,
+                       tagging_launches=tagging_counts)
     for entry in kernels:
         if entry["name"] in ERNIE_KERNELS:
             for key, c in slice_paths.items():
@@ -5398,6 +5976,8 @@ def main(argv=None):
     print(json.dumps({"dygraph_quant": dygraph_quant}), flush=True)
     print(json.dumps({"ops": ops_out}), flush=True)
     print(json.dumps({"dygraph": finetune}), flush=True)
+    print(json.dumps({"tagging": tagging}), flush=True)
+    print(json.dumps({"rnn": rnn}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -128,8 +128,13 @@ def static_state_from_jax(jax_program, jax_state: Dict[str, np.ndarray],
 
 
 def _slots_to_torch(slots, like: torch.Tensor):
-    """A JAX optimizer slot (an array, a tuple of arrays or ``()``) as
-    tensors on ``like``'s device, each keeping its dtype."""
+    """A JAX optimizer slot (an array, a tuple of arrays, a dict of arrays
+    (Ftrl's, DGC's), ``()`` or None (Dpsgd's)) as tensors on ``like``'s
+    device, each keeping its dtype."""
+    if slots is None:
+        return None
+    if isinstance(slots, dict):
+        return {k: _slots_to_torch(v, like) for k, v in slots.items()}
     if isinstance(slots, (tuple, list)):
         return tuple(_slots_to_torch(s, like) for s in slots)
     arr = np.array(slots)
@@ -137,6 +142,33 @@ def _slots_to_torch(slots, like: torch.Tensor):
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=like.device, dtype=torch.bfloat16)
     return torch.from_numpy(arr).to(like.device)
+
+
+def _slot_leaves(t):
+    if t is None:
+        return []
+    if isinstance(t, dict):
+        return [x for v in t.values() for x in _slot_leaves(v)]
+    if isinstance(t, tuple):
+        return [x for v in t for x in _slot_leaves(v)]
+    return [t]
+
+
+def _named_from_jax(jax_tree, params, what):
+    """A JAX pytree over ``params``' names (a dict) as tensors by name,
+    each shape-checked against its parameter."""
+    if set(jax_tree) != set(params):
+        raise KeyError(f"optimizer_state_from_jax: the {what} names differ "
+                       f"from the parameters'")
+    out = {}
+    for name, p in params.items():
+        t = _slots_to_torch(jax_tree[name], p)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"optimizer_state_from_jax: the {what} of "
+                             f"{name} has shape {tuple(t.shape)}, the "
+                             f"parameter {tuple(p.shape)}")
+        out[name] = t.to(p.dtype)
+    return out
 
 
 def optimizer_state_from_jax(jax_state, params: Dict[str, torch.Tensor]):
@@ -147,7 +179,18 @@ def optimizer_state_from_jax(jax_state, params: Dict[str, torch.Tensor]):
     for a dict of parameters is sorted key order, and its ``step`` a traced
     int32; the port keys slots by name, so each slot is matched by name
     (never by the port dict's own order), shape-checked, and the step
-    becomes an int."""
+    becomes an int.  A ``Lookahead`` state (``inner``, ``slow``, ``step``)
+    converts its inner state the same way and its slow weights by name; an
+    ``ExponentialMovingAverage`` / ``ModelAverage`` ``state_dict()``
+    (``shadow``, ``step``) its shadow weights by name."""
+    if "shadow" in jax_state:
+        return {"shadow": _named_from_jax(jax_state["shadow"], params,
+                                          "shadow"),
+                "step": int(jax_state["step"])}
+    if "slow" in jax_state:
+        return {"inner": optimizer_state_from_jax(jax_state["inner"], params),
+                "slow": _named_from_jax(jax_state["slow"], params, "slow"),
+                "step": int(np.asarray(jax_state["step"]))}
     names = sorted(params)
     per = list(jax_state["per_param"])
     if len(per) != len(names):
@@ -157,7 +200,7 @@ def optimizer_state_from_jax(jax_state, params: Dict[str, torch.Tensor]):
     out = {}
     for name, slots in zip(names, per):
         t = _slots_to_torch(slots, params[name])
-        for s in (t if isinstance(t, tuple) else (t,)):
+        for s in _slot_leaves(t):
             if tuple(s.shape) != tuple(params[name].shape):
                 raise ValueError(f"optimizer_state_from_jax: a slot of "
                                  f"{name} has shape {tuple(s.shape)}, the "

@@ -1,17 +1,30 @@
 """Layers and functional ops of the port (counterpart of paddle_tpu.nn)."""
 from . import functional, initializer
+from .decode import BeamSearchDecoder, dynamic_decode, gather_tree
 from .layer.activation import (CELU, ELU, GELU, Hardshrink, Hardsigmoid,
                                Hardswish, Hardtanh, LeakyReLU, LogSigmoid,
                                LogSoftmax, Mish, PReLU, ReLU, ReLU6, SELU,
                                Sigmoid, SiLU, Softmax, Softplus, Softshrink,
                                Softsign, Tanh, Tanhshrink)
 from .layer.base import Layer, LayerList, Parameter, ParameterList, Sequential
-from .layer.common import Dropout, Embedding, Linear
+from .layer.common import (Dropout, Dropout2D, Embedding, Flatten, Linear,
+                           Pad2D, Upsample)
 from .layer.conv import Conv2D
+from .layer.extras import (AlphaDropout, Bilinear, BilinearTensorProduct,
+                           CosineSimilarity, CTCLoss, Dropout3D, Identity,
+                           InstanceNorm1D, InstanceNorm3D, LocalResponseNorm,
+                           Pad1D, Pad3D, PairwiseDistance, PixelShuffle,
+                           RowConv, SpectralNorm, Unfold, ZeroPad2D)
 from .layer.loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss,
                          KLDivLoss, L1Loss, MarginRankingLoss, MSELoss,
                          NLLLoss, SmoothL1Loss)
-from .layer.norm import LayerNorm
+from .layer.norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                         GroupNorm, InstanceNorm2D, LayerNorm, RMSNorm,
+                         SyncBatchNorm)
+from .layer.pooling import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool1D,
+                            AvgPool2D, MaxPool1D, MaxPool2D)
+from .layer.rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,
+                        RNNCellBase, SimpleRNN, SimpleRNNCell)
 from .layer.transformer import (
     MultiHeadAttention,
     Transformer,
@@ -21,15 +34,10 @@ from .layer.transformer import (
     TransformerEncoderLayer,
 )
 
-__all__ = ["functional", "initializer", "Layer", "LayerList", "Parameter",
-           "ParameterList", "Sequential", "CELU", "ELU", "GELU",
-           "Hardshrink", "Hardsigmoid", "Hardswish", "Hardtanh", "LeakyReLU",
-           "LogSigmoid", "LogSoftmax", "Mish", "PReLU", "ReLU", "ReLU6",
-           "SELU", "Sigmoid", "SiLU", "Softmax", "Softplus", "Softshrink",
-           "Softsign", "Tanh", "Tanhshrink", "Dropout", "Embedding", "Linear",
-           "Conv2D", "LayerNorm", "MultiHeadAttention", "Transformer",
-           "TransformerDecoder", "TransformerDecoderLayer",
-           "TransformerEncoder", "TransformerEncoderLayer",
-           "CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
-           "BCELoss", "BCEWithLogitsLoss", "NLLLoss", "KLDivLoss",
-           "MarginRankingLoss"]
+# The JAX package's nn names not ported yet (ROADMAP.md Queue 1): the
+# 1-D / 3-D and transposed convolutions and the 3-D pools (item 6), and
+# the mixture-of-experts FFN (item 8).
+_DEFERRED = ("Conv1D", "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
+             "MaxPool3D", "AvgPool3D", "AdaptiveAvgPool3D", "MoEFFN")
+
+__all__ = [n for n in dir() if not n.startswith("_")]

@@ -1,8 +1,7 @@
 """Losses (counterpart of paddle_tpu/nn/functional/loss.py), with the
 reference's parameter order: the cross-entropies, ``nll_loss``, the
 regression losses, the binary cross-entropies, ``kl_div``, ``log_loss``,
-``hinge_loss`` and ``margin_ranking_loss``.  ``ctc_loss`` is not ported
-(ROADMAP.md).
+``hinge_loss``, ``margin_ranking_loss`` and ``ctc_loss``.
 
 The log-softmax is taken in fp32 whatever the logits' type, for bf16
 stability.  Hard labels equal to ``ignore_index`` give a loss of 0 and no
@@ -149,3 +148,63 @@ def hinge_loss(input, label):
 def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
     return _reduce((-label * (input - other) + margin).clamp_min(0),
                    reduction)
+
+
+def ctc_loss(log_probs, labels, input_lengths=None, label_lengths=None,
+             blank=0, reduction="mean", norm_by_times=False):
+    """Connectionist Temporal Classification (ref warpctc_op.cc).
+
+    log_probs (T, B, C) raw logits (log_softmax is applied here, warpctc's
+    contract); labels (B, L) padded past ``label_lengths``; input_lengths
+    (B,) (default T).  The log-semiring alpha recursion over the extended
+    label sequence (blank, l1, blank, ..., lL, blank) is a loop over time,
+    frozen past each input length; its gradient is torch autograd through
+    the loop, as JAX's is AD through the scan.  Impossible states hold
+    -1e30, not -inf: -inf makes the gradient NaN where a row's labels are
+    empty.  "mean" divides each sample's loss by its label length before
+    averaging (the paddle and torch contract)."""
+    log_probs = torch.as_tensor(log_probs)
+    T, B, C = log_probs.shape
+    dev = log_probs.device
+    labels = torch.as_tensor(labels, device=dev).long()
+    L = labels.shape[1]
+    S = 2 * L + 1
+    input_lengths = (torch.full((B,), T, dtype=torch.int64, device=dev)
+                     if input_lengths is None else
+                     torch.as_tensor(input_lengths, device=dev).long())
+    label_lengths = (torch.full((B,), L, dtype=torch.int64, device=dev)
+                     if label_lengths is None else
+                     torch.as_tensor(label_lengths, device=dev).long())
+    lp = torch.log_softmax(log_probs.float(), dim=-1)
+    ext = torch.full((B, S), blank, dtype=torch.int64, device=dev)
+    ext[:, 1::2] = labels
+    s_idx = torch.arange(S, device=dev)
+    valid_s = s_idx[None, :] < (2 * label_lengths[:, None] + 1)
+    ext_m2 = torch.cat([torch.full((B, 2), -1, dtype=torch.int64,
+                                   device=dev), ext[:, :-2]], 1)
+    can_skip = (s_idx[None, :] % 2 == 1) & (ext != ext_m2)
+    neg = torch.full((), -1e30, device=dev)
+    alpha = torch.where((s_idx[None, :] < 2) & valid_s,
+                        torch.zeros((), device=dev), neg)
+    alpha = torch.where(valid_s, alpha + torch.gather(lp[0], 1, ext), neg)
+    pad1 = torch.full((B, 1), -1e30, device=dev)
+    pad2 = torch.full((B, 2), -1e30, device=dev)
+    for t in range(1, T):
+        shift1 = torch.cat([pad1, alpha[:, :-1]], 1)
+        shift2 = torch.where(can_skip, torch.cat([pad2, alpha[:, :-2]], 1),
+                             neg)
+        merged = torch.logsumexp(torch.stack([alpha, shift1, shift2]), 0)
+        new = torch.where(valid_s, merged + torch.gather(lp[t], 1, ext), neg)
+        alpha = torch.where((t < input_lengths)[:, None], new, alpha)
+    a_last = torch.gather(alpha, 1, (2 * label_lengths)[:, None])[:, 0]
+    a_second = torch.where(
+        label_lengths > 0,
+        torch.gather(alpha, 1, torch.clamp(2 * label_lengths - 1,
+                                           min=0)[:, None])[:, 0], neg)
+    loss = -torch.logsumexp(torch.stack([a_last, a_second]), 0)
+    if norm_by_times:
+        loss = loss / input_lengths.to(loss.dtype)
+    if reduction == "mean":
+        return (loss / torch.clamp(label_lengths.to(loss.dtype),
+                                   min=1.0)).mean()
+    return _reduce(loss, reduction)

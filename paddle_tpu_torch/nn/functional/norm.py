@@ -1,5 +1,5 @@
-"""LayerNorm and BatchNorm (counterpart of paddle_tpu/nn/functional/
-norm.py ``layer_norm``, ``batch_norm``, ``bn_inference_scale_bias``).
+"""LayerNorm, BatchNorm, RMSNorm, GroupNorm, InstanceNorm and normalize
+(counterpart of paddle_tpu/nn/functional/norm.py).
 
 With ``use_fused_layer_norm`` on, a last-axis norm with weight and bias goes
 to kernel B (ops/kernels/layer_norm.py): the kernel on CUDA tensors, its
@@ -126,3 +126,48 @@ def batch_norm_act(x, running_mean, running_var, weight=None, bias=None,
             or getattr(_act_mod, act.replace("_", ""))
         out = fn(out)
     return out, new_rm, new_rv
+
+
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """RMSNorm over the last axis, fp32 statistics, cast back to x's dtype
+    before the scale (the JAX package's own addition; the reference has
+    none)."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
+    return out if weight is None else out * weight
+
+
+def _affine(out, weight, bias):
+    shape = [1, out.shape[1]] + [1] * (out.dim() - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5):
+    """x (N, C, *spatial): statistics over each group of C / num_groups
+    channels and the spatial dims, in x's dtype, as the JAX package."""
+    n, c = x.shape[0], x.shape[1]
+    g = x.reshape(n, num_groups, c // num_groups, *x.shape[2:])
+    dims = tuple(range(2, g.dim()))
+    mean = g.mean(dim=dims, keepdim=True)
+    var = g.var(dim=dims, keepdim=True, unbiased=False)
+    out = ((g - mean) / torch.sqrt(var + epsilon)).reshape(x.shape)
+    return _affine(out, weight, bias)
+
+
+def instance_norm(x, weight=None, bias=None, epsilon=1e-5):
+    """Statistics over the spatial dims of each (sample, channel)."""
+    dims = tuple(range(2, x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, keepdim=True, unbiased=False)
+    return _affine((x - mean) / torch.sqrt(var + epsilon), weight, bias)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    """x over its p-norm along ``axis``, the norm floored at ``epsilon``."""
+    norm = torch.sum(x.abs() ** p, dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp(norm, min=epsilon)

@@ -1,4 +1,5 @@
-"""Linear, Embedding, Dropout (counterpart of paddle_tpu/nn/layer/common.py).
+"""Linear, Embedding, the dropouts, Flatten, Pad2D and Upsample
+(counterpart of paddle_tpu/nn/layer/common.py).
 
 Parameters are made on the CPU from an explicit ``torch.Generator`` (the
 global one when none is given), so one seed gives one set of weights on
@@ -64,17 +65,14 @@ class Embedding(Layer):
     order.  ``padding_idx`` zeroes that id's output row.  The weight is
     drawn from ``weight_attr``'s initializer, else N(0, ``std``) (``std``
     and ``generator`` keyword-only; the reference's default is N(0, 1)).
-    ``sparse=True`` (a sparse gradient) is not ported and raises; ``name``
-    is accepted (a module has no parameter names of its own)."""
+    ``sparse`` is accepted and the gradient is dense either way
+    (``F.embedding``); ``name`` is accepted (a module has no parameter
+    names of its own)."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *, std=1.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if sparse:
-            raise NotImplementedError(
-                "Embedding(sparse=True) is not ported to paddle_tpu_torch "
-                "yet")
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.padding_idx = padding_idx
@@ -83,7 +81,8 @@ class Embedding(Layer):
                    (num_embeddings, embedding_dim), generator)
 
     def forward(self, x):
-        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx,
+                           sparse=self.sparse)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"
@@ -103,3 +102,53 @@ class Dropout(Layer):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    """Channel-wise dropout (``F.dropout2d``)."""
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Pad2D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW"):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.size,
+                             scale_factor=self.scale_factor, mode=self.mode,
+                             align_corners=self.align_corners)

@@ -4,8 +4,10 @@ hand-written CUDA kernels (``ops.kernels``).
 
 The op library is torch compositions: no Pallas kernel of the JAX package
 lies behind its ops (they are jnp / lax there), so none has a kernel here.
-The exported set is the JAX package's less ``_DEFERRED``, the families
-that wait for a later slice of the port.
+The exported set is the JAX package's less ``_DEFERRED``, the vision ops
+that wait for a later slice of the port.  ``ops.crf`` (the linear-chain
+CRF) is a module of its own, outside the exported set, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -193,34 +195,39 @@ from .linalg import (
 from .attention import flash_attention, scaled_dot_product_attention
 from .extra import *  # noqa: F401,F403 -- long-tail tensor ops (extra.__all__)
 
+from .misc import *  # noqa: F401,F403 -- operator-parity tail (misc.__all__)
+from .ctc import *  # noqa: F401,F403 -- edit_distance / ctc decode
+from .chunking import chunk_eval
+from .sequence import (
+    segment_max,
+    segment_mean,
+    segment_min,
+    segment_sum,
+    sequence_expand,
+    sequence_first_step,
+    sequence_last_step,
+    sequence_mask,
+    sequence_pad,
+    sequence_pool,
+    sequence_reverse,
+    sequence_slice,
+    sequence_softmax,
+    sequence_unpad,
+)
+
 # The JAX package's op families that this port does not export yet, by
-# module, and each module's name (``chunk`` stays: here it names
-# manipulation's op, which the JAX package's ``ops.chunk`` submodule
-# shadows there).
+# module, and each module's name.
 _DEFERRED = {
-    "misc": ("affine_grid", "cos_sim", "crop_tensor", "cvm", "data_norm",
-             "frobenius_norm", "nce_loss", "sequence_conv", "spectral_norm",
-             "grid_sampler", "l1_norm", "lrn", "max_pool2d_with_index",
-             "minus", "multiplex", "p_norm", "pad_constant_like",
-             "pixel_shuffle", "pixel_unshuffle", "rank_loss", "reverse",
-             "roi_pool", "row_conv", "shuffle_channel",
-             "sigmoid_focal_loss", "space_to_depth", "strided_slice",
-             "temporal_shift"),
-    "sequence": ("segment_max", "segment_mean", "segment_min", "segment_sum",
-                 "sequence_expand", "sequence_first_step",
-                 "sequence_last_step", "sequence_mask", "sequence_pad",
-                 "sequence_pool", "sequence_reverse", "sequence_slice",
-                 "sequence_softmax", "sequence_unpad"),
     "vision": ("anchor_generator", "box_clip", "box_coder", "iou_similarity",
                "multiclass_nms", "prior_box", "roi_align", "yolo_box",
                "yolo_loss"),
-    "ctc": ("edit_distance", "ctc_greedy_decoder"),
-    "chunk": ("chunk_eval",),
 }
 _DEFERRED_NAMES = frozenset(
-    [n for names in _DEFERRED.values() for n in names]
-    + [m for m in _DEFERRED if m != "chunk"])
+    [n for names in _DEFERRED.values() for n in names] + list(_DEFERRED))
 
-# ``kernels`` (imported by ``attention``) is the port's own subpackage,
-# not an op
-__all__ = [n for n in dir() if not n.startswith("_") and n != "kernels"]
+# ``kernels`` (imported by ``attention``) is the port's own subpackage, not
+# an op; ``chunking`` holds ``chunk_eval`` under another name than the JAX
+# package's ``chunk`` submodule, so that ``chunk`` stays manipulation's op
+# (in the JAX package the submodule shadows it)
+__all__ = [n for n in dir() if not n.startswith("_")
+           and n not in ("kernels", "chunking")]

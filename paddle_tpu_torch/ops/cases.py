@@ -3,6 +3,10 @@ data, so that one table drives both checks of the op library: the CPU
 parity test against the JAX package (``tests/test_torch_ops.py``) and the
 card-against-CPU phase of ``chip_smoke.py``.
 
+``FUNCTIONAL_CASES`` is the same for the ``nn.functional`` functions that
+take plain arrays (the recurrent runners, which take cells, are held by
+their own tests).
+
 Each ``Case`` is ``(name, family, make, check)``: ``make(rng)`` returns
 ``(args, kwargs)`` of numpy arrays, Python scalars, lists and tuples
 (``to_framework`` turns the arrays into one framework's tensors);
@@ -13,6 +17,9 @@ Each ``Case`` is ``(name, family, make, check)``: ``make(rng)`` returns
 * ``linalg``: solves and inverses within ``TOLERANCE["linalg"]``;
 * ``attention``: the flash-attention op, whose kernel on the card sums in
   another order, within ``TOLERANCE["attention"]``;
+* ``cubic``: bicubic interpolation, whose Keys weights are sums of terms
+  near 6 that cancel to below 1, within ``TOLERANCE["cubic"]`` (1e-5 of
+  the unit-scale inputs);
 * ``decomp``: decompositions whose signs and order are free, held by
   ``check(args, outputs) -> error`` (a reconstruction or an invariant,
   relative) and the part their definition fixes;
@@ -30,7 +37,7 @@ Case = collections.namedtuple("Case", "name family make check")
 
 # (rtol, atol) of each compared family
 TOLERANCE = {"float": (1e-5, 1e-6), "linalg": (1e-4, 1e-5),
-             "attention": (1e-4, 1e-5)}
+             "attention": (1e-4, 1e-5), "cubic": (1e-5, 1e-5)}
 
 
 def _f(rng, *shape, lo=-2.0, hi=2.0):
@@ -573,12 +580,209 @@ _add("diag_embed", "exact", lambda r: ((_f(r, 2, 3), 1), {}))
 _add("diagflat", "exact", lambda r: ((_f(r, 2, 2),), {}))
 _add("diagflat", "exact", lambda r: ((_f(r, 3), -1), {}))
 
+# -- sequence (padded + lengths, segment ids) --------------------------------
+_LENS = lambda r: np.array([5, 0, 3, 1], np.int32)          # noqa: E731
+_add("sequence_mask", "exact", lambda r: ((_LENS(r), 6), {}))
+_add("sequence_mask", "exact", lambda r: ((_LENS(r), 6, "float32"), {}))
+for _p in ("sum", "mean", "sqrt", "max", "first", "last"):
+    _add("sequence_pool", "float", lambda r, p=_p: ((_f(r, 4, 6, 3), _LENS(r),
+                                                    p, -1.0), {}))
+_add("sequence_first_step", "exact", lambda r: ((_f(r, 4, 6, 2), _LENS(r)),
+                                                {}))
+_add("sequence_last_step", "exact", lambda r: ((_f(r, 4, 6, 2), _LENS(r)),
+                                               {}))
+_add("sequence_softmax", "float", lambda r: ((_f(r, 4, 6), _LENS(r)), {}))
+_add("sequence_softmax", "float", lambda r: ((_f(r, 4, 6, 2), _LENS(r)), {}))
+_add("sequence_reverse", "exact", lambda r: ((_f(r, 4, 6, 3), _LENS(r)), {}))
+_add("sequence_pad", "exact", lambda r: ((_f(r, 9, 2), np.array(
+    [0, 0, 0, 1, 3, 3, 3, 3, 3], np.int32), 4, 4, -1.0), {}))
+_add("sequence_unpad", "exact", lambda r: ((_f(r, 4, 6, 2), _LENS(r)), {}))
+_add("sequence_expand", "exact", lambda r: ((_f(r, 4, 6, 2), _LENS(r),
+                                             np.array([2, 3, 1, 4], np.int32),
+                                             8), {}))
+_add("sequence_slice", "exact", lambda r: ((_f(r, 4, 6, 2), _LENS(r),
+                                            np.array([1, 0, 2, 0], np.int32),
+                                            np.array([3, 2, 2, 1], np.int32)),
+                                           {}))
+for _n in ("segment_sum", "segment_mean", "segment_max", "segment_min"):
+    _add(_n, "float", lambda r: ((_f(r, 7, 3), np.array(
+        [0, 0, 1, 1, 1, 3, 3], np.int32), 5), {}))
+_add("segment_max", "exact", lambda r: ((_i(r, 6, lo=-9), np.array(
+    [0, 2, 2, 2, 3, 3], np.int32), 4), {}))
+# -- ctc and chunk_eval --------------------------------------------------------
+_add("edit_distance", "float", lambda r: ((_i(r, 4, 6, hi=5), _i(r, 4, 5, hi=5),
+                                           np.array([6, 3, 0, 4], np.int32),
+                                           np.array([5, 0, 2, 4], np.int32)),
+                                          {}))
+_add("edit_distance", "float", lambda r: ((_i(r, 3, 4, hi=4), _i(r, 3, 6, hi=4),
+                                           None, None, False), {}))
+_add("ctc_greedy_decoder", "exact", lambda r: ((_f(r, 3, 8, 5), 0, np.array(
+    [8, 5, 0], np.int32)), {}))
+_add("ctc_greedy_decoder", "exact", lambda r: ((_f(r, 2, 6, 4), 3, None, -1),
+                                               {}))
+_TAGS = lambda r: _i(r, 4, 10, hi=7)                         # noqa: E731
+_add("chunk_eval", "float", lambda r: ((_TAGS(r), _TAGS(r), np.array(
+    [10, 7, 3, 0], np.int32), "IOB", 3), {}))
+_add("chunk_eval", "float", lambda r: ((_i(r, 3, 12, hi=9), _i(r, 3, 12, hi=9),
+                                        None, "IOBES", 2), {}))
+_add("chunk_eval", "float", lambda r: ((_i(r, 3, 12, hi=7), _i(r, 3, 12, hi=7),
+                                        None, "IOE", 3, [1]), {}))
+_add("chunk_eval", "float", lambda r: ((_i(r, 3, 12, hi=4), _i(r, 3, 12, hi=4),
+                                        np.array([12, 5, 9], np.int32),
+                                        "plain", 3), {}))
+# -- misc ----------------------------------------------------------------------
+_add("pixel_shuffle", "exact", lambda r: ((_f(r, 2, 8, 3, 3), 2), {}))
+_add("pixel_shuffle", "exact", lambda r: ((_f(r, 2, 3, 3, 8), 2, "NHWC"), {}))
+_add("pixel_unshuffle", "exact", lambda r: ((_f(r, 2, 2, 6, 4), 2), {}))
+_add("space_to_depth", "exact", lambda r: ((_f(r, 2, 3, 4, 6), 2), {}))
+_add("shuffle_channel", "exact", lambda r: ((_f(r, 2, 6, 2, 2), 3), {}))
+_add("temporal_shift", "exact", lambda r: ((_f(r, 6, 8, 2, 2), 3), {}))
+_add("cos_sim", "float", lambda r: ((_f(r, 4, 5), _f(r, 4, 5)), {}))
+_add("cos_sim", "float", lambda r: ((_f(r, 4, 2, 3), _f(r, 1, 2, 3)), {}))
+_add("p_norm", "float", lambda r: ((_f(r, 3, 4), 3.0, 1), {}))
+_add("p_norm", "float", lambda r: ((_f(r, 3, 4), math.inf, 0, 1e-12, True),
+                                   {}))
+_add("p_norm", "float", lambda r: ((_f(r, 3, 4),), {}))
+_add("frobenius_norm", "float", lambda r: ((_f(r, 3, 4, 2), [0, 1]), {}))
+_add("frobenius_norm", "float", lambda r: ((_f(r, 3, 4),), {}))
+_add("l1_norm", "float", lambda r: ((_f(r, 3, 4),), {}))
+_add("minus", "float", lambda r: ((_f(r, 3, 4), _f(r, 3, 4)), {}))
+_add("reverse", "exact", lambda r: ((_f(r, 3, 4), [0, 1]), {}))
+_add("multiplex", "exact", lambda r: (([_f(r, 4, 3), _f(r, 4, 3),
+                                        _f(r, 4, 3)], np.array(
+                                            [[2], [0], [1], [2]], np.int32)),
+                                      {}))
+_add("strided_slice", "exact", lambda r: ((_f(r, 6, 7), [0, 1], [1, 6],
+                                           [5, 0], [2, -2]), {}))
+_add("strided_slice", "exact", lambda r: ((_f(r, 6, 7), [1], [-1], [-8],
+                                           [-1]), {}))
+_add("rank_loss", "float", lambda r: ((_b(r, 5, 1).astype(np.float32),
+                                       _f(r, 5, 1, lo=-50, hi=50),
+                                       _f(r, 5, 1)), {}))
+_add("sigmoid_focal_loss", "float", lambda r: ((_f(r, 6, 4), _i(r, 6, 1, hi=5),
+                                                np.array(3.0, np.float32)),
+                                               {}))
+_add("lrn", "float", lambda r: ((_f(r, 2, 7, 3, 3), 5, 1.0, 1e-2), {}))
+_add("lrn", "float", lambda r: ((_f(r, 2, 6, 2, 2), 4), {}))
+_add("pad_constant_like", "exact", lambda r: ((_f(r, 4, 5), _f(r, 2, 3), 9.0),
+                                              {}))
+_add("crop_tensor", "exact", lambda r: ((_f(r, 4, 5), [2, 3], [1, 2]), {}))
+_add("crop_tensor", "exact", lambda r: ((_f(r, 4, 5),), {}))
+_add("max_pool2d_with_index", "exact", lambda r: ((_f(r, 2, 3, 6, 7), 2), {}))
+_add("max_pool2d_with_index", "exact", lambda r: ((_f(r, 1, 2, 5, 5), 3, 2, 1),
+                                                  {}))
+_add("affine_grid", "float", lambda r: ((_f(r, 2, 2, 3), (2, 3, 4, 5)), {}))
+_add("affine_grid", "float", lambda r: ((_f(r, 2, 2, 3), (2, 3, 4, 5), False),
+                                        {}))
+_add("grid_sampler", "float", lambda r: ((_f(r, 2, 3, 5, 6),
+                                          _f(r, 2, 4, 3, 2, lo=-1.2, hi=1.2)),
+                                         {}))
+_add("grid_sampler", "float", lambda r: ((_f(r, 2, 3, 5, 6),
+                                          _f(r, 2, 4, 3, 2, lo=-1.2, hi=1.2),
+                                          "bilinear", "border", False), {}))
+_add("grid_sampler", "exact", lambda r: ((_f(r, 1, 2, 5, 6),
+                                          _f(r, 1, 4, 3, 2, lo=-1.2, hi=1.2),
+                                          "nearest"), {}))
+_add("roi_pool", "exact", lambda r: ((_f(r, 3, 12, 10), np.array(
+    [[0, 0, 9, 11], [2, 3, 6, 7], [4.4, 1.2, 4.6, 9.7]], np.float32), 2), {}))
+_add("roi_pool", "exact", lambda r: ((_f(r, 2, 8, 8), np.array(
+    [[1, 1, 14, 10], [0, 0, 3, 3]], np.float32), (3, 2), 0.5), {}))
+_add("row_conv", "float", lambda r: ((_f(r, 3, 6, 4), _f(r, 3, 4)), {}))
+_add("row_conv", "float", lambda r: ((_f(r, 3, 6, 4), _f(r, 3, 4), np.array(
+    [6, 2, 4], np.int32)), {}))
+_add("sequence_conv", "linalg", lambda r: ((_f(r, 3, 6, 4), _f(r, 12, 5)), {}))
+_add("sequence_conv", "linalg", lambda r: ((_f(r, 3, 6, 4), _f(r, 16, 5),
+                                            np.array([6, 2, 4], np.int32), 4,
+                                            -3), {}))
+_add("nce_loss", "float", lambda r: ((_f(r, 4, 6), _i(r, 4, hi=20),
+                                      _f(r, 20, 6), _f(r, 20),
+                                      _i(r, 4, 5, hi=20)), {}))
+_add("data_norm", "float", lambda r: ((_f(r, 5, 3), np.full(3, 10.0,
+                                                            np.float32),
+                                       _f(r, 3), _f(r, 3, lo=1, hi=9)), {}))
+_add("cvm", "float", lambda r: ((_f(r, 4, 5, lo=0.0, hi=9.0),), {}))
+_add("cvm", "exact", lambda r: ((_f(r, 4, 5), False), {}))
+_add("spectral_norm", "linalg", lambda r: ((_f(r, 4, 3, 2), _f(r, 3), 1, 2),
+                                           {}))
 
-def case_ids():
-    """A test id for each case: the op's name, numbered after the first."""
+
+
+# -- nn.functional -------------------------------------------------------------
+FUNCTIONAL_CASES = []
+
+
+def _fadd(name, family, make, check=None):
+    FUNCTIONAL_CASES.append(Case(name, family, make, check))
+
+
+def _check_dropout2d(args, out):
+    """Each (sample, channel) all zero or all x / (1 - p)."""
+    x, p = args[0], args[1]
+    kept = np.isclose(out, x / (1 - p), rtol=1e-6, atol=0)
+    dropped = out == 0
+    per = lambda m: m.reshape(m.shape[0], m.shape[1], -1).all(-1)  # noqa
+    return bool(np.all(per(kept) | per(dropped))
+                and 0 < per(dropped).sum() < per(dropped).size)
+
+
+_fadd("dropout2d", "random", lambda r: ((_f(r, 4, 16, 3, 3), 0.5), {}),
+      _check_dropout2d)
+_fadd("pad", "exact", lambda r: ((_f(r, 2, 3, 4, 5), [1, 2, 0, 3]), {}))
+_fadd("pad", "exact", lambda r: ((_f(r, 2, 4, 5, 3), [1, 2, 2, 1], "constant",
+                                  7.0, "NHWC"), {}))
+for _m in ("reflect", "replicate", "circular"):
+    _fadd("pad", "exact", lambda r, m=_m: ((_f(r, 2, 3, 4, 5), [2, 1, 3, 2],
+                                            m), {}))
+_fadd("pad", "exact", lambda r: ((_f(r, 3, 5), [1, 0, 2, 3], "reflect"), {}))
+for _m, _ac in (("nearest", False), ("nearest", True), ("bilinear", False),
+                ("bilinear", True), ("bicubic", False), ("bicubic", True)):
+    _fam = "cubic" if _m == "bicubic" else "float"
+    _fadd("interpolate", _fam, lambda r, m=_m, ac=_ac: (
+        (_f(r, 2, 3, 5, 6), (7, 9), None, m, ac), {}))
+    _fadd("interpolate", _fam, lambda r, m=_m, ac=_ac: (
+        (_f(r, 2, 6, 8, 3), None, 0.5, m, ac, "NHWC"), {}))
+_fadd("interpolate", "float", lambda r: ((_f(r, 1, 2, 3, 4, 5), (5, 2, 7),
+                                          None, "trilinear"), {}))
+_fadd("interpolate", "float", lambda r: ((_f(r, 1, 2, 3, 4, 5), None, 2.0,
+                                          "trilinear", True), {}))
+_fadd("upsample", "float", lambda r: ((_f(r, 2, 3, 4, 4), None, 2,
+                                       "bilinear"), {}))
+_fadd("cosine_similarity", "float", lambda r: ((_f(r, 4, 6), _f(r, 4, 6)),
+                                               {}))
+_fadd("cosine_similarity", "float", lambda r: ((_f(r, 3, 4, 5), _f(r, 3, 4, 5),
+                                                2), {}))
+_fadd("unfold", "exact", lambda r: ((_f(r, 2, 3, 6, 5), [2, 3], [1, 2], 1),
+                                    {}))
+_fadd("rms_norm", "float", lambda r: ((_f(r, 3, 8), _f(r, 8)), {}))
+_fadd("rms_norm", "float", lambda r: ((_f(r, 3, 8),), {}))
+_fadd("group_norm", "float", lambda r: ((_f(r, 2, 6, 4, 3), 3, _f(r, 6),
+                                         _f(r, 6)), {}))
+_fadd("group_norm", "float", lambda r: ((_f(r, 2, 4, 5), 2), {}))
+_fadd("instance_norm", "float", lambda r: ((_f(r, 2, 3, 4, 5), _f(r, 3),
+                                            _f(r, 3)), {}))
+_fadd("instance_norm", "float", lambda r: ((_f(r, 2, 3, 7),), {}))
+_fadd("normalize", "float", lambda r: ((_f(r, 3, 5),), {}))
+_fadd("normalize", "float", lambda r: ((_f(r, 3, 5, 2), 1, 2), {}))
+_fadd("one_hot", "exact", lambda r: ((_i(r, 3, 4, hi=6), 6), {}))
+_fadd("ctc_loss", "linalg", lambda r: ((_f(r, 12, 3, 6), _i(r, 3, 4, lo=1,
+                                                             hi=6),
+                                        np.array([12, 9, 5], np.int32),
+                                        np.array([4, 2, 0], np.int32)), {}))
+_fadd("ctc_loss", "linalg", lambda r: ((_f(r, 8, 2, 5), _i(r, 2, 3, lo=1,
+                                                            hi=5),
+                                        None, None, 0, "sum", True), {}))
+_fadd("ctc_loss", "linalg", lambda r: ((_f(r, 8, 2, 5), _i(r, 2, 3, lo=0,
+                                                            hi=4),
+                                        None, np.array([3, 1], np.int32), 4,
+                                        "none"), {}))
+
+
+def case_ids(cases=None):
+    """A test id for each case of ``cases`` (default ``CASES``): the name,
+    numbered after the first."""
     seen = collections.Counter()
     ids = []
-    for c in CASES:
+    for c in CASES if cases is None else cases:
         ids.append(c.name if not seen[c.name] else f"{c.name}-{seen[c.name]}")
         seen[c.name] += 1
     return ids

@@ -65,7 +65,11 @@ def test_import_scan_covers_every_package_of_the_port():
                 "nn.layer.conv", "nn.layer.loss", "nn.layer.base",
                 "nn.layer.activation", "core.tape", "ops.creation",
                 "ops.manipulation", "ops.math", "ops.logic", "ops.search",
-                "ops.random", "ops.linalg", "ops.extra", "ops.cases"):
+                "ops.random", "ops.linalg", "ops.extra", "ops.cases",
+                "core.lod", "ops.sequence", "ops.crf", "ops.chunking",
+                "ops.ctc", "ops.misc", "nn.functional.rnn", "nn.layer.rnn",
+                "nn.layer.norm", "nn.layer.pooling", "nn.layer.extras",
+                "nn.decode", "optimizer.extras"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 

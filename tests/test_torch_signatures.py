@@ -116,8 +116,8 @@ def test_embedding_port_arguments_are_keyword_only_and_unported_raise():
     assert emb.padding_idx is None and emb.weight.abs().max() > 0
     with pytest.raises(TypeError):
         tnn.Embedding(6, 3, None, False, None, None, 0.5)
-    with pytest.raises(NotImplementedError):
-        tnn.Embedding(6, 3, None, True)
+    # sparse=True is the fourth positional
+    assert tnn.Embedding(6, 3, None, True).sparse
     # a weight_attr is read as the JAX package reads it: its .initializer
     # when it has one, else the default
     attr = type("A", (), {"initializer": tinit.Constant(0.25)})()
@@ -125,9 +125,10 @@ def test_embedding_port_arguments_are_keyword_only_and_unported_raise():
     assert tnn.Embedding(6, 3, None, False, object(), std=0.5,
                          generator=torch.Generator().manual_seed(0)
                          ).weight.abs().max() > 0
-    with pytest.raises(NotImplementedError):
-        TF.embedding(torch.zeros(2, dtype=torch.int32), emb.weight, None,
-                     True)
+    out = TF.embedding(torch.zeros(2, dtype=torch.int32), emb.weight, None,
+                       True)
+    out.sum().backward()
+    assert emb.weight.grad.layout == torch.strided       # a dense gradient
 
 
 def test_paged_decoder_positional_donate_then_tenant():
@@ -512,5 +513,111 @@ def test_slice_positional_parameters_match_the_reference(label, ref, port):
 
 def test_slice_signature_list_covers_every_exported_op():
     labels = {c[0] for c in _slice_callables()}
-    assert len(_ops()) == 250
+    assert len(_ops()) == 295
     assert all(f"ops.{n}" in labels for n in _ops())
+
+
+# -- the LoD / recurrent / nn-tail slice: every class, method and function
+# it adds binds positional arguments as the reference does ------------------
+
+from paddle_tpu import core as jcore  # noqa: E402
+from paddle_tpu.nn import decode as jdecode  # noqa: E402
+from paddle_tpu.ops import crf as jcrf  # noqa: E402
+from paddle_tpu_torch import core as tcore  # noqa: E402
+from paddle_tpu_torch.nn import decode as tdecode  # noqa: E402
+from paddle_tpu_torch.ops import crf as tcrf  # noqa: E402
+
+_SLICE_NN = ["Dropout2D", "Flatten", "Pad2D", "Upsample", "BatchNorm",
+             "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "SyncBatchNorm",
+             "RMSNorm", "GroupNorm", "InstanceNorm2D", "MaxPool1D",
+             "MaxPool2D", "AvgPool1D", "AvgPool2D", "AdaptiveAvgPool2D",
+             "AdaptiveMaxPool2D", "Identity", "CTCLoss", "Bilinear",
+             "BilinearTensorProduct", "CosineSimilarity", "PairwiseDistance",
+             "AlphaDropout", "Dropout3D", "Pad1D", "Pad3D", "ZeroPad2D",
+             "PixelShuffle", "SpectralNorm", "LocalResponseNorm", "RowConv",
+             "InstanceNorm1D", "InstanceNorm3D", "Unfold", "RNNCellBase",
+             "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN", "BiRNN",
+             "SimpleRNN", "LSTM", "GRU", "BeamSearchDecoder"]
+_SLICE_FUNCTIONAL = ["dropout2d", "pad", "interpolate", "upsample",
+                     "cosine_similarity", "unfold", "rms_norm", "group_norm",
+                     "instance_norm", "normalize", "one_hot", "ctc_loss",
+                     "rnn", "birnn", "embedding"]
+_SLICE_OPTIMIZERS = ["Ftrl", "Dpsgd", "DGCMomentum", "dgc_compress",
+                     "ExponentialMovingAverage", "ModelAverage", "Lookahead"]
+
+
+def _lod_rnn_callables():
+    pairs = [(f"nn.{n}", getattr(jnn, n), getattr(tnn, n))
+             for n in _SLICE_NN]
+    for n in ("RNN", "BiRNN", "SimpleRNN", "LSTM", "GRU", "SimpleRNNCell",
+              "LSTMCell", "GRUCell"):
+        pairs.append((f"nn.{n}.forward", getattr(jnn, n).forward,
+                      getattr(tnn, n).forward))
+    pairs.append(("RNNCellBase.get_initial_states",
+                  jnn.RNNCellBase.get_initial_states,
+                  tnn.RNNCellBase.get_initial_states))
+    pairs.append(("SyncBatchNorm.convert_sync_batchnorm",
+                  jnn.SyncBatchNorm.convert_sync_batchnorm,
+                  tnn.SyncBatchNorm.convert_sync_batchnorm))
+    for n in ("gather_tree", "dynamic_decode"):
+        pairs.append((f"nn.{n}", getattr(jnn, n), getattr(tnn, n)))
+    for m in ("tile_beam_merge_with_batch", "initialize", "step"):
+        pairs.append((f"BeamSearchDecoder.{m}",
+                      getattr(jdecode.BeamSearchDecoder, m),
+                      getattr(tdecode.BeamSearchDecoder, m)))
+    for n in ("split_states", "concat_states"):
+        pairs.append((f"rnn.{n}", getattr(jrnn_mod, n), getattr(trnn_mod, n)))
+    for n in _SLICE_FUNCTIONAL:
+        pairs.append((f"F.{n}", getattr(JF, n), getattr(TF, n)))
+    # the 45 new top-level ops are in the op slice's list above
+    for n in ("linear_chain_crf", "crf_decoding"):
+        pairs.append((f"crf.{n}", getattr(jcrf, n), getattr(tcrf, n)))
+    for n in _SLICE_OPTIMIZERS:
+        pairs.append((f"optimizer.{n}", getattr(jopt, n), getattr(topt, n)))
+    for m in ("update", "apply", "state_dict", "set_state_dict"):
+        pairs.append((f"ExponentialMovingAverage.{m}",
+                      getattr(jopt.ExponentialMovingAverage, m),
+                      getattr(topt.ExponentialMovingAverage, m)))
+    for m in ("init", "update", "get_lr"):
+        pairs.append((f"Lookahead.{m}", getattr(jopt.Lookahead, m),
+                      getattr(topt.Lookahead, m)))
+    for c in ("LoDTensor", "SelectedRows"):
+        jc, tc = getattr(jcore, c), getattr(tcore, c)
+        for m in [m for m, v in vars(jc).items()
+                  if (not m.startswith("__") or m == "__init__")
+                  and not isinstance(v, property)]:
+            pairs.append((f"core.{c}.{m}", getattr(jc, m), getattr(tc, m)))
+    return pairs
+
+
+from paddle_tpu.nn.layer import rnn as jrnn_mod  # noqa: E402
+from paddle_tpu_torch.nn.layer import rnn as trnn_mod  # noqa: E402
+
+
+@pytest.mark.parametrize("label,ref,port", _lod_rnn_callables(),
+                         ids=[c[0] for c in _lod_rnn_callables()])
+def test_lod_rnn_positional_parameters_match_the_reference(label, ref,
+                                                          port):
+    test_positional_parameters_match_the_reference(label, ref, port)
+
+
+def test_slice_constructors_called_positionally_in_both_packages():
+    # GRU(input_size, hidden_size, num_layers, direction, dropout,
+    # time_major, weight_ih_attr, weight_hh_attr, bias_ih_attr, bias_hh_attr)
+    j = jnn.GRU(4, 3, 2, "bidirect", 0.0, True, None, None, False, None)
+    t = tnn.GRU(4, 3, 2, "bidirect", 0.0, True, None, None, False, None)
+    assert set(dict(t.named_parameters())) == set(parameters_dict_j(j))
+    assert t.time_major and t[0].cell_fw.bias_ih is None
+    # BatchNorm(num_features, momentum, epsilon, weight_attr, bias_attr,
+    # data_format)
+    jb = jnn.BatchNorm2D(3, 0.5, 1e-3, None, False, "NHWC")
+    tb = tnn.BatchNorm2D(3, 0.5, 1e-3, None, False, "NHWC")
+    assert tb.bias is None and jb.bias is None and tb.data_format == "NHWC"
+    # Dpsgd(learning_rate, clip, batch_size, sigma)
+    jd, td = jopt.Dpsgd(0.1, 2.0, 8, 0.5), topt.Dpsgd(0.1, 2.0, 8, 0.5)
+    assert (td.clip, td.batch_size, td.sigma) == (jd.clip, jd.batch_size,
+                                                  jd.sigma)
+
+
+def parameters_dict_j(layer):
+    return jautograd.parameters_dict(layer)
