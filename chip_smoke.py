@@ -315,7 +315,40 @@ Phases (any failed check raises, so the script exits non-zero):
               DGCMomentum and ModelAverage 3 steps each on a 1-layer copy,
               the card's eager optimizer against the CPU's on the same
               gradients.
-Phases 17-20 run right after the build (and row 11's profile), before
+21. resnet  -- bench_vision's ResNet-50 training (PaddleClas's
+              configuration): ``vision.models.resnet50(num_classes=1000,
+              data_format="NHWC")``, b256 224 x 224, Momentum (lr 0.1,
+              0.9), bf16 compute over fp32 parameters, cross entropy on
+              fp32 logits; no port kernel under it (its BatchNorms are
+              ``F.batch_norm``, its one max pool has C = 64, which the pool
+              kernel's gate refuses).  Checks at fp32, b4, 224: the eval
+              logits on the card against the CPU; the NCHW model on the
+              same weights gives the NHWC model's logits; an eval-mode
+              step's loss and every gradient at TOL_TRAIN_*; a train-mode
+              step's loss, gradients and BatchNorm statistics as vectors
+              within VISION_CHAOS times the CPU's own move under a 1e-6
+              input perturbation (train-mode BatchNorm at random init is
+              chaotic); LeNet, VGG-11 (BN) and MobileNet V1 / V2 eval
+              logits; no port kernel launched in a step.  Then 2 warm-up
+              and 5 timed steps: step ms, images/s, MFU (3 x 4.09e9 FLOP
+              an image against 989 TF/s), peak memory, and a profiler
+              split (convolutions and products, cuDNN's layout
+              conversions, BatchNorm / elementwise, the optimizer; the
+              busy share; the layout conversions a step launches, fewer
+              than one a convolution).
+22. yolo    -- bench_vision's YOLOv3-DarkNet53 training (PaddleDetection's
+              configuration): ``yolov3_darknet53(num_classes=80)``, b64
+              416 x 416, 16 gt boxes an image from --seed, Momentum (lr
+              1e-4, 0.9), bf16 compute, fp32 heads into ``model.loss``;
+              no port kernel.  Checks at fp32, b2, 128: the three heads,
+              the eval- and train-mode steps as in phase 21, and
+              ``predict`` (``yolo_box`` + ``multiclass_nms``) on the CPU's
+              heads, card against CPU: equal counts, labels and scores on
+              the rows with distinct scores, boxes within 1e-4.  Then 2
+              warm-up and 5 timed steps (step ms, images/s, MFU against 3
+              x 65.86e9 FLOP an image, peak memory, busy share) and the
+              wall time of one b64 ``predict``.
+Phases 17-22 run right after the build (and row 11's profile), before
 the first CUDA graph capture: the card's profiler loses eager launches
 after one.
 
@@ -324,11 +357,13 @@ Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"int8": ...}``, ``{"cold": ...}``, ``{"static_train": ...}``,
 ``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}``,
 ``{"ops": ...}``, ``{"dygraph": ...}``, ``{"tagging": ...}``,
-``{"rnn": ...}`` and ``{"kernels": [...]}`` JSON lines (one kernel entry
+``{"rnn": ...}``, ``{"resnet": ...}``, ``{"yolo": ...}`` and
+``{"kernels": [...]}`` JSON lines (one kernel entry
 for each of the 15 TPU kernels; rows 10 and 13-15 with their launches on
 the static-train path, rows 11-13 with their cold times, rows 1, 2 and
-5-8 with their launches on each path of phases 14-16, 18 and 19) and the
-card's name and power limit;
+5-8 with their launches on each path of phases 14-16, 18 and 19, every
+row with its launches on phases 21 and 22's paths, 0) and the card's name
+and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -5722,6 +5757,480 @@ def lac_phase(seed):
     return out
 
 
+# -- phases 21-22: bench_vision's ResNet-50 and YOLOv3-DarkNet53 training ----
+
+# bench_vision.py's two training recipes at their full widths: PaddleClas's
+# ResNet-50 (b256, 224 x 224, NHWC, Momentum lr 0.1 / 0.9) and
+# PaddleDetection's YOLOv3-DarkNet53 (b64, 416 x 416, 80 classes, 16 gt
+# boxes an image, Momentum lr 1e-4 / 0.9), bf16 compute over fp32
+# parameters; the card-against-CPU checks at fp32 at b4 / 224 and at
+# bench_vision's CPU size (b2, 128).  Forward FLOPs an image as
+# bench_vision counts them (2 x MACs); a training step is 3 x forward.
+RESNET = dict(batch=256, size=224, classes=1000, lr=0.1, momentum=0.9,
+              check_batch=4, steps=7, warm=2, fwd_flops=4.09e9, convs=53)
+YOLO = dict(batch=64, size=416, classes=80, n_gt=16, lr=1e-4, momentum=0.9,
+            check_batch=2, check_size=128, steps=7, warm=2,
+            fwd_flops=65.86e9, keep_top_k=100)
+# Train-mode BatchNorm at random initialization makes a deep network's
+# step chaotic (tests/test_torch_vision_models.py): scaling the input by
+# 1 + 1e-6 moves ResNet-50's per-tensor gradients by ~30%, and even in
+# eval mode ReLU decisions near zero move its layer4 gradients by 2e-3 of
+# their size at b4 224.  Each step is held against the CPU's within
+# VISION_CHAOS times the distance the CPU's own step moves under that
+# perturbation, where that is more than TOL_TRAIN_*; an eval-mode gradient
+# below VISION_FLOOR of the largest is held relative to that floor
+# (vision_card_vs_cpu).
+VISION_PERTURB, VISION_CHAOS, VISION_FLOOR = 1e-6, 10.0, 1e-2
+# cuDNN / cuBLAS kernels in a profile: convolutions (forward, data and
+# weight gradients) and matrix products
+CONV_KERNEL = re.compile(r"conv|xmma|implicit|gemm|cutlass|nvjet|cudnn|"
+                         r"wgrad|dgrad|fprop|sm90_", re.I)
+# cuDNN's own layout conversions
+LAYOUT_KERNEL = re.compile(r"nchwToNhwc|nhwcToNchw|nchw2nhwc|nhwc2nchw|"
+                           r"transpose", re.I)
+
+
+def vision_train_step(model, loss_of, opt, compute_dtype):
+    """bench_vision's ``train_step``: the floating parameters (fp32
+    masters) cast to ``compute_dtype`` and bound with
+    ``torch.func.functional_call``, ``loss_of(outputs, *rest)``, the
+    gradients with respect to the masters, ``opt.update``.  Returns
+    ``step(params, state, images, *rest) -> (params, state, loss)``."""
+
+    def step(params, state, images, *rest):
+        names = list(params)
+        leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+        cast = {k: v.to(compute_dtype) for k, v in leaves.items()}
+        out = torch.func.functional_call(model, cast, (images,))
+        loss = loss_of(out, *rest)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        params, state = opt.update(dict(zip(names, grads)), state, params)
+        return params, state, loss.detach()
+
+    return step
+
+
+def vision_grads(model, loss_of, images, *rest):
+    """One fp32 step's loss, gradients and buffers after it (the model's
+    own parameters; BatchNorm in the model's mode)."""
+    loss = loss_of(model(images), *rest)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu().clone()
+             for k, p in model.named_parameters()}
+    model.clear_gradients()
+    bufs = {k: b.detach().cpu().clone() for k, b in model.named_buffers()}
+    return {"loss": loss.detach().cpu()}, grads, bufs
+
+
+def _l2(a, b):
+    d = sum(float(((a[k].float() - b[k].float()) ** 2).sum()) for k in b)
+    n = sum(float((b[k].float() ** 2).sum()) for k in b)
+    return (d / max(n, 1e-300)) ** 0.5
+
+
+def vision_card_vs_cpu(tag, make, loss_of, images, *rest):
+    """``make(device)`` builds the model (one seed, one set of weights) on
+    the card and on the CPU; one fp32 step each in eval mode (BatchNorm
+    on its running statistics) and in train mode (batch statistics),
+    each against the CPU's step, with the CPU's own move under an input
+    scaled by 1 + VISION_PERTURB as the measure of how well the step is
+    conditioned.  Eval mode: the loss within TOL_TRAIN_LOSS_REL and each
+    gradient within TOL_TRAIN_GRAD_REL of its largest value (floored at
+    VISION_FLOOR of the largest gradient of all: a BatchNorm bias's
+    gradient sums thousands of terms of both signs, which the card and
+    the CPU add in their own orders), or within VISION_CHAOS times its
+    own move (ReLU decisions near zero flip: at b4 224 the move reaches
+    2e-3 of ResNet-50's layer4 gradients).  Train mode: the
+    loss, all gradients and all running statistics after the step, each
+    as one vector, within max(TOL_TRAIN_LOSS_REL, VISION_CHAOS times the
+    move).  Returns the errors."""
+    import paddle_tpu_torch as P
+
+    card = make(DEV)
+    out = {}
+    with P.device_guard("cpu"):
+        host = make("cpu")
+        cpu_in = [t.cpu() for t in (images,) + rest]
+        for train in (False, True):
+            mode = "train" if train else "eval"
+            for m in (card, host):
+                m.train() if train else m.eval()
+            start = {k: b.clone() for k, b in host.named_buffers()}
+            moved = vision_grads(host, loss_of,
+                                 cpu_in[0] * (1 + VISION_PERTURB),
+                                 *cpu_in[1:])
+            for k, b in host.named_buffers():
+                b.copy_(start[k])
+            ref = vision_grads(host, loss_of, *cpu_in)
+            got = vision_grads(card, loss_of, images, *rest)
+            if train:
+                for i, what in enumerate(("loss", "gradients",
+                                          "statistics")):
+                    err = _l2(got[i], ref[i])
+                    allowed = max(TOL_TRAIN_LOSS_REL,
+                                  VISION_CHAOS * _l2(moved[i], ref[i]))
+                    check(err <= allowed, f"{tag}: fp32 {mode}-mode step's "
+                          f"{what} ({len(ref[i])} tensors), the card vs the "
+                          f"CPU: rel L2 err {err:.3g} <= {allowed:.3g} (max "
+                          f"of {TOL_TRAIN_LOSS_REL} and {VISION_CHAOS:g} x "
+                          f"the CPU's move under x (1 + "
+                          f"{VISION_PERTURB:g}))")
+                    out[f"{mode}_{what}_rel_l2"] = err
+                    out[f"{mode}_{what}_allowed"] = allowed
+                continue
+            loss, ref_loss = float(got[0]["loss"]), float(ref[0]["loss"])
+            err = abs(loss - ref_loss)
+            allowed = max(TOL_TRAIN_LOSS_REL * abs(ref_loss), VISION_CHAOS
+                          * abs(float(moved[0]["loss"]) - ref_loss))
+            check(err <= allowed, f"{tag}: fp32 {mode}-mode loss {loss:.6f} "
+                  f"on the card, {ref_loss:.6f} on the CPU: err {err:.3g} <= "
+                  f"{allowed:.3g}")
+            top = max(float(g.abs().max()) for g in ref[1].values())
+            worst, beyond, failed = (0.0, ""), 0, []
+            for k, g in ref[1].items():
+                scale = max(float(g.abs().max()), VISION_FLOOR * top)
+                e = max_abs(got[1][k], g)
+                worst = max(worst, (e / scale, k))
+                beyond += e > TOL_TRAIN_GRAD_REL * scale
+                if e > max(TOL_TRAIN_GRAD_REL * scale,
+                           VISION_CHAOS * max_abs(moved[1][k], g)):
+                    failed.append(k)
+            check(not failed, f"{tag}: fp32 {mode}-mode step, the card vs "
+                  f"the CPU: {len(ref[1])} gradients (the largest "
+                  f"{top:.3g}), worst {worst[0]:.3g} of the gradient's max "
+                  f"floored at {VISION_FLOOR:g} of the largest "
+                  f"({worst[1]}), {beyond} beyond {TOL_TRAIN_GRAD_REL} of "
+                  f"it, each within {VISION_CHAOS:g} x its move under x (1 "
+                  f"+ {VISION_PERTURB:g}) (beyond that: {failed})")
+            out.update(eval_loss_err=err, eval_grad_worst=worst[0],
+                       eval_grads_beyond_tol=beyond)
+    del card, host
+    return out
+
+
+def vision_profile(run, update, steps=2):
+    """``profile_split`` of ``steps`` training steps by kind: convolutions
+    and products (cuDNN / cuBLAS), cuDNN's layout conversions, the
+    optimizer (the device time of ``update`` alone, profiled apart), and
+    BatchNorm / elementwise (the rest of the step); the busy share, and
+    the layout conversions a step launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        return [(us / 1e3 / steps, count / steps, name)
+                for us, count, name in device_events(prof)], wall
+
+    kernels, wall = device(run)
+    opt_kernels, _ = device(update)
+    busy = sum(ms for ms, _, _ in kernels)
+    layout_ms = sum(ms for ms, _, name in kernels
+                    if LAYOUT_KERNEL.search(name))
+    layout = sum(c for _, c, name in kernels if LAYOUT_KERNEL.search(name))
+    conv = sum(ms for ms, _, name in kernels if CONV_KERNEL.search(name)
+               and not LAYOUT_KERNEL.search(name))
+    opt_ms = sum(ms for ms, _, _ in opt_kernels)
+    port = sum(ms for ms, _, name in kernels if PORT_KERNEL.search(name))
+    kinds = {"convolutions and products": conv,
+             "layout conversions": layout_ms, "optimizer": opt_ms,
+             "BatchNorm / elementwise": busy - conv - layout_ms - opt_ms}
+    log(f"[profile] per step: device busy {busy:.2f} ms of {wall:.2f} ms "
+        f"wall (busy share {busy / wall:.3f}); "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items())
+        + f"; layout conversions {layout:g} launches; port kernels "
+        f"{port:.3f} ms")
+    for ms, count, name in sorted(kernels, reverse=True)[:12]:
+        log(f"  {ms:8.3f} ms  x{count:<6g} {name[:100]}")
+    return dict(busy_ms=busy, wall_ms=wall, busy_share=busy / wall,
+                kinds=kinds, layout_launches=layout, port_ms=port)
+
+
+def zoo_forwards(seed):
+    """LeNet, VGG-11 with BatchNorm and MobileNet V1 / V2 (eval, b4): the
+    card's logits against the CPU's on the same weights."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.vision import models as M
+
+    rng = np.random.default_rng(seed + 21)
+    s = RESNET["size"]
+    makers = {"lenet": (lambda d, g: M.LeNet(device=d, generator=g), 1, 28),
+              "vgg11_bn": (lambda d, g: M.vgg11(batch_norm=True, device=d,
+                                                generator=g), 3, s),
+              "mobilenet_v1": (lambda d, g: M.mobilenet_v1(
+                  device=d, generator=g), 3, s),
+              "mobilenet_v2": (lambda d, g: M.mobilenet_v2(
+                  device=d, generator=g), 3, s)}
+    errs = {}
+    for name, (make, ch, size) in makers.items():
+        x = torch.from_numpy(rng.standard_normal(
+            (RESNET["check_batch"], ch, size, size)).astype(np.float32))
+        card = make(DEV, torch.Generator().manual_seed(seed)).eval()
+        with P.device_guard("cpu"), torch.no_grad():
+            ref = make("cpu", torch.Generator().manual_seed(seed)).eval()(x)
+        with torch.no_grad():
+            got = card(x.to(DEV)).cpu()
+        errs[name] = rel_err(got, ref)
+        check(errs[name] <= TOL_TRAIN_GRAD_REL, f"resnet zoo: {name} eval "
+              f"logits {tuple(got.shape)} on the card vs the CPU, rel err "
+              f"{errs[name]:.3g} <= {TOL_TRAIN_GRAD_REL}")
+        del card
+    return errs
+
+
+def resnet_phase(seed):
+    """bench_vision's ResNet-50 training (PaddleClas's configuration) on
+    the card; see the module docstring, phase 21."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models as M
+
+    cfg = RESNET
+    rng = np.random.default_rng(seed + 21)
+    out = {"config": dict(cfg)}
+
+    def make(dev, fmt="NHWC"):
+        return M.resnet50(num_classes=cfg["classes"], data_format=fmt,
+                          device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+
+    def ce(logits, labels):
+        return P.mean(F.cross_entropy(logits.float(), labels))
+
+    b, s = cfg["check_batch"], cfg["size"]
+    x = torch.from_numpy(rng.standard_normal((b, s, s, 3)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, cfg["classes"], (b, 1)))
+    card = make(DEV).eval()
+    with P.device_guard("cpu"), torch.no_grad():
+        ref = make("cpu").eval()(x)
+    with torch.no_grad():
+        got = card(x.to(DEV))
+    out["eval_logits_rel_err"] = rel_err(got.cpu(), ref)
+    check(out["eval_logits_rel_err"] <= TOL_TRAIN_GRAD_REL,
+          f"resnet: fp32 b{b} {s}x{s} NHWC eval logits on the card vs the "
+          f"CPU, rel err {out['eval_logits_rel_err']:.3g} <= "
+          f"{TOL_TRAIN_GRAD_REL}")
+    nchw = make(DEV, "NCHW").eval()
+    nchw.set_state_dict(card.state_dict())
+    with torch.no_grad():
+        got_nchw = nchw(x.to(DEV).permute(0, 3, 1, 2).contiguous())
+    out["nchw_vs_nhwc_rel_err"] = rel_err(got_nchw, got)
+    check(out["nchw_vs_nhwc_rel_err"] <= TOL_TRAIN_GRAD_REL,
+          f"resnet: the NCHW model on the NHWC model's weights, its logits "
+          f"rel err {out['nchw_vs_nhwc_rel_err']:.3g} <= "
+          f"{TOL_TRAIN_GRAD_REL}")
+    del card, nchw, got, got_nchw
+    out.update(vision_card_vs_cpu("resnet", make, ce, x.to(DEV), y.to(DEV)))
+    out["zoo_logits_rel_err"] = zoo_forwards(seed)
+    torch.cuda.empty_cache()
+
+    # full width: bf16 compute over fp32 parameters, Momentum
+    model = make(DEV).train()
+    opt = Momentum(learning_rate=cfg["lr"], momentum=cfg["momentum"])
+    params = convert.parameters_dict(model)
+    state = opt.init(params)
+    step = vision_train_step(model, ce, opt, torch.bfloat16)
+    b = cfg["batch"]
+    images = torch.from_numpy(rng.standard_normal((b, s, s, 3)).astype(
+        np.float32)).to(DEV, torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, cfg["classes"], (b, 1))).to(
+        DEV)
+    (params, state, _), counts = count_one(step, params, state, images,
+                                           labels)
+    check(sum(counts.values()) == 0, f"resnet: a ResNet-50 step launches no "
+          f"port kernel ({counts})")
+    params, state, ms, peak, losses = timed_steps(
+        lambda p, st, batch, _: step(p, st, *batch), params, state,
+        (images, labels), None, cfg["steps"], cfg["warm"])
+    check(all(np.isfinite(losses)), f"resnet losses finite {losses}")
+    grads = {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def run():
+        nonlocal params, state
+        params, state, _ = step(params, state, images, labels)
+
+    prof = vision_profile(run, lambda: opt.update(grads, state, params))
+    check(prof["layout_launches"] < cfg["convs"], f"resnet: "
+          f"{prof['layout_launches']:g} layout conversions a step, fewer "
+          f"than one a convolution ({cfg['convs']}): no per-layer copy")
+    ips = b / ms * 1e3
+    mfu = 3 * cfg["fwd_flops"] * ips / PEAK_FLOPS[torch.bfloat16]
+    log(f"[resnet] ResNet-50 NHWC bf16 b{b} {s}x{s} Momentum: step "
+        f"{ms:.2f} ms = {ips:.1f} images/s, MFU {mfu:.4f}, peak "
+        f"{peak:.2f} GiB, busy share {prof['busy_share']:.3f}; losses "
+        f"{[round(v, 4) for v in losses]}; port kernel launches {counts}")
+    out.update(step_ms=ms, images_per_s=ips, mfu=mfu, peak_gib=peak,
+               losses=losses, port_kernel_launches=counts, profile=prof,
+               busy_share=prof["busy_share"])
+    del model, opt, params, state, grads, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def yolo_batch(rng, b, size):
+    """Images and bench_vision's gt boxes: normalized (cx, cy, w, h), w and
+    h in 0.05-0.4, centres in 0.2-0.8, labels in [0, 80)."""
+    cfg = YOLO
+    images = rng.standard_normal((b, 3, size, size)).astype(np.float32)
+    wh = rng.uniform(0.05, 0.4, (b, cfg["n_gt"], 2))
+    cxy = rng.uniform(0.2, 0.8, (b, cfg["n_gt"], 2))
+    box = np.concatenate([cxy, wh], -1).astype(np.float32)
+    label = rng.integers(0, cfg["classes"], (b, cfg["n_gt"])).astype(
+        np.int32)
+    return [torch.from_numpy(a) for a in (images, box, label)]
+
+
+def yolo_predict_check(model, heads, size):
+    """``predict`` on the CPU's heads, on the card and on the CPU: equal
+    counts, labels and scores on the rows whose scores are distinct (1e-6
+    apart) from their neighbours', boxes within 1e-4 of the largest."""
+    import paddle_tpu_torch as P
+
+    b = heads[0].shape[0]
+    img = torch.tensor([[size, size]] * b, dtype=torch.int32)
+    with torch.no_grad():
+        dets, num = model.predict([h.to(DEV) for h in heads], img.to(DEV),
+                                  keep_top_k=YOLO["keep_top_k"])
+        with P.device_guard("cpu"):
+            rd, rn = model.predict(heads, img, keep_top_k=YOLO["keep_top_k"])
+    dets, num = dets.cpu(), num.cpu()
+    check(torch.equal(num, rn) and num.dtype == torch.int32,
+          f"yolo predict: num_valid {num.tolist()} on the card, "
+          f"{rn.tolist()} on the CPU")
+    s = rd[..., 1]
+    gap = torch.full_like(s, float("inf"))
+    gap[:, 1:] = torch.minimum(gap[:, 1:], (s[:, :-1] - s[:, 1:]).abs())
+    gap[:, :-1] = torch.minimum(gap[:, :-1], (s[:, :-1] - s[:, 1:]).abs())
+    rows = gap > 1e-6
+    same = torch.equal(dets[..., 0][rows], rd[..., 0][rows])
+    serr = float((dets[..., 1] - s)[rows].abs().max())
+    berr = rel_err(dets[..., 2:][rows], rd[..., 2:][rows])
+    check(same and serr <= 1e-6 and berr <= 1e-4,
+          f"yolo predict: {int(rows.sum())} of {rows.numel()} rows with "
+          f"distinct scores: labels equal, scores within {serr:.3g}, boxes "
+          f"rel err {berr:.3g} <= 1e-4")
+    return dict(num_valid=num.tolist(), distinct_rows=int(rows.sum()),
+                score_err=serr, box_rel_err=berr)
+
+
+def yolo_phase(seed):
+    """bench_vision's YOLOv3-DarkNet53 training (PaddleDetection's
+    configuration) and one b64 prediction on the card; see the module
+    docstring, phase 22."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models as M
+
+    cfg = YOLO
+    rng = np.random.default_rng(seed + 22)
+    out = {"config": dict(cfg)}
+
+    def make(dev):
+        return M.yolov3_darknet53(num_classes=cfg["classes"], device=dev,
+                                  generator=torch.Generator().manual_seed(
+                                      seed))
+
+    def heads_loss(model):
+        def loss_of(heads, box, label):
+            return model.loss([h.float() for h in heads], box, label)
+        return loss_of
+
+    b, s = cfg["check_batch"], cfg["check_size"]
+    x, box, label = yolo_batch(rng, b, s)
+    card = make(DEV).eval()
+    with P.device_guard("cpu"), torch.no_grad():
+        host = make("cpu").eval()
+        ref_heads = host(x)
+    with torch.no_grad():
+        heads = card(x.to(DEV))
+    errs = [rel_err(h.cpu(), r) for h, r in zip(heads, ref_heads)]
+    check(max(errs) <= TOL_TRAIN_GRAD_REL, f"yolo: fp32 b{b} {s}x{s} eval "
+          f"heads {[tuple(h.shape) for h in heads]} on the card vs the CPU, "
+          f"rel errs {[f'{e:.3g}' for e in errs]} <= {TOL_TRAIN_GRAD_REL}")
+    out["eval_heads_rel_err"] = errs
+    # predict on train-mode heads: at random init the eval-mode heads are
+    # nearly their biases (75 layers of unnormalized activations shrink),
+    # so their scores tie; batch statistics keep the heads' spread
+    with P.device_guard("cpu"), torch.no_grad():
+        spread = host.train()(x)
+    out["predict_check"] = yolo_predict_check(card, list(spread), s)
+    del card, heads
+    out.update(vision_card_vs_cpu("yolo", make, heads_loss(host), x.to(DEV),
+                                  box.to(DEV), label.to(DEV)))
+    del host
+    torch.cuda.empty_cache()
+
+    # full width: bf16 compute over fp32 parameters, fp32 heads into the loss
+    model = make(DEV).train()
+    opt = Momentum(learning_rate=cfg["lr"], momentum=cfg["momentum"])
+    params = convert.parameters_dict(model)
+    state = opt.init(params)
+    step = vision_train_step(model, heads_loss(model), opt, torch.bfloat16)
+    b, s = cfg["batch"], cfg["size"]
+    images, box, label = yolo_batch(rng, b, s)
+    images = images.to(DEV, torch.bfloat16)
+    box, label = box.to(DEV), label.to(DEV)
+    (params, state, _), counts = count_one(step, params, state, images, box,
+                                           label)
+    check(sum(counts.values()) == 0, f"yolo: a YOLOv3 step launches no port "
+          f"kernel ({counts})")
+    params, state, ms, peak, losses = timed_steps(
+        lambda p, st, batch, _: step(p, st, *batch), params, state,
+        (images, box, label), None, cfg["steps"], cfg["warm"])
+    check(all(np.isfinite(losses)), f"yolo losses finite {losses}")
+    grads = {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def run():
+        nonlocal params, state
+        params, state, _ = step(params, state, images, box, label)
+
+    prof = vision_profile(run, lambda: opt.update(grads, state, params))
+    ips = b / ms * 1e3
+    mfu = 3 * cfg["fwd_flops"] * ips / PEAK_FLOPS[torch.bfloat16]
+
+    # one b64 prediction: the forward, then decode and NMS timed apart
+    model.eval()
+    with torch.no_grad():
+        heads = [h.float() for h in torch.func.functional_call(
+            model, {k: v.to(torch.bfloat16) for k, v in params.items()},
+            (images,))]
+        img = torch.tensor([[s, s]] * b, dtype=torch.int32, device=DEV)
+        (dets, num), pcounts = count_one(model.predict, heads, img)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets, num = model.predict(heads, img)
+        torch.cuda.synchronize()
+        predict_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(dets.shape) == (b, 100, 6) and bool(torch.isfinite(
+        dets).all()) and sum(pcounts.values()) == 0,
+          f"yolo predict b{b}: dets {tuple(dets.shape)} finite, "
+          f"{int(num.sum())} detections, {predict_ms:.1f} ms wall "
+          f"(yolo_box + multiclass_nms, {len(heads)} heads), no port "
+          f"kernel")
+    log(f"[yolo] YOLOv3-DarkNet53 bf16 b{b} {s}x{s} Momentum: step "
+        f"{ms:.2f} ms = {ips:.1f} images/s, MFU {mfu:.4f}, peak "
+        f"{peak:.2f} GiB, busy share {prof['busy_share']:.3f}; predict "
+        f"{predict_ms:.1f} ms; losses {[round(v, 4) for v in losses]}; "
+        f"port kernel launches {counts}")
+    out.update(step_ms=ms, images_per_s=ips, mfu=mfu, peak_gib=peak,
+               losses=losses, port_kernel_launches=counts, profile=prof,
+               busy_share=prof["busy_share"], predict_ms=predict_ms,
+               predict_detections=num.tolist())
+    del model, opt, params, state, grads, images, heads
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5739,6 +6248,7 @@ def main(argv=None):
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -5786,6 +6296,16 @@ def main(argv=None):
     log(f"[phases 17-20] {t_end - t_phase:.1f} s: ops and dygraph "
         f"{t_tagging - t_phase:.1f} s, tagging {t_rnn - t_tagging:.1f} s, "
         f"rnn {t_end - t_rnn:.1f} s")
+    torch.cuda.empty_cache()
+    resnet = resnet_phase(args.seed)
+    torch.cuda.empty_cache()
+    t_yolo = time.perf_counter()
+    yolo = yolo_phase(args.seed)
+    torch.cuda.empty_cache()
+    t_vision = time.perf_counter()
+    resnet["phase_s"], yolo["phase_s"] = t_yolo - t_end, t_vision - t_yolo
+    log(f"[phases 21-22] {t_vision - t_end:.1f} s: resnet "
+        f"{t_yolo - t_end:.1f} s, yolo {t_vision - t_yolo:.1f} s")
     gen = torch.Generator().manual_seed(args.seed)
     results = kernel_phase(gen)
     at_train = train_shape_phase(gen)
@@ -5961,6 +6481,11 @@ def main(argv=None):
         if entry["name"] in ERNIE_KERNELS:
             for key, c in slice_paths.items():
                 entry[key] = c.get(entry["name"], 0)
+        # phases 21-22's paths launch no port kernel (checked there)
+        entry["resnet_launches"] = resnet["port_kernel_launches"].get(
+            entry["name"], 0)
+        entry["yolo_launches"] = yolo["port_kernel_launches"].get(
+            entry["name"], 0)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"bhsd": dict(bhsd_model, kernel_a_max_abs_err=cross)}),
           flush=True)
@@ -5978,6 +6503,9 @@ def main(argv=None):
     print(json.dumps({"dygraph": finetune}), flush=True)
     print(json.dumps({"tagging": tagging}), flush=True)
     print(json.dumps({"rnn": rnn}), flush=True)
+    print(json.dumps({"resnet": resnet}), flush=True)
+    print(json.dumps({"yolo": yolo}), flush=True)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -54,6 +54,10 @@ from .core.flags import get_flags, set_flags
 from .ops import *  # noqa: F401,F403 -- tensor op library at top level
 from . import ops as tensor  # paddle.tensor namespace alias
 
+# the star import binds ``ops.vision`` (the detection ops' module) here;
+# ``vision`` at the top level is the model-zoo subpackage, loaded lazily
+del vision  # noqa: F821
+
 no_grad = _tape.no_grad_ctx
 
 __version__ = "0.1.0"
@@ -83,7 +87,9 @@ _LAZY_SUBMODULES = (
     "amp",
     "autograd",
     "static",
+    "io",
     "slim",
+    "vision",
     "text",
     "utils",
     "serving",

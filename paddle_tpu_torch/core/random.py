@@ -4,7 +4,8 @@ The JAX package threads splittable keys; the port threads host-side
 ``torch.Generator``s.  Every draw that steers a kernel is a Python int taken
 from a generator on the CPU, so drawing never waits for the card:
 
-* ``seed(n)`` reseeds the process-global generator;
+* ``seed(n)`` reseeds the process-global generator, and
+  ``get_rng_state()`` / ``set_rng_state(state)`` save and restore it;
 * ``rng_scope(generator)`` makes ``generator`` the active one for a region
   (the train step opens it with the step's generator, as the JAX package's
   ``functional_call(..., rng=key)`` pushes the step's key);
@@ -60,6 +61,16 @@ class rng_scope:
     def __exit__(self, *exc):
         _state.stack.pop()
         return False
+
+
+def get_rng_state() -> torch.Tensor:
+    """The global generator's state (``paddle.get_rng_state``)."""
+    return _state.global_generator.get_state()
+
+
+def set_rng_state(state: torch.Tensor) -> None:
+    """Restore the global generator to a ``get_rng_state()`` value."""
+    _state.global_generator.set_state(state)
 
 
 def draw_seed() -> int:

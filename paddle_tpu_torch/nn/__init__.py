@@ -9,12 +9,14 @@ from .layer.activation import (CELU, ELU, GELU, Hardshrink, Hardsigmoid,
 from .layer.base import Layer, LayerList, Parameter, ParameterList, Sequential
 from .layer.common import (Dropout, Dropout2D, Embedding, Flatten, Linear,
                            Pad2D, Upsample)
-from .layer.conv import Conv2D
-from .layer.extras import (AlphaDropout, Bilinear, BilinearTensorProduct,
+from .layer.conv import Conv1D, Conv2D, Conv2DTranspose, Conv3D
+from .layer.extras import (AdaptiveAvgPool3D, AlphaDropout, AvgPool3D,
+                           Bilinear, BilinearTensorProduct, Conv3DTranspose,
                            CosineSimilarity, CTCLoss, Dropout3D, Identity,
                            InstanceNorm1D, InstanceNorm3D, LocalResponseNorm,
-                           Pad1D, Pad3D, PairwiseDistance, PixelShuffle,
-                           RowConv, SpectralNorm, Unfold, ZeroPad2D)
+                           MaxPool3D, Pad1D, Pad3D, PairwiseDistance,
+                           PixelShuffle, RowConv, SpectralNorm, Unfold,
+                           ZeroPad2D)
 from .layer.loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss,
                          KLDivLoss, L1Loss, MarginRankingLoss, MSELoss,
                          NLLLoss, SmoothL1Loss)
@@ -35,9 +37,7 @@ from .layer.transformer import (
 )
 
 # The JAX package's nn names not ported yet (ROADMAP.md Queue 1): the
-# 1-D / 3-D and transposed convolutions and the 3-D pools (item 6), and
-# the mixture-of-experts FFN (item 8).
-_DEFERRED = ("Conv1D", "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
-             "MaxPool3D", "AvgPool3D", "AdaptiveAvgPool3D", "MoEFFN")
+# mixture-of-experts FFN (item 8).
+_DEFERRED = ("MoEFFN",)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

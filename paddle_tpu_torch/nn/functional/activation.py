@@ -13,7 +13,9 @@ def relu(x):
 
 
 def relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
+    """``jax.nn.relu6``: its gradient is 0 at 0 and at 6, as
+    ``tF.relu6``'s (``torch.clamp``'s is 1 there)."""
+    return tF.relu6(x)
 
 
 def leaky_relu(x, negative_slope=0.01):

@@ -11,13 +11,15 @@ BatchNorm has no kernel in the JAX package outside the fused training op.
 Inference folds the running statistics into a per-channel ``a * x + b``;
 training takes one-pass fp32 batch statistics (E[x^2] - E[x]^2) and
 returns the running statistics updated with ``momentum``, as the JAX
-package does.  ``batch_norm_act`` is training-mode ``act(batch_norm(x))``
-as one unit (the training half of the fused conv op): with
-``use_pallas_conv_fused`` on and the JAX gate ``train_supported`` holding,
-the batch-statistics and scale + act kernels of
-ops/kernels/bn_act_train.py (their plain versions on CPU tensors);
-otherwise ``batch_norm`` and the activation.  The running statistics are
-returned, never updated in place.
+package does.  Its backward is the JAX package's hand-written one (dx
+from dbeta = sum(dy) and dgamma = sum(dy xhat), ``_bn_train``'s VJP), not
+autograd through the one-pass variance, which computes another sum.
+``batch_norm_act`` is training-mode ``act(batch_norm(x))`` as one unit
+(the training half of the fused conv op): with ``use_pallas_conv_fused``
+on and the JAX gate ``train_supported`` holding, the batch-statistics and
+scale + act kernels of ops/kernels/bn_act_train.py (their plain versions
+on CPU tensors); otherwise ``batch_norm`` and the activation.  The running
+statistics are returned, never updated in place.
 """
 from __future__ import annotations
 
@@ -62,6 +64,49 @@ def bn_inference_scale_bias(mean, var, weight, bias, epsilon):
     return a, b
 
 
+class _BNTrain(torch.autograd.Function):
+    """Training-mode BatchNorm over ``axes``: ``(out, mean, var)`` with
+    fp32 statistics, and the JAX package's ``_bn_train`` VJP."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, axes, shape, epsilon):
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        inv = 1.0 / torch.sqrt(var + epsilon)
+        a = inv if weight is None else inv * weight.float()
+        b = -mean * a
+        if bias is not None:
+            b = b + bias.float()
+        out = x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+        ctx.save_for_backward(x, weight, mean, inv)
+        ctx.axes, ctx.shape = axes, shape
+        ctx.has_bias = bias is not None
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, dmean, dvar):
+        x, weight, mean, inv = ctx.saved_tensors
+        axes, shape = ctx.axes, ctx.shape
+        m = x.numel() // mean.numel()
+        mean_b, inv_b = mean.reshape(shape), inv.reshape(shape)
+        xf = x.float()
+        dof = dout.float()
+        xhat = (xf - mean_b) * inv_b
+        dbeta = dof.sum(dim=axes)
+        dgamma = (dof * xhat).sum(dim=axes)
+        g = inv if weight is None else weight.float() * inv
+        dx = g.reshape(shape) * (dof - (dbeta / m).reshape(shape)
+                                 - xhat * (dgamma / m).reshape(shape))
+        if dmean is not None:
+            dx = dx + (dmean / m).reshape(shape)
+        if dvar is not None:
+            dx = dx + dvar.reshape(shape) * 2.0 * (xf - mean_b) / m
+        dw = None if weight is None else dgamma.to(weight.dtype)
+        db = dbeta.to(x.dtype) if ctx.has_bias else None
+        return dx.to(x.dtype), dw, db, None, None, None
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW"):
@@ -73,24 +118,17 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         axes = tuple(range(x.dim() - 1))
         shape = [1] * (x.dim() - 1) + [-1]
     if training:
-        xf = x.float()
-        mean = xf.mean(dim=axes)
-        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
-        inv = 1.0 / torch.sqrt(var + epsilon)
-        a = inv if weight is None else inv * weight.float()
-        b = -mean * a
-        if bias is not None:
-            b = b + bias.float()
+        out, mean, var = _BNTrain.apply(x, weight, bias, axes, shape,
+                                        float(epsilon))
         mean = mean.detach().to(running_mean.dtype)
         var = var.detach().to(running_var.dtype)
         new_rm = momentum * running_mean + (1 - momentum) * mean
         new_rv = momentum * running_var + (1 - momentum) * var
-    else:
-        a, b = bn_inference_scale_bias(running_mean, running_var, weight,
-                                       bias, epsilon)
-        new_rm, new_rv = running_mean, running_var
+        return out, new_rm, new_rv
+    a, b = bn_inference_scale_bias(running_mean, running_var, weight, bias,
+                                   epsilon)
     out = x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
-    return out, new_rm, new_rv
+    return out, running_mean, running_var
 
 
 def _use_fused_bn_act(x, act, data_format) -> bool:

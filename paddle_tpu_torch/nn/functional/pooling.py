@@ -8,6 +8,7 @@ wrapper runs its plain version, on a CUDA tensor it launches the kernel.
 Elsewhere PyTorch's pooling runs, on a channels-last view for NHWC (no
 copy), with the JAX semantics: max pads with -inf, the average divides by
 the window size, or by the count of non-padding taps when ``exclusive``.
+The 3-D pools are NCDHW, with the same semantics.
 """
 from __future__ import annotations
 
@@ -40,9 +41,11 @@ def _back(out, data_format):
 
 
 def _pad_spatial(x, pads, value):
-    """Pad the two spatial dims of an NCHW tensor (PyTorch's pooling takes
-    padding up to half the window only)."""
-    return tF.pad(x, (pads[1], pads[1], pads[0], pads[0]), value=value)
+    """Pad the trailing spatial dims of an NC... tensor, ``pads[i]`` on both
+    sides of spatial dim i (PyTorch's pooling takes padding up to half the
+    window only)."""
+    return tF.pad(x, [v for p in reversed(pads) for v in (p, p)],
+                  value=value)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
@@ -119,3 +122,47 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
 def adaptive_max_pool2d(x, output_size, data_format="NCHW"):
     return _adaptive_pool2d(x, output_size,
                             lambda t: t.amax(dim=(2, 3)), data_format)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0):
+    """NCDHW max pool; padding takes -inf."""
+    kernel = _pair(kernel_size, 3)
+    strides = _pair(stride if stride is not None else kernel, 3)
+    pads = _pair(padding, 3)
+    if any(p > k // 2 for p, k in zip(pads, kernel)):
+        x, pads = _pad_spatial(x, pads, float("-inf")), (0, 0, 0)
+    return tF.max_pool3d(x, kernel, strides, pads)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, exclusive=True):
+    """NCDHW average pool.  As in the JAX package, ``exclusive`` divides by
+    the count of non-padding taps only where the padding is non-zero; with
+    no padding every window is whole."""
+    kernel = _pair(kernel_size, 3)
+    strides = _pair(stride if stride is not None else kernel, 3)
+    pads = _pair(padding, 3)
+    if padding == 0 or (isinstance(padding, (list, tuple))
+                        and not any(padding)) or not exclusive:
+        exclusive = False
+    if any(p > k // 2 for p, k in zip(pads, kernel)):
+        s = tF.avg_pool3d(_pad_spatial(x, pads, 0.0), kernel, strides,
+                          divisor_override=1)
+        if exclusive:
+            ones = _pad_spatial(torch.ones_like(x[:1, :1]), pads, 0.0)
+            return s / tF.avg_pool3d(ones, kernel, strides,
+                                     divisor_override=1)
+        return s / float(kernel[0] * kernel[1] * kernel[2])
+    return tF.avg_pool3d(x, kernel, strides, pads,
+                         count_include_pad=not exclusive)
+
+
+def adaptive_avg_pool3d(x, output_size):
+    """NCDHW; the output size must divide each spatial dim, as in the JAX
+    package, which raises otherwise."""
+    od, oh, ow = _pair(output_size, 3)
+    n, c, d, h, w = x.shape
+    if d % od or h % oh or w % ow:
+        raise NotImplementedError(
+            "adaptive_avg_pool3d requires divisible spatial dims")
+    return x.reshape(n, c, od, d // od, oh, h // oh, ow, w // ow).mean(
+        dim=(3, 5, 7))

@@ -1,6 +1,7 @@
-"""Conv2D layer (counterpart of paddle_tpu/nn/layer/conv.py ``Conv2D``, the
-layer ``QuantizedConv2D`` wraps), on the port's ``F.conv2d``.  Conv1D,
-Conv3D and the transposed convolutions are not ported (ROADMAP.md)."""
+"""Convolution layers (counterpart of paddle_tpu/nn/layer/conv.py):
+Conv1D, Conv2D (the layer ``QuantizedConv2D`` wraps), Conv3D and
+Conv2DTranspose, on the port's functional convolutions.  Conv3DTranspose
+shares ``_ConvNd`` from ``extras``, as in the JAX package."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,27 +19,31 @@ def _pair(v, n=2):
     return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
 
 
-class Conv2D(Layer):
-    """Weight (out, in / groups, kh, kw): KaimingUniform(fan_in,
+class _ConvNd(Layer):
+    """Weight (out, in / groups, k...), or (in, out / groups, k...) when
+    ``transpose``: KaimingUniform(fan_in = in / groups * prod(k),
     leaky_relu, slope sqrt(5)) unless ``weight_attr`` carries an
-    initializer; bias 0, none with ``bias_attr=False``.  ``padding_mode``
-    other than zeros is not supported (the reference ignores it too)."""
+    initializer; bias 0, none with ``bias_attr=False``.  Names and
+    signatures are the JAX package's, so ``convert.from_jax_params``
+    carries the weights by key."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, dilation=1, groups=1, padding_mode="zeros",
-                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+    def __init__(self, in_channels, out_channels, kernel_size, stride,
+                 padding, dilation, groups, bias_attr, weight_attr, ndim,
+                 transpose=False, output_padding=0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        del padding_mode
         self.in_channels = in_channels
         self.out_channels = out_channels
-        self.kernel_size = _pair(kernel_size)
-        self.stride = _pair(stride)
+        self.kernel_size = _pair(kernel_size, ndim)
+        self.stride = _pair(stride, ndim)
         self.padding = padding
-        self.dilation = _pair(dilation)
+        self.dilation = _pair(dilation, ndim)
         self.groups = groups
-        self.data_format = data_format
-        wshape = (out_channels, in_channels // groups) + self.kernel_size
+        self.output_padding = output_padding
+        if transpose:
+            wshape = (in_channels, out_channels // groups) + self.kernel_size
+        else:
+            wshape = (out_channels, in_channels // groups) + self.kernel_size
         fan_in = (in_channels // groups) * int(np.prod(self.kernel_size))
         w_init = param_init(weight_attr, I.KaimingUniform(
             fan_in=fan_in, nonlinearity="leaky_relu",
@@ -50,11 +55,73 @@ class Conv2D(Layer):
             make_param(self, "bias", param_init(bias_attr, I.Constant(0.0)),
                        (out_channels,), generator)
 
+    def extra_repr(self):
+        return (f"{self.in_channels}, {self.out_channels}, "
+                f"k={self.kernel_size}, s={self.stride}")
+
+
+class Conv2D(_ConvNd):
+    """``padding_mode`` other than zeros is not supported (the reference
+    ignores it too)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+                 generator: Optional[torch.Generator] = None):
+        del padding_mode
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, bias_attr, weight_attr,
+                         ndim=2, generator=generator)
+        self.data_format = data_format
+
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, stride=self.stride,
                         padding=self.padding, dilation=self.dilation,
                         groups=self.groups, data_format=self.data_format)
 
-    def extra_repr(self):
-        return (f"{self.in_channels}, {self.out_channels}, "
-                f"k={self.kernel_size}, s={self.stride}")
+
+class Conv1D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, weight_attr=None,
+                 bias_attr=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, bias_attr, weight_attr,
+                         ndim=1, generator=generator)
+
+    def forward(self, x):
+        return F.conv1d(x, self.weight, self.bias, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation,
+                        groups=self.groups)
+
+
+class Conv3D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, weight_attr=None,
+                 bias_attr=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, bias_attr, weight_attr,
+                         ndim=3, generator=generator)
+
+    def forward(self, x):
+        return F.conv3d(x, self.weight, self.bias, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation,
+                        groups=self.groups)
+
+
+class Conv2DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, bias_attr, weight_attr,
+                         ndim=2, transpose=True,
+                         output_padding=output_padding, generator=generator)
+
+    def forward(self, x):
+        return F.conv2d_transpose(x, self.weight, self.bias,
+                                  stride=self.stride, padding=self.padding,
+                                  output_padding=self.output_padding,
+                                  dilation=self.dilation, groups=self.groups)

@@ -1,9 +1,9 @@
 """The tail of the layer classes (counterpart of paddle_tpu/nn/layer/
 extras.py): CTCLoss, Bilinear / BilinearTensorProduct, CosineSimilarity,
 PairwiseDistance, AlphaDropout, Dropout3D, Pad1D / Pad3D / ZeroPad2D,
-PixelShuffle, SpectralNorm, LocalResponseNorm, RowConv, InstanceNorm1D /
-3D, Unfold and Identity: thin layers over the functional and op library.
-Conv3DTranspose and the 3-D pools are not ported (ROADMAP.md).
+PixelShuffle, SpectralNorm, LocalResponseNorm, RowConv, Conv3DTranspose,
+the 3-D pools, InstanceNorm1D / 3D, Unfold and Identity: thin layers over
+the functional and op library.
 
 Parameters are drawn on the CPU from ``generator`` (keyword-only; torch's
 default generator when None), as the port's other layers.
@@ -19,13 +19,15 @@ from .. import functional as F
 from .. import initializer as I
 from .base import Layer
 from .common import make_param, param_init
+from .conv import _ConvNd
 from .norm import InstanceNorm2D
 
 __all__ = [
     "Identity", "CTCLoss", "Bilinear", "BilinearTensorProduct",
     "CosineSimilarity", "PairwiseDistance", "AlphaDropout", "Dropout3D",
     "Pad1D", "Pad3D", "ZeroPad2D", "PixelShuffle", "SpectralNorm",
-    "LocalResponseNorm", "RowConv", "InstanceNorm1D", "InstanceNorm3D",
+    "LocalResponseNorm", "RowConv", "Conv3DTranspose", "MaxPool3D",
+    "AvgPool3D", "AdaptiveAvgPool3D", "InstanceNorm1D", "InstanceNorm3D",
     "Unfold",
 ]
 
@@ -236,6 +238,55 @@ class RowConv(Layer):
         from ...ops import misc
 
         return misc.row_conv(x, self.weight, lengths=lengths)
+
+
+class Conv3DTranspose(_ConvNd):
+    """``F.conv3d_transpose``; ``_ConvNd``'s initialization defaults."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, bias_attr, weight_attr,
+                         ndim=3, transpose=True,
+                         output_padding=output_padding, generator=generator)
+
+    def forward(self, x):
+        return F.conv3d_transpose(
+            x, self.weight, self.bias, stride=self.stride,
+            padding=self.padding, output_padding=self.output_padding,
+            dilation=self.dilation, groups=self.groups)
+
+
+class MaxPool3D(Layer):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = (kernel_size, stride,
+                                                       padding)
+
+    def forward(self, x):
+        return F.max_pool3d(x, self.kernel_size, self.stride, self.padding)
+
+
+class AvgPool3D(Layer):
+    def __init__(self, kernel_size, stride=None, padding=0, exclusive=True):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.padding, self.exclusive = padding, exclusive
+
+    def forward(self, x):
+        return F.avg_pool3d(x, self.kernel_size, self.stride, self.padding,
+                            exclusive=self.exclusive)
+
+
+class AdaptiveAvgPool3D(Layer):
+    def __init__(self, output_size):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return F.adaptive_avg_pool3d(x, self.output_size)
 
 
 class InstanceNorm1D(InstanceNorm2D):

@@ -4,8 +4,8 @@ hand-written CUDA kernels (``ops.kernels``).
 
 The op library is torch compositions: no Pallas kernel of the JAX package
 lies behind its ops (they are jnp / lax there), so none has a kernel here.
-The exported set is the JAX package's less ``_DEFERRED``, the vision ops
-that wait for a later slice of the port.  ``ops.crf`` (the linear-chain
+The exported set is the JAX package's (``_DEFERRED``, the families a
+slice has not ported yet, is empty).  ``ops.crf`` (the linear-chain
 CRF) is a module of its own, outside the exported set, as in the JAX
 package.
 """
@@ -215,13 +215,21 @@ from .sequence import (
     sequence_unpad,
 )
 
+from .vision import (
+    anchor_generator,
+    box_clip,
+    box_coder,
+    iou_similarity,
+    multiclass_nms,
+    prior_box,
+    roi_align,
+    yolo_box,
+    yolo_loss,
+)
+
 # The JAX package's op families that this port does not export yet, by
-# module, and each module's name.
-_DEFERRED = {
-    "vision": ("anchor_generator", "box_clip", "box_coder", "iou_similarity",
-               "multiclass_nms", "prior_box", "roi_align", "yolo_box",
-               "yolo_loss"),
-}
+# module, and each module's name: none.
+_DEFERRED = {}
 _DEFERRED_NAMES = frozenset(
     [n for names in _DEFERRED.values() for n in names] + list(_DEFERRED))
 

@@ -706,6 +706,84 @@ _add("spectral_norm", "linalg", lambda r: ((_f(r, 4, 3, 2), _f(r, 3), 1, 2),
                                            {}))
 
 
+# -- vision / detection ------------------------------------------------------
+def _boxes(rng, n, scale=1.0):
+    """n xyxy boxes of width and height 0.05-0.4 (times ``scale``)."""
+    xy = rng.uniform(0.0, 0.6, (n, 2))
+    wh = rng.uniform(0.05, 0.4, (n, 2))
+    return (np.concatenate([xy, xy + wh], 1) * scale).astype(np.float32)
+
+
+def _distinct(rng, *shape):
+    """Scores in (0, 1), all distinct and at least 1e-3 apart, so that
+    every sort and every NMS decision is one way on any device."""
+    n = int(np.prod(shape))
+    return ((rng.permutation(n) + 0.5) / n).reshape(shape).astype(np.float32)
+
+
+def _yolo_gt(rng, n, b):
+    """Normalized (cx, cy, w, h) boxes, the last of image 1 padding, and
+    labels in [0, 3)."""
+    box = np.concatenate([rng.uniform(0.2, 0.8, (n, b, 2)),
+                          rng.uniform(0.05, 0.6, (n, b, 2))], -1)
+    box[1, -1] = 0.0
+    return box.astype(np.float32), _i(rng, n, b, hi=3)
+
+
+_YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119]
+_add("iou_similarity", "float", lambda r: ((_boxes(r, 5), _boxes(r, 7)), {}))
+_add("iou_similarity", "float", lambda r: ((_boxes(r, 5, 30.0),
+                                            _boxes(r, 7, 30.0), False), {}))
+_add("box_coder", "float", lambda r: ((_boxes(r, 6), [0.1, 0.1, 0.2, 0.2],
+                                       _boxes(r, 4)), {}))
+_add("box_coder", "float", lambda r: ((_boxes(r, 6), None, _f(r, 3, 6, 4),
+                                       "decode_center_size"), {}))
+_add("box_coder", "float", lambda r: ((_boxes(r, 3), _f(r, 3, 4, lo=0.1,
+                                                        hi=0.3),
+                                       _f(r, 3, 6, 4), "decode_center_size",
+                                       True, 1), {}))
+_add("box_clip", "float", lambda r: ((_boxes(r, 8, 40.0) - 5.0, (30, 25)),
+                                     {}))
+_add("anchor_generator", "float", lambda r: (((3, 4),), {}))
+_add("anchor_generator", "float", lambda r: (((2, 3), (32.0, 64.0), (1.0,),
+                                              (8.0, 8.0)), {"offset": 0.0}))
+_add("prior_box", "float", lambda r: (((3, 4), (60, 80), [20.0, 40.0],
+                                       [30.0, 60.0], [2.0, 3.0], True,
+                                       True), {}))
+_add("prior_box", "float", lambda r: (((2, 2), (32, 32), [8.0]), {
+    "steps": (16.0, 16.0)}))
+_add("yolo_box", "float", lambda r: ((_f(r, 2, 2 * 8, 4, 5),
+                                      np.array([[64, 80], [50, 60]],
+                                               np.int32),
+                                      [10, 13, 16, 30], 3, 0.5, 16), {}))
+_add("yolo_box", "float", lambda r: ((_f(r, 1, 3 * 7, 3, 3),
+                                      np.array([[96, 96]], np.int32),
+                                      [10, 13, 16, 30, 33, 23], 2, 0.01, 32,
+                                      False, 1.05), {}))
+_add("yolo_loss", "float", lambda r: ((_f(r, 2, 2 * 8, 4, 5),
+                                       *_yolo_gt(r, 2, 6), _YOLO_ANCHORS,
+                                       [2, 3], 3, 0.3, 16), {}))
+_add("yolo_loss", "float", lambda r: ((_f(r, 2, 2 * 8, 4, 5),
+                                       *_yolo_gt(r, 2, 6), _YOLO_ANCHORS,
+                                       [0, 1], 3, 0.7, 16,
+                                       _f(r, 2, 6, lo=0.0, hi=1.0), True),
+                                      {}))
+_add("multiclass_nms", "float", lambda r: ((_boxes(r, 40),
+                                            _distinct(r, 3, 40), 0.2, 25, 30,
+                                            0.3), {}))
+_add("multiclass_nms", "float", lambda r: ((_boxes(r, 40),
+                                            _distinct(r, 3, 40), 0.5, 25,
+                                            130, 0.3, True, 0), {}))
+_add("multiclass_nms", "float", lambda r: ((np.stack(
+    [_boxes(r, 30) for _ in range(3)], 1), _distinct(r, 3, 30)),
+    {"nms_top_k": 100, "keep_top_k": 20}))
+_add("roi_align", "float", lambda r: ((_f(r, 3, 10, 12), _boxes(r, 5, 12.0),
+                                       (3, 2), 0.9), {}))
+_add("roi_align", "float", lambda r: ((_f(r, 3, 10, 12),
+                                       _boxes(r, 5, 12.0) - 2.0, 2, 1.0, 3,
+                                       True), {}))
+
+
 
 # -- nn.functional -------------------------------------------------------------
 FUNCTIONAL_CASES = []
@@ -775,6 +853,36 @@ _fadd("ctc_loss", "linalg", lambda r: ((_f(r, 8, 2, 5), _i(r, 2, 3, lo=0,
                                                             hi=4),
                                         None, np.array([3, 1], np.int32), 4,
                                         "none"), {}))
+# convolutions: products, held as "linalg" (cuDNN sums in its own order)
+_fadd("conv1d", "linalg", lambda r: ((_f(r, 2, 4, 9), _f(r, 6, 2, 3),
+                                      _f(r, 6), 2, 2, 2, 2), {}))
+_fadd("conv1d", "linalg", lambda r: ((_f(r, 2, 4, 9), _f(r, 6, 4, 3)),
+                                     {"padding": "SAME", "stride": 2}))
+_fadd("conv3d", "linalg", lambda r: ((_f(r, 2, 4, 5, 6, 7),
+                                      _f(r, 6, 2, 3, 2, 3), _f(r, 6),
+                                      (1, 2, 1), (1, 0, 2), (1, 1, 2), 2),
+                                     {}))
+_fadd("conv3d", "linalg", lambda r: ((_f(r, 1, 2, 5, 6, 7),
+                                      _f(r, 3, 2, 3, 3, 3)),
+                                     {"padding": "SAME", "stride": 2}))
+for _s, _p, _op, _d in ((2, 1, 1, 1), (1, 3, 0, 1), (2, 1, 3, 1),
+                        (3, 0, 2, 2)):
+    _fadd("conv2d_transpose", "linalg", lambda r, s=_s, p=_p, op=_op, d=_d: (
+        (_f(r, 2, 4, 5, 6), _f(r, 4, 3, 3, 3), _f(r, 6), s, p, op, d, 2),
+        {}))
+_fadd("conv3d_transpose", "linalg", lambda r: ((_f(r, 2, 4, 3, 4, 5),
+                                                _f(r, 4, 3, 3, 2, 3),
+                                                _f(r, 6), (2, 1, 2),
+                                                (1, 0, 3), (1, 0, 2), 1, 2),
+                                               {}))
+_fadd("max_pool3d", "exact", lambda r: ((_f(r, 2, 3, 5, 6, 7), 3, 2, 1), {}))
+_fadd("max_pool3d", "exact", lambda r: ((_f(r, 2, 3, 5, 6, 7), (2, 3, 3),
+                                         None, (1, 2, 2)), {}))
+for _p, _ex in ((0, True), (1, True), (1, False), ((0, 1, 2), True)):
+    _fadd("avg_pool3d", "float", lambda r, p=_p, ex=_ex: (
+        (_f(r, 2, 3, 5, 6, 7), 3, 2, p, ex), {}))
+_fadd("adaptive_avg_pool3d", "float", lambda r: ((_f(r, 2, 3, 4, 6, 8),
+                                                  (2, 3, 4)), {}))
 
 
 def case_ids(cases=None):

@@ -94,8 +94,12 @@ def test_functional_table_and_nn_cover_the_slice():
     names = {c.name for c in C.FUNCTIONAL_CASES}
     assert names == {"dropout2d", "pad", "interpolate", "upsample",
                      "cosine_similarity", "unfold", "rms_norm", "group_norm",
-                     "instance_norm", "normalize", "one_hot", "ctc_loss"}
+                     "instance_norm", "normalize", "one_hot", "ctc_loss",
+                     "conv1d", "conv3d", "conv2d_transpose",
+                     "conv3d_transpose", "max_pool3d", "avg_pool3d",
+                     "adaptive_avg_pool3d"}
     ported = set(TF.__all__)
+    assert TF._DEFERRED == () and tnn._DEFERRED == ("MoEFFN",)
     assert set(JF.__all__) - ported == set(TF._DEFERRED) | {
         "activation", "common", "conv", "input", "loss", "norm", "pooling"}
     # every name of the JAX package's nn but those queued for later slices

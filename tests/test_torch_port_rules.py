@@ -49,8 +49,9 @@ def _kernel_modules():
 
 def test_import_scan_covers_every_package_of_the_port():
     names = _all_modules()
-    for pkg in ("amp", "autograd", "core", "dygraph", "nn", "ops.kernels",
-                "optimizer", "serving", "slim", "static", "text", "utils"):
+    for pkg in ("amp", "autograd", "core", "dygraph", "io", "nn",
+                "ops.kernels", "optimizer", "serving", "slim", "static",
+                "text", "utils", "vision", "vision.models"):
         assert f"paddle_tpu_torch.{pkg}" in names, pkg
     for mod in ("serving.paged", "serving.slo", "serving.continuous",
                 "utils.monitor", "core.errors", "ops.kernels.paged_attention",
@@ -69,7 +70,9 @@ def test_import_scan_covers_every_package_of_the_port():
                 "core.lod", "ops.sequence", "ops.crf", "ops.chunking",
                 "ops.ctc", "ops.misc", "nn.functional.rnn", "nn.layer.rnn",
                 "nn.layer.norm", "nn.layer.pooling", "nn.layer.extras",
-                "nn.decode", "optimizer.extras"):
+                "nn.decode", "optimizer.extras", "ops.vision", "io.dataset",
+                "vision.datasets", "vision.transforms",
+                "vision.models.resnet", "vision.models.yolov3"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 

@@ -513,7 +513,7 @@ def test_slice_positional_parameters_match_the_reference(label, ref, port):
 
 def test_slice_signature_list_covers_every_exported_op():
     labels = {c[0] for c in _slice_callables()}
-    assert len(_ops()) == 295
+    assert len(_ops()) == 304
     assert all(f"ops.{n}" in labels for n in _ops())
 
 
