@@ -348,21 +348,51 @@ Phases (any failed check raises, so the script exits non-zero):
               warm-up and 5 timed steps (step ms, images/s, MFU against 3
               x 65.86e9 FLOP an image, peak memory, busy share) and the
               wall time of one b64 ``predict``.
-Phases 17-22 run right after the build (and row 11's profile), before
-the first CUDA graph capture: the card's profiler loses eager launches
-after one.
+23. hapi    -- ERNIE-base fine-tuned for IMDB sentiment the Paddle 2.0
+              way: ``text.datasets.Imdb`` (synthetic, 512 train / 256 test
+              reviews, maxlen 256, lengths 8-255) through ``io.DataLoader``
+              (b32, shuffled, 2 spawned workers returning batches through
+              shared memory, device prefetch) into ``hapi.Model.fit`` (2
+              epochs; LRSchedulerCallback, EarlyStopping, MetricsLogger),
+              ``evaluate``, ``predict``, ``save`` / ``load``, with phase
+              18's recipe (fp32, TF32 off, dropout 0.1), around a user
+              layer that builds token types and the padding mask from the
+              ids.  Checks: the native host runtime builds from native/src
+              and loads; 4 batches fit twice from one state at dropout 0,
+              kernels against plain wrappers (losses at TOL_TRAIN_LOSS_REL,
+              the first step's gradients tensor by tensor as in phase
+              18), and fit against the book loop bit for bit; batches
+              staged on the feeder's stream while the main stream is
+              busy, and while the feeder's copy stream is busy, equal the
+              host batches (checksums); 12 / 12 / 24 / 24 / 1 / 1
+              launches of rows 1 / 2 / 7 / 8 / 5 / 6 a fit step, 12 / 24
+              / 1 of rows 1 / 7 / 5 an evaluate or predict batch, and no
+              other kernel; parameters and AdamW
+              state bit for bit through save / load; the book's fit_a_line
+              on UCIHousing rows in a multi-slot file through
+              InMemoryDataset on the native feed: ``train_from_dataset(
+              prefetch_to_device=True)``'s losses equal ``Executor.run``'s.
+              Then epoch 2's step ms and sequences/s beside the book loop's
+              on the same batches, the mean io.prefetch_depth, the busy
+              share of a profiled 2-step fit, the loader's batches/s alone
+              with the split of a spawned worker's start-up, predict's
+              wall for 256 reviews and the peak memory.
+Phases 17-20 and 23 run right after the build (and row 11's profile),
+before the first CUDA graph capture: the card's profiler loses eager
+launches after one; phases 21-22 follow them.
 
 Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"paged": ...}``, ``{"static": ...}``, ``{"vision_train": ...}``,
 ``{"int8": ...}``, ``{"cold": ...}``, ``{"static_train": ...}``,
 ``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}``,
 ``{"ops": ...}``, ``{"dygraph": ...}``, ``{"tagging": ...}``,
-``{"rnn": ...}``, ``{"resnet": ...}``, ``{"yolo": ...}`` and
-``{"kernels": [...]}`` JSON lines (one kernel entry
+``{"rnn": ...}``, ``{"resnet": ...}``, ``{"yolo": ...}``, ``{"hapi":
+...}`` and ``{"kernels": [...]}`` JSON lines (one kernel entry
 for each of the 15 TPU kernels; rows 10 and 13-15 with their launches on
 the static-train path, rows 11-13 with their cold times, rows 1, 2 and
-5-8 with their launches on each path of phases 14-16, 18 and 19, every
-row with its launches on phases 21 and 22's paths, 0) and the card's name
+5-8 with their launches on each path of phases 14-16, 18, 19 and 23,
+every row with its launches on phases 21 and 22's paths, 0) and the card's
+name
 and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -380,8 +410,11 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+_T_MODULE_TOP = time.time()      # a spawned worker's start-up, SpawnProbe
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+_T_TORCH = time.time()
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -4370,11 +4403,16 @@ def count_one(step, *args):
     return out, config.launch_counts()
 
 
-def check_counts(tag, counts, expect):
+def check_counts(tag, counts, expect, only=False):
+    """Each kernel of ``expect`` launched as often as it says; with
+    ``only``, every other kernel that launched fails the check too."""
     for name, want in expect.items():
         check(counts.get(name, 0) == want,
               f"{tag}: {name} {counts.get(name, 0)} launches a step "
               f"({want})")
+    if only:
+        other = {k: v for k, v in counts.items() if k not in expect and v}
+        check(not other, f"{tag}: no other kernel launched ({other})")
 
 
 def ernie_expect(L, recompute):
@@ -5757,6 +5795,554 @@ def lac_phase(seed):
     return out
 
 
+# -- phase 23: the data pipeline and the high-level API --------------------
+
+# ERNIE-base fine-tuned for IMDB sentiment the Paddle 2.0 way: a
+# ``DataLoader`` (2 spawned workers returning batches through shared memory,
+# device prefetch) feeding ``hapi.Model.fit`` / ``evaluate`` / ``predict``
+# / ``save`` / ``load``, on ``text.datasets.Imdb``'s synthetic corpus
+# (maxlen 256, lengths 8-255, zero padding), with phase 18's recipe (b32,
+# AdamW 2e-5, decay 0.01, warm-up into a linear decay, clip 1.0, fp32 with
+# TF32 off, dropout 0.1).  ``check_batches`` train the kernel-vs-plain and
+# fit-vs-hand-loop checks (dropout 0, no shuffle); ``stage_batches`` host
+# batches go through the feeder while the main stream is busy.
+HAPI = dict(batch=32, maxlen=256, train_size=512, test_size=256, epochs=2,
+            workers=2, check_batches=4, stage_batches=48, busy_matmuls=24,
+            busy_size=8192, loader_timeout=120)
+# Launches of rows 1, 7 and 5 per evaluate / predict batch: the encoder's
+# forward kernels and the embedding LayerNorm; no other kernel.
+HAPI_EVAL_LAUNCHES = {"flash_attention_packed": 12, "residual_layer_norm": 24,
+                      "layer_norm": 1}
+
+_IMDB_CLASSIFIER = None
+class SpawnProbe:
+    """A dataset that serves ``dataset``'s items and, when a spawned
+    worker unpickles it, writes into ``folder`` the wall times at which
+    that worker reached this module's top, had imported numpy and torch,
+    had run this module to its end and had unpickled its arguments (the
+    port's imports among them).  Against the parent's time before it
+    started the workers, they split a worker's start-up into the
+    interpreter's start, torch, this module and the unpickling."""
+
+    def __init__(self, dataset, folder):
+        self.dataset, self.folder, self.parent = dataset, folder, os.getpid()
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        if os.getpid() != self.parent:
+            times = dict(top=_T_MODULE_TOP, torch=_T_TORCH,
+                         module=_T_MODULE_END, unpickled=time.time())
+            with open(os.path.join(self.folder, f"probe_{os.getpid()}.json"),
+                      "w") as f:
+                json.dump(times, f)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+
+def spawn_split(folder, t_start):
+    """Each probed worker's start-up in seconds, split as SpawnProbe's
+    docstring says, from the parent's wall time ``t_start``."""
+    out = []
+    for name in sorted(os.listdir(folder)):
+        if name.startswith("probe_"):
+            with open(os.path.join(folder, name)) as f:
+                t = json.load(f)
+            out.append(dict(interpreter=t["top"] - t_start,
+                            torch=t["torch"] - t["top"],
+                            module=t["module"] - t["torch"],
+                            unpickle=t["unpickled"] - t["module"],
+                            total=t["unpickled"] - t_start))
+    return out
+
+
+def imdb_classifier():
+    """The user's model around ``ErnieForSequenceClassification``: it takes
+    the token ids alone and builds token type 0 and the padding mask
+    ``ids != 0`` (a port layer, built on the first call)."""
+    global _IMDB_CLASSIFIER
+    if _IMDB_CLASSIFIER is None:
+        from paddle_tpu_torch import nn
+
+        class ImdbClassifier(nn.Layer):
+            def __init__(self, model):
+                super().__init__()
+                self.model = model
+
+            def forward(self, ids):
+                return self.model(ids, torch.zeros_like(ids),
+                                  attention_mask=ids != 0)
+
+        _IMDB_CLASSIFIER = ImdbClassifier
+    return _IMDB_CLASSIFIER
+
+
+def hapi_model(cfg, state, seed, optimizer=True):
+    """A ``hapi.Model`` over the classifier with ``state`` put in, prepared
+    with phase 18's optimizer, cross entropy and accuracy."""
+    from paddle_tpu_torch import hapi, metric, nn
+
+    net = imdb_classifier()(finetune_model(cfg, state, seed))
+    model = hapi.Model(net)
+    model.prepare(finetune_optimizer(net.parameters()) if optimizer else None,
+                  nn.CrossEntropyLoss(), [metric.Accuracy()])
+    return model
+
+
+def _state_of(net):
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def prefetch_under_load(loader_batches, seed):
+    """Stage host batches through ``DeviceFeeder`` while one stream is kept
+    busy by a chain of large products: each staged batch's
+    position-weighted checksum, taken on the main stream, equals the host
+    batch's.  With the main stream busy, a staged batch whose memory the
+    allocator handed out again before the consumer read it (no
+    ``record_stream``) fails; with the feeder's copy stream busy and the
+    main stream idle, a consumer that does not wait for the copies (no
+    ``wait_event``) reads memory not yet written and fails."""
+    from paddle_tpu_torch.io import DeviceFeeder
+
+    b, s = loader_batches[0][0].shape
+    host = [int((ids.astype(np.int64) * np.arange(1, s + 1)).sum()) * 3
+            + int((labels.astype(np.int64) * np.arange(1, b + 1)).sum())
+            for ids, labels in loader_batches]
+    ws, wb = (torch.arange(1, n + 1, device=DEV) for n in (s, b))
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    n, k = HAPI["busy_size"], HAPI["busy_matmuls"]
+    a = torch.randn(n, n, device=DEV, generator=gen) / n ** 0.5
+    for busy in ("main", "copy"):
+        feeder = DeviceFeeder(loader_batches, device=DEV, depth=2)
+        stream = (torch.cuda.current_stream() if busy == "main" else
+                  feeder._stager._stream(feeder._device))
+        torch.cuda.synchronize()
+        with torch.cuda.stream(stream):
+            x = a
+            for _ in range(k):                  # queued, not waited for
+                x = torch.tanh(x @ a)
+        got = []
+        for ids, labels in feeder:
+            got.append((ids.long() * ws).sum() * 3
+                       + (labels.long() * wb).sum())
+            del ids, labels
+        torch.cuda.synchronize()
+        busy_done = bool(torch.isfinite(x.sum()))
+        got = [int(g) for g in got]
+        wrong = sum(g != h for g, h in zip(got, host))
+        check(len(got) == len(host) and not wrong and busy_done,
+              f"hapi prefetch: {len(got)} batches staged while the {busy} "
+              f"stream ran {k} {n}^2 products: every checksum equals the "
+              f"host batch's ({wrong} differ)")
+        del x
+    del a
+
+
+def fit_a_line(static, L, seed):
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed
+    with static.program_guard(main, startup):
+        x = L.data("x", [13])
+        y = L.data("y", [1])
+        loss = L.mean(L.square_error_cost(L.fc(x, 1), y))
+        static.optimizer.SGD(0.01).minimize(loss)
+    return main, startup, loss
+
+
+def train_from_dataset_check(seed, tmp):
+    """The book's fit_a_line on UCIHousing's rows, written to a multi-slot
+    file and read through InMemoryDataset on the native feed:
+    ``train_from_dataset(prefetch_to_device=True)``'s fetched losses equal
+    ``Executor.run``'s over the same batches from the same state."""
+    import paddle_tpu_torch.static as static
+    from paddle_tpu_torch.core import native
+    from paddle_tpu_torch.io import InMemoryDataset
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.text import UCIHousing
+
+    housing = UCIHousing(mode="train")
+    path = os.path.join(tmp, "housing.txt")
+    with open(path, "w") as f:
+        for i in range(len(housing)):
+            xs, y = housing[i]
+            f.write(",".join(repr(float(v)) for v in xs) + ";"
+                    + repr(float(y[0])) + "\n")
+
+    def dataset():
+        ds = InMemoryDataset()
+        ds.set_use_var([("x", "float32", 13), ("y", "float32", 1)])
+        ds.set_batch_size(32)
+        ds.set_filelist([path])
+        ds.load_into_memory()
+        ds.local_shuffle(seed)
+        return ds
+
+    main, startup, loss = fit_a_line(static, L, seed)
+    exe = static.Executor()
+    scope = static.Scope()
+    exe.run(startup, scope=scope)
+    init = {k: scope.find_var(k).clone() for k in scope.keys()}
+    ds = dataset()
+    check(isinstance(ds._feed, native.NativeDataFeed),
+          "hapi train_from_dataset: InMemoryDataset runs on the native feed")
+    losses = []
+    run = exe.run
+
+    def recording(*args, **kwargs):
+        out = run(*args, **kwargs)
+        losses.append(out[0].copy())
+        return out
+
+    exe.run = recording
+    last = exe.train_from_dataset(main, ds, scope=scope, fetch_list=[loss],
+                                  prefetch_to_device=True)
+    del exe.run
+    ref_scope = static.Scope()
+    for k, v in init.items():
+        ref_scope.set(k, v.clone())
+    ref = [exe.run(main, feed=b, fetch_list=[loss], scope=ref_scope)[0]
+           for b in dataset()]
+    same = len(ref) == len(losses) and all(
+        np.array_equal(a, b) for a, b in zip(losses, ref))
+    check(same and np.array_equal(last[0], ref[-1])
+          and all(np.isfinite(ref)),
+          f"hapi train_from_dataset: {len(losses)} fetched losses "
+          f"({float(losses[0]):.4f} -> {float(losses[-1]):.4f}) equal "
+          f"Executor.run's over the same {len(ref)} batches bit for bit")
+    return dict(batches=len(ref), first_loss=float(ref[0]),
+                last_loss=float(ref[-1]))
+
+
+def hapi_phase(seed):
+    """Phase 23: ERNIE-base IMDB fine-tuning through DataLoader and
+    hapi.Model (module docstring)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import hapi, io
+    from paddle_tpu_torch.core import native
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.text import Imdb
+    from paddle_tpu_torch.utils import monitor
+
+    cfg = HAPI
+    out = {"config": dict(cfg)}
+    t0 = time.perf_counter()
+    ok = native.available()
+    check(ok, f"hapi: the native host runtime loads ({native.build_error()})"
+          f", built from native/src in {native.build_seconds():.2f} s")
+    out["native_build_s"] = native.build_seconds()
+    log(f"[hapi] native runtime {native.library_path()} built in "
+        f"{native.build_seconds():.2f} s")
+
+    train = Imdb(mode="train", synthetic_size=cfg["train_size"],
+                 maxlen=cfg["maxlen"])
+    test = Imdb(mode="test", synthetic_size=cfg["test_size"],
+                maxlen=cfg["maxlen"])
+    lens = (np.stack(train.docs) != 0).sum(1)
+    check(lens.min() >= 8 and lens.max() <= cfg["maxlen"] - 1,
+          f"hapi: IMDB lengths {lens.min()}-{lens.max()} of "
+          f"{cfg['maxlen']}, zero padded")
+    base = ernie_cfg()
+    quiet = ernie_cfg(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    state = finetune_state(base, seed)
+    tmp = tempfile.mkdtemp(prefix="hapi_phase_")
+    try:
+        # -- the kernels against their plain versions, fit against the book
+        # loop: the same check_batches from the same weights, dropout 0
+        nb = cfg["check_batches"]
+        head = io.Subset(train, list(range(nb * cfg["batch"])))
+
+        class StepLog(hapi.callbacks.Callback):
+            """Each fit step's loss (a device read a step)."""
+
+            def __init__(self):
+                super().__init__()
+                self.losses = []
+
+            def on_train_batch_end(self, step, logs=None):
+                self.losses.append(logs["loss"])
+
+        def check_fit(plain):
+            """fit over ``head``: its losses, its first step's gradients
+            (taken as the optimizer is handed them) and its parameters."""
+            model = hapi_model(quiet, state, seed)
+            log_cb = StepLog()
+            opt, grads = model._optimizer, {}
+            minimize = opt.minimize
+
+            def first_grads(loss, *args, **kwargs):
+                if not grads:
+                    grads.update((k, p.grad.detach().clone()) for k, p in
+                                 model.network.named_parameters())
+                return minimize(loss, *args, **kwargs)
+
+            opt.minimize = first_grads
+            ctx = plain_wrappers() if plain else contextlib.nullcontext()
+            with deterministic(), ctx:
+                model.fit(io.DataLoader(head, batch_size=cfg["batch"]),
+                          epochs=1, shuffle=False, verbose=0,
+                          callbacks=[log_cb])
+            del opt.minimize
+            return model, log_cb.losses, grads
+
+        kmodel, klosses, kgrads = check_fit(False)
+        kstate = _state_of(kmodel.network)
+        pmodel, plosses, pgrads = check_fit(True)
+        del pmodel
+        worst = max(abs(a - b) / abs(b) for a, b in zip(klosses, plosses))
+        check(len(klosses) == nb and worst <= TOL_TRAIN_LOSS_REL,
+              f"hapi fit, fp32 ERNIE-base b{cfg['batch']} s{cfg['maxlen']} "
+              f"dropout 0, kernels vs plain wrappers: {nb} losses, worst "
+              f"rel err {worst:.3g} <= {TOL_TRAIN_LOSS_REL}")
+        steps_agree(torch.tensor(klosses[0]), kgrads,
+                    torch.tensor(plosses[0]), pgrads,
+                    "plain wrappers, hapi fit's first step")
+        del kgrads, pgrads
+        torch.cuda.empty_cache()
+
+        net = imdb_classifier()(finetune_model(quiet, state, seed))
+        net.train()
+        opt = finetune_optimizer(net.parameters())
+        loss_fn = kmodel._loss
+        hand = []
+        with deterministic():
+            for ids, labels in io.DataLoader(head, batch_size=cfg["batch"]):
+                ids = torch.from_numpy(ids).to(DEV)
+                labels = torch.from_numpy(labels).to(DEV)
+                loss = loss_fn(net(ids), labels)
+                loss.backward()
+                opt.minimize(loss)
+                net.clear_gradients()
+                hand.append(float(loss))
+        hstate = _state_of(net)
+        d = max(max_abs(kstate[k], hstate[k]) for k in kstate)
+        check(d == 0.0 and hand == klosses,
+              f"hapi: Model.fit and the book loop (loss.backward(); "
+              f"opt.minimize(loss); clear_gradients()) on the same "
+              f"{nb} batches: losses and parameters bit for bit (largest "
+              f"difference {d})")
+        out["check"] = dict(losses=klosses, plain_losses=plosses,
+                            loss_rel_err=worst)
+        del kmodel, net, opt, kstate, hstate
+        torch.cuda.empty_cache()
+
+        # -- the prefetch under load, on the loader's own host batches
+        host_batches = list(io.DataLoader(
+            train, batch_size=cfg["batch"], shuffle=True))
+        prefetch_under_load(
+            (host_batches * 4)[:cfg["stage_batches"]], seed)
+
+        # -- fit at full width: 2 spawned workers, shared memory, device
+        # prefetch; the batch sampler records each epoch's batches
+        class Recording(io.BatchSampler):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.epochs = []
+
+            def __iter__(self):
+                self.epochs.append([])
+                for b in super().__iter__():
+                    self.epochs[-1].append(list(b))
+                    yield b
+
+        class Timer(hapi.callbacks.Callback):
+            """Epoch 2's step ms from its first step's start to its end,
+            its wait for the first batch, and io.prefetch_depth at each
+            step's start."""
+
+            def __init__(self):
+                super().__init__()
+                self.depth, self.t, self.epoch = [], {}, 0
+
+            def on_epoch_begin(self, epoch, logs=None):
+                torch.cuda.synchronize()
+                self.epoch = epoch
+                self.t[("begin", epoch)] = time.perf_counter()
+
+            def on_train_batch_begin(self, step, logs=None):
+                self.depth.append(monitor.gauge("io.prefetch_depth").value())
+                if step == 0:
+                    torch.cuda.synchronize()
+                    self.t[("first", self.epoch)] = time.perf_counter()
+
+            def on_epoch_end(self, epoch, logs=None):
+                torch.cuda.synchronize()
+                self.t[("end", epoch)] = time.perf_counter()
+
+        np.random.seed(seed)
+        sampler = Recording(train, shuffle=True, batch_size=cfg["batch"])
+        loader = io.DataLoader(train, batch_sampler=sampler,
+                               num_workers=cfg["workers"],
+                               use_shared_memory=True, prefetch_to_device=True,
+                               timeout=cfg["loader_timeout"])
+        model = hapi_model(base, state, seed)
+        timer = Timer()
+        steps = len(loader)
+        early = hapi.callbacks.EarlyStopping(monitor="acc", patience=2,
+                                             verbose=0)
+        logger = hapi.callbacks.MetricsLogger()
+        sched = model._optimizer._lr
+        sched_at, steps_at = sched.last_epoch, logger._steps.value()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        config.reset_counts()
+        t_fit = time.perf_counter()
+        model.fit(loader, epochs=cfg["epochs"], verbose=0,
+                  callbacks=[hapi.callbacks.LRSchedulerCallback(by_step=True),
+                             early, logger, timer])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        counts = config.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_steps = steps * cfg["epochs"]
+        check_counts("hapi fit", {k: v / n_steps for k, v in counts.items()},
+                     FINETUNE_LAUNCHES, only=True)
+        e = cfg["epochs"] - 1
+        step_ms = (timer.t[("end", e)] - timer.t[("first", e)]) / steps * 1e3
+        first_wait = timer.t[("first", e)] - timer.t[("begin", e)]
+        depth = timer.depth[steps:]
+        mean_depth = float(np.mean(depth))
+        stepped = sched.last_epoch - sched_at
+        logged = logger._steps.value() - steps_at
+        check(stepped == n_steps + cfg["epochs"] and logged == n_steps,
+              f"hapi fit: LRSchedulerCallback(by_step=True) stepped the "
+              f"schedule {stepped} times in {n_steps} steps and "
+              f"{cfg['epochs']} epochs; MetricsLogger counted {logged} "
+              f"steps; EarlyStopping best acc {early.best}")
+
+        # the book loop on epoch 2's batches, the same model, same run
+        batches = [tuple(torch.from_numpy(a).to(DEV) for a in
+                         io.default_collate_fn([train[i] for i in idx]))
+                   for idx in sampler.epochs[e]]
+        net, opt, loss_fn = model.network, model._optimizer, model._loss
+
+        def hand_step(ids, labels):
+            loss = loss_fn(net(ids), labels)
+            loss.backward()
+            opt.minimize(loss)
+            net.clear_gradients()
+            return loss.detach()
+
+        torch.cuda.synchronize()
+        th = time.perf_counter()
+        hand_losses = [hand_step(*b) for b in batches]
+        torch.cuda.synchronize()
+        hand_ms = (time.perf_counter() - th) / len(batches) * 1e3
+        check(all(np.isfinite(torch.stack(hand_losses).tolist())),
+              "hapi book loop losses finite")
+        seqs = cfg["batch"] / step_ms * 1e3
+
+        two = io.DataLoader(io.Subset(train, list(range(2 * cfg["batch"]))),
+                            batch_size=cfg["batch"], prefetch_to_device=True)
+        prof = profile_split(lambda: model.fit(two, verbose=0, shuffle=False),
+                             steps=1)
+        busy_share = prof["busy_ms"] / prof["wall_ms"]
+
+        # the loader alone: a fresh epoch, spawn included (its workers'
+        # start-up split by SpawnProbe), then steady
+        probe_dir = os.path.join(tmp, "spawn")
+        os.mkdir(probe_dir)
+        alone = io.DataLoader(SpawnProbe(train, probe_dir),
+                              batch_size=cfg["batch"], shuffle=True,
+                              num_workers=cfg["workers"],
+                              use_shared_memory=True, prefetch_to_device=True,
+                              timeout=cfg["loader_timeout"])
+        t_spawn = time.time()
+        tl = time.perf_counter()
+        it = iter(alone)
+        next(it)
+        t_first = time.perf_counter()
+        rest = sum(1 for _ in it)
+        torch.cuda.synchronize()
+        loader_bps = rest / (time.perf_counter() - t_first)
+        loader_first_s = t_first - tl
+        spawn = spawn_split(probe_dir, t_spawn)
+        check(len(spawn) == cfg["workers"], f"hapi loader: the start-up "
+              f"of its {len(spawn)} spawned workers, s: " + "; ".join(
+                  ", ".join(f"{k} {v:.2f}" for k, v in w.items())
+                  for w in spawn))
+
+        # evaluate and predict: launches per batch, finite answers, wall
+        n_eval = -(-cfg["test_size"] // cfg["batch"])
+        ev, ev_counts = count_one(lambda: model.evaluate(
+            test, batch_size=cfg["batch"], verbose=0))
+        check_counts("hapi evaluate", {k: v / n_eval for k, v in
+                                       ev_counts.items()}, HAPI_EVAL_LAUNCHES,
+                     only=True)
+        check(np.isfinite(ev["loss"]) and 0.0 <= ev["acc"] <= 1.0,
+              f"hapi evaluate: loss {ev['loss']:.4f}, acc {ev['acc']:.4f}")
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        (preds,), pr_counts = count_one(lambda: model.predict(
+            test, batch_size=cfg["batch"]))
+        predict_s = time.perf_counter() - tp
+        check_counts("hapi predict", {k: v / n_eval for k, v in
+                                      pr_counts.items()}, HAPI_EVAL_LAUNCHES,
+                     only=True)
+        check(preds.shape == (cfg["test_size"], 2)
+              and bool(np.isfinite(preds).all()),
+              f"hapi predict: {preds.shape} finite logits in "
+              f"{predict_s * 1e3:.1f} ms")
+
+        # save / load: parameters and the optimizer state bit for bit
+        path = os.path.join(tmp, "imdb")
+        ts = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - ts
+        fresh = hapi_model(base, state, seed)
+        fresh.load(path)
+        d = max(max_abs(a, b) for a, b in zip(
+            model.network.state_dict().values(),
+            fresh.network.state_dict().values()))
+        s0, s1 = model._optimizer._state, fresh._optimizer._state
+        od = max(max_abs(a, b) for k, slots in s0["per_param"].items()
+                 for a, b in zip(slots, s1["per_param"][k]))
+        check(d == 0.0 and od == 0.0 and s1["step"] == s0["step"]
+              and fresh._optimizer._step_count == s0["step"],
+              f"hapi save / load: {len(model.network.state_dict())} "
+              f"parameters and {len(s0['per_param'])} AdamW slot pairs "
+              f"bit for bit, step {s1['step']} (save {save_s:.2f} s)")
+        del fresh
+        tfd = train_from_dataset_check(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    phase_s = time.perf_counter() - t0
+    log(f"[hapi] ERNIE-base IMDB fit fp32 b{cfg['batch']} s{cfg['maxlen']}, "
+        f"{cfg['workers']} spawned workers, device prefetch: epoch 2 step "
+        f"{step_ms:.2f} ms = {seqs:.1f} sequences/s (first batch after "
+        f"{first_wait * 1e3:.1f} ms), book loop on the same batches "
+        f"{hand_ms:.2f} ms: overhead ratio {step_ms / hand_ms:.3f}; mean "
+        f"io.prefetch_depth {mean_depth:.2f}; peak {peak:.2f} GiB; busy share "
+        f"{busy_share:.3f}; loader alone {loader_bps:.1f} batches/s (first "
+        f"batch {loader_first_s:.2f} s); predict {cfg['test_size']} "
+        f"samples {predict_s * 1e3:.1f} ms; evaluate {ev}; fit {fit_s:.2f} "
+        f"s; phase {phase_s:.1f} s")
+    out.update(step_ms=step_ms, sequences_per_s=seqs, hand_step_ms=hand_ms,
+               overhead_ratio=step_ms / hand_ms, first_batch_wait_ms=
+               first_wait * 1e3, mean_prefetch_depth=mean_depth,
+               prefetch_depths=depth, peak_gib=peak, busy_share=busy_share,
+               profile=prof, loader_batches_per_s=loader_bps,
+               loader_first_batch_s=loader_first_s, spawn_split=spawn,
+               predict_ms=predict_s * 1e3,
+               evaluate=ev, save_s=save_s, fit_s=fit_s, launches=counts,
+               steps=n_steps, per_step_launches={k: v / n_steps for k, v in
+                                                 counts.items()},
+               eval_launches=ev_counts, predict_launches=pr_counts,
+               train_from_dataset=tfd, phase_s=phase_s)
+    del model
+    torch.cuda.empty_cache()
+    per = {"fit": (counts, n_steps), "evaluate": (ev_counts, n_eval),
+           "predict": (pr_counts, n_eval)}
+    return {path: {k: v // n for k, v in c.items()}
+            for path, (c, n) in per.items()}, out
+
+
 # -- phases 21-22: bench_vision's ResNet-50 and YOLOv3-DarkNet53 training ----
 
 # bench_vision.py's two training recipes at their full widths: PaddleClas's
@@ -6291,11 +6877,14 @@ def main(argv=None):
     tagging_counts, tagging = tagging_phase(args.seed)
     t_rnn = time.perf_counter()
     rnn = lac_phase(args.seed)
+    t_hapi = time.perf_counter()
+    torch.cuda.empty_cache()
+    hapi_counts, hapi_out = hapi_phase(args.seed)
     t_end = time.perf_counter()
-    tagging["phase_s"], rnn["phase_s"] = t_rnn - t_tagging, t_end - t_rnn
-    log(f"[phases 17-20] {t_end - t_phase:.1f} s: ops and dygraph "
+    tagging["phase_s"], rnn["phase_s"] = t_rnn - t_tagging, t_hapi - t_rnn
+    log(f"[phases 17-20, 23] {t_end - t_phase:.1f} s: ops and dygraph "
         f"{t_tagging - t_phase:.1f} s, tagging {t_rnn - t_tagging:.1f} s, "
-        f"rnn {t_end - t_rnn:.1f} s")
+        f"rnn {t_hapi - t_rnn:.1f} s, hapi {t_end - t_hapi:.1f} s")
     torch.cuda.empty_cache()
     resnet = resnet_phase(args.seed)
     torch.cuda.empty_cache()
@@ -6481,6 +7070,12 @@ def main(argv=None):
         if entry["name"] in ERNIE_KERNELS:
             for key, c in slice_paths.items():
                 entry[key] = c.get(entry["name"], 0)
+        # phase 23's path: launches a fit step, an evaluate / predict batch
+        entry["hapi_launches"] = hapi_counts["fit"].get(entry["name"], 0)
+        entry["hapi_eval_launches"] = hapi_counts["evaluate"].get(
+            entry["name"], 0)
+        entry["hapi_predict_launches"] = hapi_counts["predict"].get(
+            entry["name"], 0)
         # phases 21-22's paths launch no port kernel (checked there)
         entry["resnet_launches"] = resnet["port_kernel_launches"].get(
             entry["name"], 0)
@@ -6505,6 +7100,7 @@ def main(argv=None):
     print(json.dumps({"rnn": rnn}), flush=True)
     print(json.dumps({"resnet": resnet}), flush=True)
     print(json.dumps({"yolo": yolo}), flush=True)
+    print(json.dumps({"hapi": hapi_out}), flush=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
@@ -6516,6 +7112,8 @@ def main(argv=None):
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
+
+_T_MODULE_END = time.time()
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -88,6 +88,8 @@ _LAZY_SUBMODULES = (
     "autograd",
     "static",
     "io",
+    "metric",
+    "hapi",
     "slim",
     "vision",
     "text",

@@ -110,10 +110,13 @@ def device_guard(place):
 
 def resolve_device(device=None) -> torch.device:
     """``device`` (a ``torch.device``, a string or a ``Place``) as a
-    ``torch.device``; None means the current device.  CUDA where there is
-    no card raises."""
+    ``torch.device``; None means the current device.  The place names
+    (``"gpu:1"``, ``"tpu"``, ``"xpu"``) map as ``set_device`` maps them.
+    CUDA where there is no card raises."""
     if device is None:
         device = get_device()
+    if isinstance(device, str) and device.partition(":")[0] in _NAMES:
+        device = _to_place(device)       # "gpu:1", "tpu" as places
     if isinstance(device, Place):
         device = device.get_device()
     dev = torch.device(device)

@@ -1,6 +1,8 @@
-"""Datasets (counterpart of paddle_tpu.io).  The dataset abstractions are
-ported; the loader, the samplers and the device prefetch wait for the data
-slice (ROADMAP.md Queue 1 item 7)."""
+"""paddle_tpu_torch.io — datasets, samplers, DataLoader, device prefetch
+and the multi-slot datasets (counterpart of paddle_tpu.io, with its
+exports; ref: paddle/io/, fluid/dataloader, framework/data_feed.*)."""
+from .dataloader import DataLoader, default_collate_fn
+from .prefetch import DeviceFeeder, device_prefetch
 from .dataset import (
     ChainDataset,
     ComposeDataset,
@@ -9,4 +11,12 @@ from .dataset import (
     Subset,
     TensorDataset,
     random_split,
+)
+from .multislot import DatasetFactory, InMemoryDataset, QueueDataset
+from .sampler import (
+    BatchSampler,
+    DistributedBatchSampler,
+    RandomSampler,
+    Sampler,
+    SequenceSampler,
 )

@@ -16,8 +16,9 @@ measured by running this file by its path from that tree's root.  As
 ``chip_smoke.main`` does, it turns TF32 off, builds every kernel and
 takes row 11's profile, then runs the named phases in the order given:
 17 (ops), 18 (ERNIE fine-tuning), 19 (ERNIE + CRF tagging), 20 (LAC
-BiGRU-CRF; ``--lac-vocab`` sets its vocabulary), 21 (ResNet-50) and 22
-(YOLOv3-DarkNet53).  Each phase keeps its
+BiGRU-CRF; ``--lac-vocab`` sets its vocabulary), 21 (ResNet-50), 22
+(YOLOv3-DarkNet53) and 23 (ERNIE-base IMDB through DataLoader and
+hapi.Model).  Each phase keeps its
 own checks.  The card's name and power limit are printed first, then one
 JSON line a phase: its seconds, step ms, profiled device busy ms and
 the objects Python's collector tracks after it.
@@ -61,7 +62,8 @@ def main(argv=None):
     run = {"17": cs.ops_phase, "18": lambda s: cs.finetune_phase(s)[1],
            "19": lambda s: cs.tagging_phase(s)[1],
            "20": lambda s: cs.lac_phase(s),
-           "21": cs.resnet_phase, "22": cs.yolo_phase}
+           "21": cs.resnet_phase, "22": cs.yolo_phase,
+           "23": lambda s: cs.hapi_phase(s)[1]}
     for phase in args.phases.split(","):
         t0 = time.perf_counter()
         out = run[phase](args.seed)

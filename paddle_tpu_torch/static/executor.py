@@ -325,6 +325,62 @@ class Executor:
         return self._entry(program, dict.fromkeys(feed_names),
                            fetch_names).program
 
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread: int = 0, debug: bool = False,
+                           fetch_list=None, fetch_info=None,
+                           print_period: int = 100,
+                           prefetch_to_device=False):
+        """ref fluid/executor.py:1597 train_from_dataset →
+        TrainerFactory/MultiTrainer/DeviceWorker (trainer.h:41,
+        device_worker.h:215 HogwildWorker threads pulling from the DataFeed
+        channel).
+
+        As in the JAX package, the C++ DataFeed (core/native.py) parses,
+        shuffles and batches on background threads and one device runs the
+        steps in order, so the N-worker Hogwild loop becomes sequential
+        ``run`` calls over the feed stream (``thread`` is accepted for
+        parity; parse parallelism is the dataset's ``set_thread``).
+
+        ``prefetch_to_device=True`` (the Executor's device) or a device
+        stages batch N+1 on the device from a background thread while batch
+        N computes (io/prefetch.py).  Returns the last step's fetches."""
+        if dataset is None:
+            raise ValueError("train_from_dataset requires a dataset")
+        del thread  # parity knob; parse parallelism lives on the dataset
+        fetch_list = list(fetch_list or [])
+        names = [v.name if isinstance(v, Variable) else str(v)
+                 for v in fetch_list]
+        labels = list(fetch_info or names)
+        stream = dataset
+        if prefetch_to_device:
+            from ..io.prefetch import DeviceFeeder
+
+            stream = DeviceFeeder(
+                dataset, device=self.place if prefetch_to_device is True
+                else prefetch_to_device)
+        step = 0
+        last = None
+        for batch in stream:
+            last = self.run(program, feed=batch, fetch_list=fetch_list,
+                            scope=scope)
+            step += 1
+            if debug and fetch_list and step % print_period == 0:
+                msg = ", ".join(f"{l}={np.asarray(v).ravel()[:1][0]:.6g}"
+                                for l, v in zip(labels, last))
+                print(f"[train_from_dataset] step {step}: {msg}")
+        return last
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread: int = 0, debug: bool = False,
+                           fetch_list=None, fetch_info=None,
+                           print_period: int = 100,
+                           prefetch_to_device=False):
+        """ref fluid/executor.py:1476 — same loop; the program is expected
+        to be an inference/test clone (no optimizer ops)."""
+        return self.train_from_dataset(program, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period, prefetch_to_device)
+
     def close(self):
         self._cache.clear()
 

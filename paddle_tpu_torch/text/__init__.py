@@ -1,5 +1,6 @@
-"""Text models of the port (counterpart of paddle_tpu.text).  The dataset
-classes of the JAX package's ``text.datasets`` wait for the data slice."""
+"""Text models and datasets of the port (counterpart of paddle_tpu.text)."""
+from .datasets import (Conll05st, Imdb, Imikolov, Movielens,
+                       MovieReviews, UCIHousing, WMT14, WMT16)
 from .ernie import (
     BertConfig,
     BertForPretraining,

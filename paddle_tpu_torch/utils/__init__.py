@@ -1,2 +1,3 @@
 """Runtime utilities (counterpart of paddle_tpu.utils): the metrics
-registry only, for now."""
+registry, the host profiler, tracing and the flight recorder, and
+checkpoints."""

@@ -3,7 +3,9 @@
 Only what the ported paths record is copied: thread-safe ``Counter``,
 ``Gauge`` and ``Histogram`` metrics with optional labels, ``.value()`` and
 the bucket-interpolated ``percentile`` estimator, and get-or-create
-``counter`` / ``gauge`` / ``histogram`` on a process-wide default registry.
+``counter`` / ``gauge`` / ``histogram`` on a process-wide default registry,
+and the reads the profiler's chrome export takes (``samples``,
+``MetricRegistry.metrics``).
 Collection is gated by the ``metrics`` flag (``PDTPU_FLAGS_metrics``,
 default on): with it off every instrumented path still runs but records
 nothing.  Exporters, metric history and the SLO engine are not ported yet.
@@ -59,6 +61,12 @@ class Metric:
                 f"metric {self.name!r} takes labels {self.labelnames}, "
                 f"got {tuple(sorted(labels))}")
         return tuple(str(labels[k]) for k in self.labelnames)
+
+    def samples(self) -> List[Tuple[Dict[str, str], Any]]:
+        """Snapshot [(labels, value)], safe to iterate while writers run."""
+        with self._lock:
+            items = list(self._cells.items())
+        return [(dict(zip(self.labelnames, k)), v) for k, v in items]
 
 
 class Counter(Metric):
@@ -220,6 +228,11 @@ class MetricRegistry:
     def names(self) -> List[str]:
         with self._lock:
             return sorted(self._metrics)
+
+    def metrics(self) -> List[Metric]:
+        """Every registered metric, by name."""
+        with self._lock:
+            return [self._metrics[n] for n in sorted(self._metrics)]
 
     def reset(self) -> None:
         """Zero every metric's samples; registrations stay."""

@@ -8,7 +8,8 @@
   backward kernel, which has its own plain version and launch counter,
   unless the module names the JAX VJP it repeats in torch
   (``PLAIN_BACKWARD``) and that VJP reaches no Pallas kernel;
-* nothing is built at import time.
+* nothing is built at import time: no CUDA kernel, and not the native
+  host runtime (``core.native``), which ``io`` and ``hapi`` reach.
 """
 import importlib
 import inspect
@@ -51,7 +52,8 @@ def test_import_scan_covers_every_package_of_the_port():
     names = _all_modules()
     for pkg in ("amp", "autograd", "core", "dygraph", "io", "nn",
                 "ops.kernels", "optimizer", "serving", "slim", "static",
-                "text", "utils", "vision", "vision.models"):
+                "text", "utils", "vision", "vision.models", "hapi",
+                "metric"):
         assert f"paddle_tpu_torch.{pkg}" in names, pkg
     for mod in ("serving.paged", "serving.slo", "serving.continuous",
                 "utils.monitor", "core.errors", "ops.kernels.paged_attention",
@@ -72,7 +74,11 @@ def test_import_scan_covers_every_package_of_the_port():
                 "nn.layer.norm", "nn.layer.pooling", "nn.layer.extras",
                 "nn.decode", "optimizer.extras", "ops.vision", "io.dataset",
                 "vision.datasets", "vision.transforms",
-                "vision.models.resnet", "vision.models.yolov3"):
+                "vision.models.resnet", "vision.models.yolov3",
+                "core.native", "io.sampler", "io.dataloader", "io.prefetch",
+                "io.multislot", "metric.metrics", "text.datasets",
+                "hapi.model", "hapi.callbacks", "utils.profiler",
+                "utils.trace", "utils.checkpoint"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 
@@ -281,7 +287,15 @@ def test_import_builds_nothing():
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.entry\n"
             "import paddle_tpu_torch.text.ernie\n"
-            "assert b._libs == {}\n" % str(ROOT))
+            "import paddle_tpu_torch.core.native as native\n"
+            "import paddle_tpu_torch.io\n"
+            "import paddle_tpu_torch.hapi\n"
+            "import paddle_tpu_torch.metric\n"
+            "import paddle_tpu_torch.utils.trace\n"
+            "import paddle_tpu_torch.utils.checkpoint\n"
+            "assert b._libs == {}\n"
+            "assert not native._build_attempted and native._lib is None\n"
+            % str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -621,3 +621,110 @@ def test_slice_constructors_called_positionally_in_both_packages():
 
 def parameters_dict_j(layer):
     return jautograd.parameters_dict(layer)
+
+
+# -- the data pipeline and the high-level API: io, metric, hapi, the text
+# datasets, train_from_dataset and the host runtime ---------------------------
+
+import paddle_tpu.hapi as jhapi  # noqa: E402
+import paddle_tpu.io as jio  # noqa: E402
+import paddle_tpu.metric as jmetric  # noqa: E402
+import paddle_tpu.static as jstatic  # noqa: E402
+import paddle_tpu.text.datasets as jtds  # noqa: E402
+from paddle_tpu.core import native as jnative  # noqa: E402
+from paddle_tpu.io import prefetch as jprefetch  # noqa: E402
+from paddle_tpu.utils import checkpoint as jckpt  # noqa: E402
+from paddle_tpu.utils import profiler as jprof  # noqa: E402
+from paddle_tpu.utils import trace as jtrace  # noqa: E402
+import paddle_tpu_torch.hapi as thapi  # noqa: E402
+import paddle_tpu_torch.io as tio  # noqa: E402
+import paddle_tpu_torch.metric as tmetric  # noqa: E402
+import paddle_tpu_torch.static as tstatic  # noqa: E402
+import paddle_tpu_torch.text.datasets as ttds  # noqa: E402
+from paddle_tpu_torch.core import native as tnative  # noqa: E402
+from paddle_tpu_torch.io import prefetch as tprefetch  # noqa: E402
+from paddle_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
+from paddle_tpu_torch.utils import profiler as tprof  # noqa: E402
+from paddle_tpu_torch.utils import trace as ttrace  # noqa: E402
+
+
+def _methods(label, jc, tc, names):
+    return [(f"{label}.{m}", getattr(jc, m), getattr(tc, m)) for m in names]
+
+
+def _data_callables():
+    """(label, reference, port) for every public class (its constructor),
+    method and function of the data and high-level API slice."""
+    pairs = []
+    for n in ("DataLoader", "Sampler", "SequenceSampler", "RandomSampler",
+              "BatchSampler", "DistributedBatchSampler", "DeviceFeeder",
+              "InMemoryDataset", "QueueDataset", "DatasetFactory",
+              "default_collate_fn", "device_prefetch"):
+        pairs.append((f"io.{n}", getattr(jio, n), getattr(tio, n)))
+    pairs += _methods("DistributedBatchSampler", jio.DistributedBatchSampler,
+                      tio.DistributedBatchSampler, ("set_epoch",))
+    pairs += _methods("DeviceFeeder", jio.DeviceFeeder, tio.DeviceFeeder,
+                      ("close",))
+    pairs += _methods("InMemoryDataset", jio.InMemoryDataset,
+                      tio.InMemoryDataset,
+                      ("set_use_var", "set_batch_size", "set_thread",
+                       "set_filelist", "load_into_memory", "local_shuffle",
+                       "global_shuffle", "release_memory",
+                       "get_memory_data_size"))
+    pairs += _methods("QueueDataset", jio.QueueDataset, tio.QueueDataset,
+                      ("local_shuffle", "global_shuffle"))
+    pairs += _methods("DatasetFactory", jio.DatasetFactory,
+                      tio.DatasetFactory, ("create_dataset",))
+    for n in ("stage", "resolve_device"):
+        pairs.append((f"prefetch.{n}", getattr(jprefetch, n),
+                      getattr(tprefetch, n)))
+    for n in jmetric.__all__:
+        jc, tc = getattr(jmetric, n), getattr(tmetric, n)
+        pairs.append((f"metric.{n}", jc, tc))
+        pairs += _methods(f"metric.{n}", jc, tc,
+                          [m for m in ("reset", "update", "accumulate",
+                                       "compute", "name", "eval")
+                           if hasattr(jc, m)])
+    pairs.append(("hapi.Model", jhapi.Model, thapi.Model))
+    pairs += _methods("Model", jhapi.Model, thapi.Model,
+                      ("prepare", "fit", "evaluate", "predict",
+                       "train_batch", "eval_batch", "predict_batch", "save",
+                       "load", "parameters", "summary"))
+    jcb, tcb = jhapi.callbacks, thapi.callbacks
+    for n in ("Callback", "CallbackList", "ProgBarLogger", "ModelCheckpoint",
+              "EarlyStopping", "MetricsLogger", "LRSchedulerCallback"):
+        jc, tc = getattr(jcb, n), getattr(tcb, n)
+        pairs.append((f"callbacks.{n}", jc, tc))
+        pairs += _methods(f"callbacks.{n}", jc, tc,
+                          [m for m in vars(jc) if m.startswith(("on_",
+                                                                "set_"))])
+    for n in jtds.__all__:
+        pairs.append((f"text.{n}", getattr(jtds, n), getattr(ttds, n)))
+    pairs += _methods("Executor", jstatic.Executor, tstatic.Executor,
+                      ("train_from_dataset", "infer_from_dataset"))
+    for n in ("save", "load", "save_state_dict", "load_state_dict"):
+        pairs.append((f"checkpoint.{n}", getattr(jckpt, n),
+                      getattr(tckpt, n)))
+    for n in jprof.__all__:
+        pairs.append((f"profiler.{n}", getattr(jprof, n), getattr(tprof, n)))
+    for n in ("Span", "SpanContext", "FlightRecorder", "flight_recorder",
+              "arm_postmortem", "arm_from_env", "register_postmortem_info",
+              "inject", "extract", "job_trace_id"):
+        pairs.append((f"trace.{n}", getattr(jtrace, n), getattr(ttrace, n)))
+    pairs += _methods("FlightRecorder", jtrace.FlightRecorder,
+                      ttrace.FlightRecorder,
+                      ("record", "events_since", "read_since", "events",
+                       "clear", "to_json", "dump"))
+    for n in ("NativeDataFeed", "available", "get_lib", "stat_add",
+              "stat_set", "stat_get", "stat_reset", "stat_list",
+              "prof_add_span", "prof_export_chrome", "prof_summary"):
+        pairs.append((f"native.{n}", getattr(jnative, n),
+                      getattr(tnative, n)))
+    return pairs
+
+
+@pytest.mark.parametrize("label,ref,port", _data_callables(),
+                         ids=[c[0] for c in _data_callables()])
+def test_data_slice_positional_parameters_match_the_reference(label, ref,
+                                                              port):
+    test_positional_parameters_match_the_reference(label, ref, port)

@@ -2,8 +2,7 @@
 for the port (torch autograd as the tape) on the CPU, with the JAX
 package's tape run beside it where the two compute the same numbers.
 
-Left out: ``test_hapi_model_tape_path`` (``hapi`` is not ported yet) and
-the replay tape's own internals, ``test_orphaned_forward_chains_are_pruned``
+Left out: the replay tape's own internals, ``test_orphaned_forward_chains_are_pruned``
 and ``test_dead_leaves_are_swept`` (the port has no replay tape: torch
 frees a graph with its last reference).  The reference's jit test becomes
 ``torch.func``: a functional transform over the op library records nothing
@@ -311,3 +310,46 @@ def test_functional_transform_records_nothing():
     jg = np.asarray(__import__("jax").grad(
         lambda a: jpd.sum(a * 2.0))(jnp.ones((3,), jnp.float32)))
     np.testing.assert_array_equal(g.numpy(), jg)
+
+
+def test_hapi_model_tape_path():
+    """hapi Model.fit/train_batch runs the eager (tape) step, as the JAX
+    package's under guard(): the same first loss from the same weights,
+    and training lowers it."""
+    import paddle_tpu.nn as jnn
+    from paddle_tpu.autograd import parameters_dict
+    from paddle_tpu.hapi import Model as JModel
+    from paddle_tpu.optimizer import Adam as JAdam
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import Dataset
+
+    class Toy(Dataset):
+        def __len__(self):
+            return 16
+
+        def __getitem__(self, i):
+            rng = np.random.RandomState(i)
+            x = rng.rand(4).astype(np.float32)
+            return x, x.sum(keepdims=True).astype(np.float32)
+
+    jnet = jnn.Sequential(jnn.Linear(4, 8), jnn.ReLU(), jnn.Linear(8, 1))
+    net = nn.Sequential(nn.Linear(4, 8), nn.ReLU(), nn.Linear(8, 1))
+    convert.from_jax_params({k: np.asarray(v) for k, v in
+                             parameters_dict(jnet).items()}, net)
+    x, y = [np.ones((4, 4), np.float32)], np.full((4, 1), 4.0, np.float32)
+    with jdygraph.guard():
+        jmodel = JModel(jnet)
+        jmodel.prepare(optimizer=JAdam(learning_rate=0.01,
+                                       parameters=jnet.parameters()),
+                       loss=jpd.nn.functional.mse_loss)
+        jl0 = jmodel.train_batch(x, y)
+    model = Model(net)
+    model.prepare(optimizer=Adam(learning_rate=0.01,
+                                 parameters=net.parameters()),
+                  loss=F.mse_loss)
+    l0 = model.train_batch(x, y)
+    np.testing.assert_allclose(l0, jl0, rtol=1e-6)
+    model.fit(Toy(), batch_size=8, epochs=3, verbose=0)
+    l1 = model.train_batch(x, y)
+    assert l1 < l0, (l0, l1)
