@@ -377,6 +377,35 @@ Phases (any failed check raises, so the script exits non-zero):
               share of a profiled 2-step fit, the loader's batches/s alone
               with the split of a spawned worker's start-up, predict's
               wall for 256 reviews and the peak memory.
+24. dp      -- data-parallel ERNIE-base pretraining through
+              ``paddle_tpu_torch.parallel``: this script's ranks run
+              under the port's launcher (``python -m
+              paddle_tpu_torch.distributed.launch``, ``--dp-worker``).
+              (a) One NCCL rank (``fleet.init()``), bench.py's step (b64
+              s512, 76 masked positions, bf16 over fp32 masters, dropout
+              0.1) through ``entry.make_train_step`` with
+              ``DataParallel(comm_buffer_size=25)`` and
+              ``fleet.distributed_optimizer(Adam)``: the first step's
+              gradients and loss equal the same step without DataParallel
+              and fleet bit for bit (one member: the buckets' flatten ->
+              all-reduce -> unflatten moves no value); 12 / 12 / 2 / 2 /
+              24 / 24 launches of rows 1 / 2 / 5 / 6 / 7 / 8 in the step
+              and no other; ``quantize_blockwise`` / ``dequantize_
+              blockwise`` (int8, fp8, block 256) of every gradient bucket
+              on the card equal to the CPU's bit for bit, and
+              ``all_reduce_compressed`` at one member returning its input;
+              10 timed steps and a profiled split of 2 more.  (b) Two gloo ranks on the one card (the
+              worker creates the gloo default group, which
+              ``init_parallel_env`` takes: NCCL refuses two ranks on one
+              device), each stepping b32 of the b64 batch in fp32 at
+              dropout 0 with the bucketed sync: the averaged gradients and
+              the ranks' mean loss against the single-process b64 step
+              (``steps_agree``); all_reduce is the one collective it
+              calls (``dp_probe``, run by ``phase_experiments.py --phases
+              24probe``, tries the others on CUDA tensors under gloo).
+              Printed: the step times (the world-1 step against the train
+              phase's in this run), the launches, each rank's start-up
+              split and each job's seconds.
 Phases 17-20 and 23 run right after the build (and row 11's profile),
 before the first CUDA graph capture: the card's profiler loses eager
 launches after one; phases 21-22 follow them.
@@ -387,13 +416,13 @@ Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}``,
 ``{"ops": ...}``, ``{"dygraph": ...}``, ``{"tagging": ...}``,
 ``{"rnn": ...}``, ``{"resnet": ...}``, ``{"yolo": ...}``, ``{"hapi":
-...}`` and ``{"kernels": [...]}`` JSON lines (one kernel entry
-for each of the 15 TPU kernels; rows 10 and 13-15 with their launches on
-the static-train path, rows 11-13 with their cold times, rows 1, 2 and
-5-8 with their launches on each path of phases 14-16, 18, 19 and 23,
-every row with its launches on phases 21 and 22's paths, 0) and the card's
-name
-and power limit;
+...}``, ``{"dp": ...}`` and ``{"kernels": [...]}`` JSON lines (one kernel
+entry for each of the 15 TPU kernels; rows 10 and 13-15 with their
+launches on the static-train path, rows 11-13 with their cold times, rows
+1, 2 and 5-8 with their launches on each path of phases 14-16, 18, 19 and
+23, every row with its launches on phases 21 and 22's paths, 0, and on
+phase 24's data-parallel step, ``dp_launches``) and the card's name and
+power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -406,6 +435,8 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -6019,7 +6050,6 @@ def train_from_dataset_check(seed, tmp):
 def hapi_phase(seed):
     """Phase 23: ERNIE-base IMDB fine-tuning through DataLoader and
     hapi.Model (module docstring)."""
-    import shutil
     import tempfile
 
     from paddle_tpu_torch import hapi, io
@@ -6817,15 +6847,433 @@ def yolo_phase(seed):
     return out
 
 
+
+# -- phase 24: data-parallel ERNIE-base pretraining through fleet -----------
+
+# The job's ranks run this script with ``--dp-worker MODE OUT`` under the
+# port's launcher.  DP["buffer_mb"] is DataParallel's comm_buffer_size (17
+# buckets of ERNIE-base's ~110 M fp32 gradients); the 2-rank job runs in
+# fp32 at dropout 0 so the averaged halves can be held against the b64 step
+# at the train phase's fp32 tolerances (each bf16 half would round its own
+# sums); DP_PROBE are the port's collectives tried on CUDA tensors on gloo,
+# the point-to-point ones last (gloo's TCP transport aborts the process on a
+# device pointer there, and each abort costs a new job).
+DP = dict(buffer_mb=25.0, steps=10, warm=2, gloo_steps=3, timeout_s=400,
+          probe_timeout_s=30)
+DP_PROBE = ("all_reduce", "all_reduce_max", "all_reduce_prod", "all_gather",
+            "reduce_scatter", "all_to_all", "broadcast", "scatter", "barrier",
+            "all_reduce_int8", "ppermute", "send_recv")
+
+
+def _dp_capture(dopt):
+    """The gradients the inner optimizer of ``dopt`` receives at its first
+    update (after DataParallel's sync), kept as they are."""
+    seen = []
+    update = dopt.inner.update
+
+    def capturing(grads, state, params, lr=None):
+        if not seen:
+            seen.append({k: v.clone() for k, v in grads.items()})
+        return update(grads, state, params, lr)
+
+    dopt.inner.update = capturing
+    return seen
+
+
+def _dp_buckets(grads, buffer_mb):
+    """The bucketer's flat fp32 buffers of ``grads`` (parallel/compress.py
+    bucketed_all_reduce's layout), each padded to a multiple of 256."""
+    from paddle_tpu_torch.parallel import compress as C
+
+    rev = list(reversed(C._flatten(grads)))
+    out = []
+    for bucket in C.bucket_assignment([g.numel() * 4 for _, g in rev],
+                                      buffer_mb):
+        flat = torch.cat([rev[i][1].float().reshape(-1) for i in bucket])
+        pad = (-flat.numel()) % 256
+        out.append(torch.cat([flat, flat.new_zeros(pad)]) if pad else flat)
+    return out
+
+
+def dp_quantize_check(buckets):
+    """quantize / dequantize_blockwise (block 256, int8 and fp8) of every
+    bucket on the card against the CPU bit for bit, and
+    all_reduce_compressed at one member against its n <= 1 route."""
+    from paddle_tpu_torch.parallel import compress as C
+
+    out = {}
+    for kind in C.COMPRESS_KINDS:
+        worst_q = worst_d = moved = 0
+        for flat in buckets:
+            qg, sg = C.quantize_blockwise(flat, kind, 256)
+            qc, sc = C.quantize_blockwise(flat.cpu(), kind, 256)
+            bits = torch.uint8 if kind == "fp8" else torch.int8
+            worst_q += int((qg.cpu().view(bits) != qc.view(bits)).sum()) \
+                + int((sg.cpu() != sc).sum())
+            dg = C.dequantize_blockwise(qg, sg, 256)
+            dc = C.dequantize_blockwise(qc, sc, 256)
+            worst_d += int((dg.cpu() != dc).sum())
+            one = C.all_reduce_compressed(flat, "dp", compress=kind)
+            moved += int((one != flat).sum())
+        n = sum(b.numel() for b in buckets)
+        check(worst_q == 0 and worst_d == 0,
+              f"{kind} block 256: quantize and dequantize of "
+              f"{len(buckets)} buckets ({n} values) on the card equal the "
+              f"CPU's bit for bit ({worst_q} / {worst_d} differing)")
+        check(moved == 0, f"{kind}: all_reduce_compressed at one member "
+              f"returns each bucket as it is (the n <= 1 route; {moved} "
+              f"values moved)")
+        out[kind] = dict(differing_payload_or_scales=worst_q,
+                         differing_dequantized=worst_d)
+    return out
+
+
+def _dp_model(cfg, seed):
+    from paddle_tpu_torch.text.ernie import ErnieForPretraining
+
+    return ErnieForPretraining(cfg, device=DEV,
+                               generator=torch.Generator().manual_seed(seed))
+
+
+def dp_one_rank(seed, rank):
+    """One NCCL rank at full width, bench.py's step: the first step through
+    DataParallel + fleet against the same step without them, bit for bit;
+    the launches of one step; 10 timed steps; the quantizer on the card."""
+    from paddle_tpu_torch import convert, entry
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import DataParallel, mesh
+    from paddle_tpu_torch.parallel.fleet import DistributedStrategy
+    from paddle_tpu_torch.text.ernie import (
+        ErnieConfig,
+        ErniePretrainingCriterion,
+    )
+
+    cfg = ErnieConfig()
+    seq, b = TRAIN_SEQ, TRAIN_BATCH
+    n_mask = max(1, int(seq * 0.15))
+    crit = ErniePretrainingCriterion(cfg.vocab_size)
+    rng = np.random.default_rng(seed)
+    model = _dp_model(cfg, seed)
+    params = convert.parameters_dict(model)
+    batch = pretrain_batch(rng, b, seq, cfg.vocab_size, n_mask)
+    dp = DataParallel(model, comm_buffer_size=DP["buffer_mb"])
+    dopt = fleet.distributed_optimizer(Adam(learning_rate=1e-4),
+                                       DistributedStrategy())
+    seen = _dp_capture(dopt)
+    step = entry.make_train_step(dp, crit, dopt, torch.bfloat16)
+    state = dopt.init(params)
+    with deterministic():
+        ref, _, ref_loss = entry.make_train_step(
+            model, crit, _GradCapture(), torch.bfloat16)(
+            params, None, batch, torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        config.reset_counts()
+        params, state, loss = step(params, state, batch, gen)
+        torch.cuda.synchronize()
+        counts = config.launch_counts()
+    grads = seen[0]
+    diff = grads_identical(grads, ref)
+    check(set(grads) == set(ref) and diff == 0.0,
+          f"[dp] world 1 (NCCL, {mesh.mesh_fingerprint()}): {len(ref)} "
+          f"first-step gradients through DataParallel + fleet equal the "
+          f"step without them bit for bit (largest difference {diff})")
+    check(bits(loss) == bits(ref_loss), f"[dp] loss {loss.item():.6f} equal "
+          f"to the step without DataParallel bit for bit")
+    check_counts("[dp] world-1 step", counts, ernie_expect(
+        cfg.num_hidden_layers, False), only=True)
+    buckets = _dp_buckets(grads, DP["buffer_mb"])
+    del ref, seen, grads
+    quant = dp_quantize_check(buckets)
+    bucket_mb = [f.numel() * 4 / 2 ** 20 for f in buckets]
+    del buckets
+    params, state, ms, peak, losses = timed_steps(
+        step, params, state, batch, gen, DP["steps"] + DP["warm"], DP["warm"])
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[dp] losses finite and falling: {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    box = [params, state]
+
+    def run():
+        box[0], box[1], _ = step(box[0], box[1], batch, gen)
+
+    prof = profile_split(run)
+    toks = b * seq / ms * 1e3
+    log(f"[dp] rank {rank}: bf16 ERNIE-base b{b} s{seq} through DataParallel"
+        f" ({len(bucket_mb)} buckets of <= {DP['buffer_mb']:g} MB: "
+        f"{min(bucket_mb):.1f}-{max(bucket_mb):.1f} MB) + fleet Adam: "
+        f"{ms:.2f} ms a step (mean of {DP['steps']}) = {toks:.1f} tokens/s;"
+        f" peak {peak:.2f} GiB")
+    return dict(step_ms=ms, tokens_per_s=toks, peak_gib=peak, losses=losses,
+                profile=prof, launches=counts, buckets=len(bucket_mb),
+                bucket_mb=bucket_mb,
+                grad_diff=diff, quantize=quant,
+                fingerprint=mesh.mesh_fingerprint())
+
+
+def dp_two_ranks(seed, rank):
+    """Two gloo ranks on the one card, each stepping b32 of one b64 batch in
+    fp32 (dropout 0): rank 0 holds the averaged gradients and the mean
+    loss against the single-process b64 step (steps_agree)."""
+    from paddle_tpu_torch import convert, entry
+    from paddle_tpu_torch.distributed import all_reduce, fleet
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import DataParallel, mesh, shard_batch
+    from paddle_tpu_torch.parallel.fleet import DistributedStrategy
+    from paddle_tpu_torch.text.ernie import (
+        ErnieConfig,
+        ErniePretrainingCriterion,
+    )
+
+    cfg = ErnieConfig(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    seq, b = TRAIN_SEQ, TRAIN_BATCH
+    n_mask = max(1, int(seq * 0.15))
+    crit = ErniePretrainingCriterion(cfg.vocab_size)
+    model = _dp_model(cfg, seed)
+    params = convert.parameters_dict(model)
+    full = pretrain_batch(np.random.default_rng(seed), b, seq,
+                          cfg.vocab_size, n_mask)
+    gen = torch.Generator().manual_seed(seed)
+    if rank == 0:
+        ref, _, ref_loss = entry.make_train_step(model, crit, _GradCapture())(
+            params, None, full, gen)
+    half = shard_batch(full)
+    dp = DataParallel(model, comm_buffer_size=DP["buffer_mb"])
+    dopt = fleet.distributed_optimizer(Adam(learning_rate=1e-4),
+                                       DistributedStrategy())
+    seen = _dp_capture(dopt)
+    step = entry.make_train_step(dp, crit, dopt)
+    state = dopt.init(params)
+    config.reset_counts()
+    params, state, loss = step(params, state, half, gen)
+    torch.cuda.synchronize()
+    counts = config.launch_counts()
+    mean_loss = all_reduce(loss, op="avg")
+    out = dict(launches=counts, loss=loss.item(), mean_loss=mean_loss.item(),
+               fingerprint=mesh.mesh_fingerprint())
+    if rank == 0:
+        steps_agree(mean_loss, seen[0], ref_loss, ref,
+                    "the b64 single-process step")
+        out["ref_loss"] = ref_loss.item()
+        del ref
+    del seen
+    params, state, ms, peak, losses = timed_steps(
+        step, params, state, half, gen, DP["gloo_steps"] + 1, 1)
+    log(f"[dp] rank {rank} of 2 (gloo on CUDA tensors, one card): fp32 b"
+        f"{b // 2} of b{b} s{seq}: {ms:.2f} ms a step (mean of "
+        f"{DP['gloo_steps']}); peak {peak:.2f} GiB")
+    out.update(step_ms=ms, peak_gib=peak, losses=losses)
+    return out
+
+
+def dp_gloo_probe(rank, first, out_dir):
+    """Which of the port's collectives gloo takes on CUDA tensors: from
+    DP_PROBE[first] on, each is tried on every rank on a small CUDA
+    tensor, and its outcome (ok, or the error it raised) is appended to
+    ``probe<first>.rank<r>.jsonl`` as soon as it is known.  A collective
+    that gloo hands a device pointer to its TCP transport aborts the
+    process instead of raising; ``dp_probe`` reads how far the lines go
+    and starts a new job after it."""
+    import paddle_tpu_torch.distributed as dist
+
+    x = torch.arange(8, dtype=torch.float32, device=DEV) + rank
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x),
+        "all_reduce_max": lambda: dist.all_reduce(x, op="max"),
+        "all_reduce_prod": lambda: dist.all_reduce(x, op="prod"),
+        "all_gather": lambda: dist.all_gather(x),
+        "reduce_scatter": lambda: dist.reduce_scatter(x),
+        "all_to_all": lambda: dist.all_to_all(x),
+        "broadcast": lambda: dist.broadcast(x, src=1),
+        "scatter": lambda: dist.scatter(None, tensor_list=[x, x + 1]),
+        "barrier": lambda: dist.barrier(),
+        "ppermute": lambda: dist.ppermute(x, [(0, 1), (1, 0)]),
+        "send_recv": lambda: (dist.send(x, dst=1) if rank == 0
+                              else dist.recv(torch.empty_like(x), src=0)),
+        "all_reduce_int8": lambda: dist.all_reduce(x, compress="int8",
+                                                   block_size=4)}
+    path = os.path.join(out_dir, f"probe{first}.rank{rank}.jsonl")
+    for name in DP_PROBE[first:]:
+        try:
+            tries[name]()
+            torch.cuda.synchronize()
+            got = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            got = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        with open(path, "a") as f:
+            f.write(json.dumps([name, got]) + "\n")
+    return {}
+
+
+def dp_worker(mode, out_dir, seed):
+    """A rank of phase 24's jobs: join the job (gloo over a default group
+    this process creates for the 2-rank jobs, as NCCL refuses two ranks on
+    one card; NCCL through fleet.init for the 1-rank job), run ``mode``
+    ("nccl1", "gloo2" or "probe<first>"), write its result to
+    ``out_dir/<mode>.rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as tdist
+    from paddle_tpu_torch.distributed import fleet
+
+    t_init = time.time()
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    if mode != "nccl1":
+        tdist.init_process_group(
+            "gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+            f"{os.environ['MASTER_PORT']}", rank=rank,
+            world_size=int(os.environ["PADDLE_TRAINERS_NUM"]),
+            timeout=datetime.timedelta(seconds=DP["probe_timeout_s"]
+                                       if mode.startswith("probe") else 600))
+    fleet.init()
+    times = dict(top=_T_MODULE_TOP, torch=_T_TORCH, module=_T_MODULE_END,
+                 init_start=t_init, ready=time.time())
+    if mode.startswith("probe"):
+        res = dp_gloo_probe(rank, int(mode[len("probe"):]), out_dir)
+    else:
+        res = {"nccl1": dp_one_rank, "gloo2": dp_two_ranks}[mode](seed, rank)
+    res.update(times=times, backend=tdist.get_backend())
+    with open(os.path.join(out_dir, f"{mode}.rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    tdist.destroy_process_group()
+    return 0
+
+
+def _dp_run(mode, nproc, out_dir, seed, timeout):
+    """Run ``mode`` on ``nproc`` ranks of the port's launcher (this script
+    under ``--dp-worker``) in its own process group, killed whole at the
+    timeout; returns (its exit code or "killed", the parent's wall time at
+    the start)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", str(nproc), os.path.abspath(__file__), "--seed",
+           str(seed), "--dp-worker", mode, out_dir]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "killed at the timeout"
+    return rc, t0
+
+
+def _dp_job(mode, nproc, out_dir, seed):
+    """``_dp_run`` that must exit 0; returns (the parent's wall time at the
+    start, each rank's result)."""
+    rc, t0 = _dp_run(mode, nproc, out_dir, seed, DP["timeout_s"])
+    check(rc == 0, f"[dp] {mode} job on {nproc} rank(s) exits 0 ({rc})")
+    res = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"{mode}.rank{r}.json")) as f:
+            res.append(json.load(f))
+    return t0, res
+
+
+def dp_probe(out_dir, seed):
+    """Each of DP_PROBE's collectives on CUDA tensors under gloo on two
+    ranks: "ok", the error it raised (each rank's where they differ), or
+    how its job died; a job that dies is followed by one from the next
+    collective, so each is tried once.  Not a phase of ``main`` (phase 24
+    calls only all_reduce on gloo): ``phase_experiments.py --phases
+    24probe`` runs it."""
+    out, first = {}, 0
+    while first < len(DP_PROBE):
+        rc, _ = _dp_run(f"probe{first}", 2, out_dir, seed,
+                        DP["probe_timeout_s"] + 60)
+        lines = []
+        for r in range(2):
+            path = os.path.join(out_dir, f"probe{first}.rank{r}.jsonl")
+            with open(path) if os.path.exists(path) else \
+                    contextlib.nullcontext([]) as f:
+                lines.append([tuple(json.loads(ln)) for ln in f])
+        done = min(len(x) for x in lines)
+        for (name, a), (_, b) in zip(lines[0][:done], lines[1][:done]):
+            out[name] = a if a == b else f"rank 0: {a}; rank 1: {b}"
+        first += done
+        if rc != 0:
+            check(first < len(DP_PROBE), f"[dp] a probe job died ({rc}) "
+                  f"in a collective, not after the last")
+            out[DP_PROBE[first]] = f"the job died ({rc})"
+            first += 1
+    return out
+
+
+def _startup(t0, times):
+    """A rank's start-up split from the parent's launch time ``t0``: the
+    interpreter, torch, this module, the process group and mesh."""
+    return dict(interpreter=times["top"] - t0,
+                torch=times["torch"] - times["top"],
+                module=times["module"] - times["torch"],
+                parallel_env=times["ready"] - times["init_start"],
+                total=times["ready"] - t0)
+
+
+def dp_phase(seed, train_ms=None):
+    """Phase 24 (module docstring): the world-1 NCCL job and the 2-rank
+    gloo job; ``train_ms`` is the train phase's step in this run, which
+    the world-1 step is printed against."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="dp_phase_")
+    try:
+        t0, (one,) = _dp_job("nccl1", 1, out_dir, seed)
+        t1, two = _dp_job("gloo2", 2, out_dir, seed)
+        t2 = time.time()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(one["backend"] == "nccl" and two[0]["backend"] == "gloo",
+          f"[dp] backends: world 1 {one['backend']}, 2 ranks "
+          f"{two[0]['backend']}")
+    startup = dict(nccl1=_startup(t0, one["times"]),
+                   gloo2=[_startup(t1, r["times"]) for r in two])
+    jobs_s = dict(nccl1=t1 - t0, gloo2=t2 - t1)
+    phase_s = time.perf_counter() - t_phase
+    against = (f"the train phase's {train_ms:.2f} ms in this run: x"
+               f"{one['step_ms'] / train_ms:.3f}" if train_ms else
+               "the train phase's 65.44-68.32 ms, PERF.md")
+    log(f"[dp] world 1: step {one['step_ms']:.2f} ms ({against}), launches "
+        f"{one['launches']}; start-up "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in startup["nccl1"].items()))
+    log(f"[dp] 2 gloo ranks: mean loss {two[0]['mean_loss']:.6f} (b64 "
+        f"{two[0]['ref_loss']:.6f}); step {two[0]['step_ms']:.2f} / "
+        f"{two[1]['step_ms']:.2f} ms; start-ups "
+        + "; ".join(", ".join(f"{k} {v:.2f} s" for k, v in s.items())
+                    for s in startup["gloo2"]))
+    log(f"[dp] phase {phase_s:.1f} s (jobs: world 1 {jobs_s['nccl1']:.1f} "
+        f"s, 2 ranks {jobs_s['gloo2']:.1f} s)")
+    return one["launches"], dict(
+        world1=one, gloo2=[{k: v for k, v in r.items() if k != "times"}
+                           for r in two],
+        train_step_ms=train_ms, startup=startup, jobs_s=jobs_s,
+        phase_s=phase_s)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp-worker", nargs=2, metavar=("MODE", "OUT"),
+                    help="run as a rank of phase 24's jobs (the port's "
+                    "launcher starts these)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
               "on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.dp_worker:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return dp_worker(*args.dp_worker, args.seed)
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.ops.kernels import conv_fused as cf
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -6933,6 +7381,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     dyq_counts, ptq_counts, dygraph_quant = dygraph_quant_phase(args.seed)
     torch.cuda.empty_cache()
+    dp_counts, dp_out = dp_phase(args.seed, train["step_ms"])
 
     kernels = []
     for k in fap.KERNELS + ln.KERNELS:
@@ -7076,6 +7525,8 @@ def main(argv=None):
             entry["name"], 0)
         entry["hapi_predict_launches"] = hapi_counts["predict"].get(
             entry["name"], 0)
+        # phase 24's path: one data-parallel step in the world-1 rank
+        entry["dp_launches"] = dp_counts.get(entry["name"], 0)
         # phases 21-22's paths launch no port kernel (checked there)
         entry["resnet_launches"] = resnet["port_kernel_launches"].get(
             entry["name"], 0)
@@ -7101,6 +7552,7 @@ def main(argv=None):
     print(json.dumps({"resnet": resnet}), flush=True)
     print(json.dumps({"yolo": yolo}), flush=True)
     print(json.dumps({"hapi": hapi_out}), flush=True)
+    print(json.dumps({"dp": dp_out}), flush=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

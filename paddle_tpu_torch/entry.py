@@ -9,7 +9,9 @@
   optimizer update.  Recompute comes with the model
   (``ErnieConfig(enable_recompute=..., recompute_policy=...)``); the
   optimizer is any of ``paddle_tpu_torch.optimizer``'s, its gradient clip,
-  weight decay and LR schedule applied inside ``update``.
+  weight decay and LR schedule applied inside ``update``, or fleet's
+  ``DistributedOptimizer``; a ``parallel.DataParallel`` model averages
+  each step's gradients over the data-parallel ranks before the update.
 """
 from __future__ import annotations
 
@@ -67,8 +69,14 @@ def make_train_step(model, criterion, optimizer,
     (``autograd.recompute``).  Gradients with
     respect to the masters come from ``torch.autograd.grad``; then
     ``optimizer.update`` applies them (in place for the port's
-    optimizers).  ``loss`` is a detached fp32 scalar tensor.
+    optimizers).  When ``model`` is a ``parallel.DataParallel``, the step
+    runs its wrapped layer and passes the gradients through
+    ``model.apply_collective_grads`` before the update.  ``loss`` is a
+    detached fp32 scalar tensor (this rank's).
     """
+    sync = None
+    if getattr(model, "apply_collective_grads", None) is not None:
+        sync, model = model.apply_collective_grads, model._layers
 
     def loss_fn(params, batch):
         if compute_dtype != torch.float32:
@@ -88,9 +96,11 @@ def make_train_step(model, criterion, optimizer,
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         with _random.rng_scope(generator):
             loss = loss_fn(leaves, batch)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-        new_params, new_state = optimizer.update(dict(zip(names, grads)),
-                                                 opt_state, params)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [leaves[k] for k in names])))
+        if sync is not None:
+            grads = sync(grads)
+        new_params, new_state = optimizer.update(grads, opt_state, params)
         return new_params, new_state, loss.detach()
 
     return train_step

@@ -180,13 +180,13 @@ class Model:
             raise NotImplementedError(
                 "fit's periodic elastic checkpoints (flags elastic_save_every"
                 " / elastic_ckpt_dir) need the port of elastic/ (ROADMAP.md "
-                "Queue 1 item 8)")
+                "Queue 1 item 8c)")
         if _flags.get_flag("watchdog"):
             raise NotImplementedError(
                 "fit's goodput watchdog (flags watchdog / "
                 "watchdog_checkpoint_on_anomaly) needs the port of "
                 "utils/watchdog.py (ROADMAP.md Queue 1 item 10) and its "
-                "checkpoints elastic/ (item 8)")
+                "checkpoints elastic/ (item 8c)")
         loader = self._loader(train_data, batch_size, shuffle, num_workers,
                               drop_last=drop_last)
         prefetch = prefetch_to_device and not getattr(

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core import _dist
+from ..distributed import env as _env
 
 
 class Sampler:
@@ -87,8 +87,8 @@ class DistributedBatchSampler(BatchSampler):
                  shuffle=False, drop_last=False):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.nranks = num_replicas if num_replicas is not None else _dist.world_size()
-        self.local_rank = rank if rank is not None else _dist.rank()
+        self.nranks = num_replicas if num_replicas is not None else _env.get_world_size()
+        self.local_rank = rank if rank is not None else _env.get_rank()
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.epoch = 0

@@ -37,7 +37,7 @@ from .layer.transformer import (
 )
 
 # The JAX package's nn names not ported yet (ROADMAP.md Queue 1): the
-# mixture-of-experts FFN (item 8).
+# mixture-of-experts FFN (item 8b).
 _DEFERRED = ("MoEFFN",)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -101,8 +101,31 @@ class BatchNorm3D(_BatchNormBase):
 
 class SyncBatchNorm(_BatchNormBase):
     """Cross-replica BatchNorm (ref operators/sync_batch_norm_op.cu).  In
-    one process it is BatchNorm, as the JAX package's outside a sharded
-    step; the cross-process statistics are not ported (ROADMAP.md)."""
+    training, when the dp group holds more than one member, the batch mean
+    and mean of squares (over N and the spatial dims of an NC... input) are
+    averaged over it, differentiably, and normalise this rank's batch, as
+    the JAX package's ``pmean`` inside a sharded step; as there, the
+    running statistics are not updated on that route (ROADMAP.md Queue 3).
+    Otherwise it is BatchNorm."""
+
+    def forward(self, x):
+        from ...parallel import collective as _coll
+
+        axis = _coll.bound_data_axis()
+        if axis is None or not self.training:
+            return super().forward(x)
+        reduce_axes = (0,) + tuple(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = _coll.group_mean(x.mean(dim=reduce_axes), axis)
+        mean_sq = _coll.group_mean(x.square().mean(dim=reduce_axes), axis)
+        var = mean_sq - mean.square()
+        out = (x - mean.reshape(shape)) / torch.sqrt(var.reshape(shape)
+                                                     + self.epsilon)
+        if self.weight is not None:
+            out = out * self.weight.reshape(shape)
+        if self.bias is not None:
+            out = out + self.bias.reshape(shape)
+        return out
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

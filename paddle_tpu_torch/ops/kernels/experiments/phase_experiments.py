@@ -17,8 +17,11 @@ measured by running this file by its path from that tree's root.  As
 takes row 11's profile, then runs the named phases in the order given:
 17 (ops), 18 (ERNIE fine-tuning), 19 (ERNIE + CRF tagging), 20 (LAC
 BiGRU-CRF; ``--lac-vocab`` sets its vocabulary), 21 (ResNet-50), 22
-(YOLOv3-DarkNet53) and 23 (ERNIE-base IMDB through DataLoader and
-hapi.Model).  Each phase keeps its
+(YOLOv3-DarkNet53), 23 (ERNIE-base IMDB through DataLoader and
+hapi.Model), 24 (data-parallel ERNIE-base through the launcher, fleet
+and DataParallel) and 24probe (each of the port's collectives on CUDA
+tensors under gloo on two ranks, ``chip_smoke.dp_probe``: its JSON line
+holds each outcome).  Each phase keeps its
 own checks.  The card's name and power limit are printed first, then one
 JSON line a phase: its seconds, step ms, profiled device busy ms and
 the objects Python's collector tracks after it.
@@ -31,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -63,7 +67,10 @@ def main(argv=None):
            "19": lambda s: cs.tagging_phase(s)[1],
            "20": lambda s: cs.lac_phase(s),
            "21": cs.resnet_phase, "22": cs.yolo_phase,
-           "23": lambda s: cs.hapi_phase(s)[1]}
+           "23": lambda s: cs.hapi_phase(s)[1],
+           "24": lambda s: cs.dp_phase(s)[1],
+           "24probe": lambda s: {"gloo_cuda_collectives": cs.dp_probe(
+               tempfile.mkdtemp(prefix="dp_probe_"), s)}}
     for phase in args.phases.split(","):
         t0 = time.perf_counter()
         out = run[phase](args.seed)
@@ -78,6 +85,8 @@ def main(argv=None):
                         losses=out.get("losses"))
         if phase == "20":
             line["vocab"] = cs.LAC["vocab"]
+        if phase == "24probe":
+            line.update(out)
         print(json.dumps(line), flush=True)
     return 0
 

@@ -21,7 +21,7 @@ file; the .npz — the file ``load`` keys its existence check on — lands
 last), so a crashed saver never leaves a load-able half checkpoint.  The
 JAX package's ``load`` also reads the elastic manifest layout (a directory
 holding ``manifest.json``); that route waits for ``elastic/`` (ROADMAP.md
-Queue 1 item 8) and raises until then.
+Queue 1 item 8c) and raises until then.
 """
 from __future__ import annotations
 
@@ -112,7 +112,7 @@ def load(path: str) -> Any:
             os.path.join(path, MANIFEST_NAME)):
         raise NotImplementedError(
             f"{path} is an elastic manifest checkpoint; reading one needs "
-            "the port of elastic/ (ROADMAP.md Queue 1 item 8)")
+            "the port of elastic/ (ROADMAP.md Queue 1 item 8c)")
     npz_path = path + ".npz" if not path.endswith(".npz") else path
     if not os.path.exists(npz_path):
         raise FileNotFoundError(npz_path)

@@ -17,7 +17,7 @@ import json
 import time
 from typing import Optional
 
-from ..core import _dist
+from ..distributed import env as _env
 from ..core import native as _native
 from . import monitor as _monitor
 
@@ -119,7 +119,7 @@ def export_chrome_tracing(path: str, registry=None) -> int:
     and `ph:"M"` `process_name`/`process_sort_index` metadata events label
     the process, so traces of several ranks merge into one timeline.
     Returns the number of events written."""
-    rank = _dist.rank()
+    rank = _env.get_rank()
     n = _native.prof_export_chrome(path)
     if n >= 0:
         with open(path) as f:

@@ -26,12 +26,13 @@ layer on top of the native event store (core/native.py).
   the post-mortem a crashed worker leaves behind.
 * ``arm_from_env`` — with ``PDTPU_TRACE_DIR`` set: enables the profiler,
   arms the post-mortem, and atexit-dumps the per-rank chrome trace.  The
-  JAX package calls it at import inside launch workers; the port's
-  launcher is not ported yet (ROADMAP.md Queue 1 item 8), so callers arm
-  it themselves.
+  JAX package calls it at import inside launch workers; importing the
+  port starts nothing, so a worker of the port's launcher
+  (``distributed/launch.py``, which exports the directory) arms it
+  itself.
 
 A rank is ``torch.distributed``'s when its default group is initialized,
-else ``PADDLE_TRAINER_ID`` (core/_dist.py).
+else ``PADDLE_TRAINER_ID`` (``distributed/env.py``).
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from ..core import _dist
+from ..distributed import env as _env
 from ..core import flags as _flags
 from . import profiler as _profiler
 
@@ -89,7 +90,7 @@ def job_trace_id() -> str:
 
 
 def _rank() -> int:
-    return _dist.rank()
+    return _env.get_rank()
 
 
 class SpanContext:

@@ -11,15 +11,18 @@ dropout 0, from the JAX model's ``state_dict()`` put in with
     loss = mean(cross_entropy(model(ids, types, attention_mask=mask), y))
     loss.backward(); opt.minimize(loss); model.clear_gradients()
 
-The JAX loop runs on its replay tape under ``paddle_tpu.dygraph.guard()``.
-Held: the losses at rtol 1e-4 (fp32 sums in another order, carried
-through three Adam steps: 1.0e-5 at the third); every parameter within
-1e-2 of the largest step the reference took on it (Adam divides each
-gradient component by its running RMS, so a component near rounding
-noise takes a step that follows the noise: the word embeddings read
-1.5e-3), except the key-projection biases: their gradient is zero in
-exact arithmetic (softmax shift invariance), so every step they take is
-rounding noise made about the learning rate, held within 2 lr a step.  The port's loop is also held bit for bit against its own
+The JAX loop runs on its replay tape under ``paddle_tpu.dygraph.guard()``;
+the JAX gradients of the first step come from its functional
+``autograd.value_and_grad`` on the same model and batch.  Held: the losses at rtol 1e-4 (fp32 sums in another order, carried
+through three Adam steps: 1.0e-5 at the third), and the first step's
+gradients tensor by tensor, each within 1e-4 of its largest value,
+floored at 1e-3 of the largest gradient of all (the key-projection
+biases' gradient is zero in exact arithmetic, softmax shift invariance,
+so theirs is rounding noise; the others read 1.4e-6 of their own max).
+The parameters after the Adam steps are not compared: Adam divides each
+gradient component by its running RMS, so a component near rounding noise
+takes a full step that follows the noise, and such a check failed in some
+runs at 2 intra-op threads.  The port's loop is also held bit for bit against its own
 ``autograd.value_and_grad`` + ``opt.update`` path, as the reference's
 ``test_tape_matches_functional_path`` does; and one eval batch's accuracy
 (``argmax``, ``equal``, ``cast``, ``mean``) against the JAX package's.
@@ -31,6 +34,7 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu as jpd
+import paddle_tpu.autograd as jautograd
 import paddle_tpu.dygraph as jdygraph
 import paddle_tpu.nn.functional as JF
 from paddle_tpu import optimizer as JO
@@ -48,7 +52,8 @@ CFG = dict(vocab_size=512, hidden_size=64, num_hidden_layers=2,
 B, S, STEPS, TOTAL = 4, 32, 3, 10
 LR = 2e-5
 LOSS_RTOL = 1e-4
-PARAM_REL = 1e-2
+GRAD_REL = 1e-4
+GRAD_FLOOR = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -74,9 +79,19 @@ def _recipe(O, parameters=None):
                    grad_clip=O.ClipGradByGlobalNorm(1.0))
 
 
+def _jax_loss(model):
+    def loss_fn(ids, types, mask, y):
+        return jpd.mean(JF.cross_entropy(
+            model(ids, types, attention_mask=mask), y))
+    return loss_fn
+
+
 @pytest.fixture(scope="module")
 def reference():
-    """The JAX loop: initial state, losses, final state, eval accuracy."""
+    """The JAX loop: initial state, losses, final state, eval accuracy;
+    and the first step's gradients, from ``autograd.value_and_grad`` (the
+    tape's ``loss.backward()`` doubles some parameters' gradients in some
+    runs, ROADMAP.md Queue 3)."""
     batches = [_batch(i) for i in range(STEPS + 1)]
     with jdygraph.guard():
         jpd.seed(0)
@@ -84,6 +99,10 @@ def reference():
                                                   num_classes=2)
         state0 = {k: np.asarray(v) for k, v in model.state_dict().items()}
         opt = _recipe(JO, model.parameters())
+        _, grads0 = jautograd.value_and_grad(model, _jax_loss(model))(
+            jautograd.parameters_dict(model),
+            *[jpd.to_tensor(a) for a in batches[0]])
+        grads0 = {k: np.asarray(v) for k, v in grads0.items()}
         losses = []
         for ids, types, mask, y in batches[:STEPS]:
             logits = model(jpd.to_tensor(ids), jpd.to_tensor(types),
@@ -101,7 +120,8 @@ def reference():
         acc = jpd.mean(jpd.cast(jpd.equal(jpd.argmax(logits, -1),
                                           jpd.to_tensor(y)), "float32"))
     final = {k: np.asarray(v) for k, v in model.state_dict().items()}
-    return batches, state0, losses, final, float(acc), np.asarray(logits)
+    return (batches, state0, losses, final, float(acc), np.asarray(logits),
+            grads0)
 
 
 def _port_model(state0):
@@ -112,7 +132,9 @@ def _port_model(state0):
     return model
 
 
-def _port_loop(model, batches):
+def _port_loop(model, batches, grads0=None):
+    """The dygraph loop; with a dict ``grads0``, the first step's
+    gradients go into it by parameter name."""
     opt = _recipe(TO, model.parameters())
     losses = []
     with tdygraph.guard():
@@ -121,6 +143,9 @@ def _port_loop(model, batches):
                            attention_mask=P.to_tensor(mask))
             loss = P.mean(TF.cross_entropy(logits, P.to_tensor(y)))
             loss.backward()
+            if grads0 is not None and not losses:
+                grads0.update((k, p.grad.detach().clone())
+                              for k, p in model.named_parameters())
             opt.minimize(loss)
             model.clear_gradients()
             losses.append(loss.detach())
@@ -128,24 +153,26 @@ def _port_loop(model, batches):
 
 
 def test_state_dict_keys_and_the_loop_match_the_reference(reference):
-    batches, state0, ref_losses, final, _, _ = reference
+    batches, state0, ref_losses, _, _, _, ref_grads = reference
     model = _port_model(state0)
     assert list(model.state_dict()) == list(state0)
-    losses = _port_loop(model, batches)
+    grads = {}
+    losses = _port_loop(model, batches, grads)
     np.testing.assert_allclose([float(l) for l in losses], ref_losses,
                                rtol=LOSS_RTOL)
-    got = model.state_dict()
-    for k, ref in final.items():
-        err = float(np.abs(got[k].numpy() - ref).max())
-        if k.endswith("self_attn.k_proj.bias"):
-            assert err <= 2 * LR * STEPS, (k, err)
-        else:
-            step = float(np.abs(ref - state0[k]).max())
-            assert err <= PARAM_REL * max(step, 1e-12), (k, err, step)
+    assert sorted(grads) == sorted(ref_grads)
+    top = max(float(np.abs(g).max()) for g in ref_grads.values())
+    worst = []
+    for k, ref in ref_grads.items():
+        err = float(np.abs(grads[k].numpy() - ref).max())
+        scale = max(float(np.abs(ref).max()), GRAD_FLOOR * top)
+        worst.append((err / scale, k))
+    for r, k in worst:
+        assert r <= GRAD_REL, (k, r)
 
 
 def test_eval_accuracy_matches_the_reference(reference):
-    batches, state0, _, final, ref_acc, ref_logits = reference
+    batches, state0, _, final, ref_acc, ref_logits, _ = reference
     model = _port_model(final)
     model.eval()
     ids, types, mask, y = batches[STEPS]

@@ -9,8 +9,11 @@
   unless the module names the JAX VJP it repeats in torch
   (``PLAIN_BACKWARD``) and that VJP reaches no Pallas kernel;
 * nothing is built at import time: no CUDA kernel, and not the native
-  host runtime (``core.native``), which ``io`` and ``hapi`` reach.
+  host runtime (``core.native``), which ``io`` and ``hapi`` reach;
+* in ``parallel/`` and ``distributed/`` no ``try`` around a collective
+  has an ``except`` that would let the collective fail quietly.
 """
+import ast
 import importlib
 import inspect
 import os
@@ -53,7 +56,7 @@ def test_import_scan_covers_every_package_of_the_port():
     for pkg in ("amp", "autograd", "core", "dygraph", "io", "nn",
                 "ops.kernels", "optimizer", "serving", "slim", "static",
                 "text", "utils", "vision", "vision.models", "hapi",
-                "metric"):
+                "metric", "parallel", "distributed"):
         assert f"paddle_tpu_torch.{pkg}" in names, pkg
     for mod in ("serving.paged", "serving.slo", "serving.continuous",
                 "utils.monitor", "core.errors", "ops.kernels.paged_attention",
@@ -78,7 +81,10 @@ def test_import_scan_covers_every_package_of_the_port():
                 "core.native", "io.sampler", "io.dataloader", "io.prefetch",
                 "io.multislot", "metric.metrics", "text.datasets",
                 "hapi.model", "hapi.callbacks", "utils.profiler",
-                "utils.trace", "utils.checkpoint"):
+                "utils.trace", "utils.checkpoint", "distributed.env",
+                "distributed.launch", "parallel.mesh", "parallel.collective",
+                "parallel.compress", "parallel.data_parallel",
+                "parallel.metrics", "parallel.fleet"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 
@@ -176,6 +182,46 @@ def test_port_source_names_no_jax_module(path):
     for bad in ("import jax", "from jax", "import paddle_tpu\n",
                 "from paddle_tpu ", "from paddle_tpu.", "import paddle_tpu."):
         assert bad not in text, f"{path} has {bad!r}"
+
+
+def _calls(node):
+    """Dotted names of the calls under ``node`` ("dist.all_reduce")."""
+    out = []
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            f, parts = sub.func, []
+            while isinstance(f, ast.Attribute):
+                parts.append(f.attr)
+                f = f.value
+            if isinstance(f, ast.Name):
+                parts.append(f.id)
+            out.append(".".join(reversed(parts)))
+    return out
+
+
+COLLECTIVE_CALL = re.compile(
+    r"(^|\.)(all_reduce|all_gather\w*|all_to_all\w*|reduce_scatter\w*|"
+    r"broadcast|reduce|scatter|barrier|send|recv|isend|irecv|"
+    r"batch_isend_irecv|ppermute|optimized_all_reduce|"
+    r"all_reduce_compressed|bucketed_all_reduce|sync_gradients|"
+    r"init_process_group|new_group|new_subgroups_by_enumeration|"
+    r"init_device_mesh|_exchange|_gather_tiled|_sum_into|_flat_sum_|"
+    r"_gather_stack|_all_to_all_tiled)$")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for sub in ("parallel", "distributed")
+    for p in (ROOT / "paddle_tpu_torch" / sub).rglob("*.py")))
+def test_no_try_lets_a_collective_fail_quietly(path):
+    """In the port's parallel/ and distributed/ packages no ``try`` around a
+    collective (or a process-group set-up) has an ``except``: a collective
+    that fails raises, it does not go on without its result."""
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and node.handlers:
+            called = [c for stmt in node.body for c in _calls(stmt)
+                      if COLLECTIVE_CALL.search(c)]
+            assert not called, (path, node.lineno, called)
 
 
 def test_every_cuda_source_has_wrapped_kernels():
@@ -293,6 +339,8 @@ def test_import_builds_nothing():
             "import paddle_tpu_torch.metric\n"
             "import paddle_tpu_torch.utils.trace\n"
             "import paddle_tpu_torch.utils.checkpoint\n"
+            "import paddle_tpu_torch.parallel\n"
+            "import paddle_tpu_torch.distributed.launch\n"
             "assert b._libs == {}\n"
             "assert not native._build_attempted and native._lib is None\n"
             % str(ROOT))
