@@ -406,6 +406,34 @@ Phases (any failed check raises, so the script exits non-zero):
               Printed: the step times (the world-1 step against the train
               phase's in this run), the launches, each rank's start-up
               split and each job's seconds.
+25. hybrid  -- hybrid-parallel ERNIE pretraining through
+              ``paddle_tpu_torch.text.pretrainer.HybridPretrainer``, ranks
+              under the port's launcher (``--dp-worker hybrid1`` /
+              ``hybrid4``).  (a) One NCCL rank through fleet at
+              full width (L12 H768 A12 I3072 V18000): bench.py's bf16 b64
+              s512 step with 76 masked positions and Adam: 12 / 12 / 2 /
+              2 / 24 / 24 launches of rows 1 / 2 / 5 / 6 / 7 / 8 and no
+              other, 10 timed steps (finite, falling loss), peak memory;
+              then the same step in fp32 at dropout 0 from the same
+              parameters against ``entry.make_train_step`` (loss within
+              1e-5 relative, every gradient within 1e-4 of its tensor's
+              largest).  (b) Four gloo ranks sharing the card (their own
+              gloo group: NCCL refuses two ranks on one device),
+              full-width ERNIE-base in fp32 at dropout 0, b8 s512, one
+              set of parameters, the meshes pp2 x tp2 GPipe (4
+              micro-batches), the same 1F1B, dp2 x sp2 with fleet
+              ``sharding`` (ZeRO-1), tp4 (3 heads a rank: the split-head
+              route, rows 3-4) and ep2 x sp2 with 4 experts, in turn:
+              each mesh's loss within 2e-4 relative and its gradients,
+              gathered whole, within 1e-3 of each tensor's largest
+              against the world-1 step of the same parameters and batch
+              on rank 0; ZeRO-1's moments (bytes a rank against the
+              whole) and its Adam step against the world-1 Adam step
+              (ZERO_STEP_REL's rule); per rank and mesh the step ms, the
+              peak GiB (1F1B's step peak below GPipe's), the kernel
+              launches of one step and the collective routes it took
+              (``collective.routes()``: ppermute as all_to_all_single on
+              gloo with CUDA tensors).
 Phases 17-20 and 23 run right after the build (and row 11's profile),
 before the first CUDA graph capture: the card's profiler loses eager
 launches after one; phases 21-22 follow them.
@@ -416,13 +444,14 @@ Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}``,
 ``{"ops": ...}``, ``{"dygraph": ...}``, ``{"tagging": ...}``,
 ``{"rnn": ...}``, ``{"resnet": ...}``, ``{"yolo": ...}``, ``{"hapi":
-...}``, ``{"dp": ...}`` and ``{"kernels": [...]}`` JSON lines (one kernel
-entry for each of the 15 TPU kernels; rows 10 and 13-15 with their
-launches on the static-train path, rows 11-13 with their cold times, rows
-1, 2 and 5-8 with their launches on each path of phases 14-16, 18, 19 and
-23, every row with its launches on phases 21 and 22's paths, 0, and on
-phase 24's data-parallel step, ``dp_launches``) and the card's name and
-power limit;
+...}``, ``{"dp": ...}``, ``{"hybrid": ...}`` and ``{"kernels": [...]}``
+JSON lines (one kernel entry for each of the 15 TPU kernels; rows 10 and
+13-15 with their launches on the static-train path, rows 11-13 with their
+cold times, rows 1, 2 and 5-8 with their launches on each path of phases
+14-16, 18, 19 and 23, every row with its launches on phases 21 and 22's
+paths, 0, on phase 24's data-parallel step, ``dp_launches``, and on phase
+25's world-1 hybrid step and each mesh's step, ``hybrid_launches`` /
+``hybrid_mesh_launches``) and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -7121,7 +7150,7 @@ def dp_worker(mode, out_dir, seed):
 
     t_init = time.time()
     rank = int(os.environ["PADDLE_TRAINER_ID"])
-    if mode != "nccl1":
+    if mode not in ("nccl1", "hybrid1"):
         tdist.init_process_group(
             "gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
             f"{os.environ['MASTER_PORT']}", rank=rank,
@@ -7134,7 +7163,9 @@ def dp_worker(mode, out_dir, seed):
     if mode.startswith("probe"):
         res = dp_gloo_probe(rank, int(mode[len("probe"):]), out_dir)
     else:
-        res = {"nccl1": dp_one_rank, "gloo2": dp_two_ranks}[mode](seed, rank)
+        res = {"nccl1": dp_one_rank, "gloo2": dp_two_ranks,
+               "hybrid1": hybrid_one_rank,
+               "hybrid4": hybrid_four_ranks}[mode](seed, rank)
     res.update(times=times, backend=tdist.get_backend())
     with open(os.path.join(out_dir, f"{mode}.rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -7166,10 +7197,11 @@ def _dp_run(mode, nproc, out_dir, seed, timeout):
     return rc, t0
 
 
-def _dp_job(mode, nproc, out_dir, seed):
+def _dp_job(mode, nproc, out_dir, seed, timeout=None):
     """``_dp_run`` that must exit 0; returns (the parent's wall time at the
     start, each rank's result)."""
-    rc, t0 = _dp_run(mode, nproc, out_dir, seed, DP["timeout_s"])
+    rc, t0 = _dp_run(mode, nproc, out_dir, seed,
+                     timeout or DP["timeout_s"])
     check(rc == 0, f"[dp] {mode} job on {nproc} rank(s) exits 0 ({rc})")
     res = []
     for r in range(nproc):
@@ -7256,6 +7288,377 @@ def dp_phase(seed, train_ms=None):
                            for r in two],
         train_step_ms=train_ms, startup=startup, jobs_s=jobs_s,
         phase_s=phase_s)
+
+
+# -- phase 25: hybrid parallelism ---------------------------------------------
+
+# (a) one NCCL rank: bench.py's bf16 b64 s512 step through HybridPretrainer,
+# then its fp32 dropout-0 step against entry.make_train_step; (b) four gloo
+# ranks sharing the card, full-width ERNIE-base in fp32 at dropout 0, b8
+# s512, one mesh after another, each held against the world-1 step of the
+# same parameters and batch (computed on rank 0)
+HYBRID = dict(steps=10, warm=2, batch=8, mesh_steps=2, mesh_warm=1,
+              lr=1e-4, timeout_s=600)
+# name, degrees, micro-batches, pipeline schedule, MoE experts, ZeRO-1
+HYBRID_MESHES = (
+    ("pp2tp2_gpipe", dict(pp=2, tp=2), 4, "gpipe", 0, False),
+    ("pp2tp2_1f1b", dict(pp=2, tp=2), 4, "1f1b", 0, False),
+    ("dp2sp2_zero", dict(dp=2, sp=2), 1, "gpipe", 0, True),
+    ("tp4", dict(tp=4), 1, "gpipe", 0, False),
+    ("ep2sp2_moe", dict(ep=2, sp=2), 1, "gpipe", 4, False))
+TOL_HYBRID_W1_LOSS_REL = 1e-5   # (a) fp32 against entry.make_train_step
+TOL_HYBRID_W1_GRAD_REL = 1e-4
+TOL_HYBRID_LOSS_REL = 2e-4      # (b) the _dryrun_on_mesh contract
+TOL_HYBRID_GRAD_REL = 1e-3
+# a gradient's tolerance is of its own largest value floored at this share
+# of the largest gradient of all (the key bias's is rounding noise)
+HYBRID_GRAD_FLOOR = 1e-4
+# ZeRO-1's Adam step against the world-1 Adam step from the world-1
+# gradients: Adam's first step is -lr g / (|g| + eps), about -lr sign(g), so
+# an element whose gradient is rounding noise (under HYBRID_GRAD_FLOOR of
+# the largest gradient of all) may step either way: held within 2 lr; every
+# other element within ZERO_STEP_REL lr of the world-1 step
+ZERO_STEP_REL = 1e-2
+HYBRID_ROWS = ("flash_attention_packed", "flash_attention_packed_bwd",
+               "flash_attention", "flash_attention_bwd", "layer_norm",
+               "layer_norm_bwd", "residual_layer_norm",
+               "residual_layer_norm_bwd")
+
+
+class _HybridCapture:
+    """An optimizer whose first update keeps the gradients it gets (this
+    rank's slices, keyed "<group>/<name>") in ``grads``; every update then
+    goes to ``inner`` (none: no parameter moves)."""
+
+    def __init__(self, inner=None):
+        self.inner = inner
+        self.grads = None
+
+    def init(self, params):
+        return {} if self.inner is None else self.inner.init(params)
+
+    def update(self, grads, state, params, lr=None):
+        if self.grads is None:
+            self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        if self.inner is None:
+            return params, state
+        return self.inner.update(grads, state, params, lr)
+
+
+def _nested(flat):
+    out = {}
+    for key, v in flat.items():
+        g, k = key.split("/", 1)
+        out.setdefault(g, {})[k] = v
+    return out
+
+
+def _hybrid_trainer(cfg, mesh, seed, experts=0, strategy=None):
+    from paddle_tpu_torch.text.pretrainer import HybridPretrainer
+
+    return HybridPretrainer(cfg, mesh=mesh, moe_experts=experts,
+                            strategy=strategy, device=DEV,
+                            generator=torch.Generator().manual_seed(seed))
+
+
+def _hybrid_grads(tr, params, batch, seed):
+    """One step's loss and every gradient, gathered whole (ZeRO-1 off for
+    the capture: its gradients would be dp slices)."""
+    zero, tr.zero_sharding = tr.zero_sharding, False
+    cap = _HybridCapture()
+    _, _, loss = tr.make_train_step(cap)(
+        params, tr.init_opt_state(cap, params), batch,
+        torch.Generator().manual_seed(seed))
+    tr.zero_sharding = zero
+    return loss, tr.unshard_params(_nested(cap.grads))
+
+
+def _flat(nested):
+    return {f"{g}/{k}": v for g, leaves in nested.items()
+            for k, v in leaves.items()}
+
+
+def _entry_names(nested, layers):
+    """The hybrid trainer's {"embed", "blocks", "head"} leaves under
+    ``ErnieForPretraining``'s parameter names (blocks unstacked)."""
+    out = {f"ernie.embeddings.{k}": v for k, v in nested["embed"].items()}
+    for k, v in nested["blocks"].items():
+        for i in range(layers):
+            out[f"ernie.encoder.layers.{i}.{k}"] = v[i]
+    for k, v in nested["head"].items():
+        out[("ernie." + k) if k.startswith("pooler.") else k] = v
+    return out
+
+
+def hybrid_agree(tag, loss, grads, loss_ref, grads_ref, loss_tol, grad_tol):
+    """The loss within ``loss_tol`` (relative) and every gradient within
+    ``grad_tol`` of its largest value (floored at HYBRID_GRAD_FLOOR of the
+    largest of all) of the reference; returns both errors."""
+    r = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    check(r <= loss_tol, f"{tag}: loss {float(loss):.6f} vs "
+          f"{float(loss_ref):.6f}, rel err {r:.3g} <= {loss_tol}")
+    check(set(grads) == set(grads_ref), f"{tag}: the same {len(grads_ref)} "
+          f"gradients")
+    top = max(float(g.abs().max()) for g in grads_ref.values())
+    worst = max((max_abs(grads[k].to(g.device), g) / max(
+        float(g.abs().max()), HYBRID_GRAD_FLOOR * top), k)
+        for k, g in grads_ref.items())
+    check(worst[0] <= grad_tol, f"{tag}: worst gradient err {worst[0]:.3g} "
+          f"of the tensor's largest ({worst[1]}) <= {grad_tol}")
+    return r, worst[0]
+
+
+def hybrid_one_rank(seed, rank):
+    """Phase 25 (a): one NCCL rank through fleet."""
+    from paddle_tpu_torch import entry
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import mesh
+    from paddle_tpu_torch.text.ernie import (
+        ErnieConfig,
+        ErnieForPretraining,
+        ErniePretrainingCriterion,
+    )
+
+    cfg = ErnieConfig()
+    L, seq, b = cfg.num_hidden_layers, TRAIN_SEQ, TRAIN_BATCH
+    n_mask = max(1, int(seq * 0.15))
+    batch = pretrain_batch(np.random.default_rng(seed), b, seq,
+                           cfg.vocab_size, n_mask)
+    tr = _hybrid_trainer(cfg, fleet.mesh, seed, strategy=fleet.strategy)
+    whole = tr.init_params()
+    params = tr.place_params(whole)
+    local = tr.place_batch(batch)
+    opt = Adam(learning_rate=HYBRID["lr"])
+    state = tr.init_opt_state(opt, params)
+    step = tr.make_train_step(opt, torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed)
+    config.reset_counts()
+    params, state, _ = step(params, state, local, gen)
+    torch.cuda.synchronize()
+    counts = config.launch_counts()
+    check_counts("[hybrid] world-1 bf16 step", counts,
+                 ernie_expect(L, False), only=True)
+    params, state, ms, peak, losses = timed_steps(
+        step, params, state, local, gen, HYBRID["steps"] + HYBRID["warm"],
+        HYBRID["warm"])
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[hybrid] world-1 losses finite and falling: {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    del params, state, step
+    torch.cuda.empty_cache()
+    cfg0 = ErnieConfig(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    tr0 = _hybrid_trainer(cfg0, fleet.mesh, seed)
+    loss, grads = _hybrid_grads(tr0, tr0.place_params(whole), local, seed)
+    grads = _entry_names(grads, L)
+    torch.cuda.empty_cache()
+    model = ErnieForPretraining(cfg0, device=DEV)
+    ref_grads, _, ref_loss = entry.make_train_step(
+        model, ErniePretrainingCriterion(cfg0.vocab_size), _GradCapture())(
+        {k: v.to(DEV, copy=True) for k, v in _entry_names(whole, L).items()},
+        None,
+        batch, torch.Generator().manual_seed(seed))
+    loss_err, grad_err = hybrid_agree(
+        "[hybrid] world-1 fp32 b64 step vs entry.make_train_step", loss,
+        grads, ref_loss, ref_grads, TOL_HYBRID_W1_LOSS_REL,
+        TOL_HYBRID_W1_GRAD_REL)
+    toks = b * seq / ms * 1e3
+    log(f"[hybrid] world 1 (NCCL, {mesh.mesh_fingerprint()}): bf16 "
+        f"ERNIE-base b{b} s{seq} through HybridPretrainer + Adam: {ms:.2f} "
+        f"ms a step (mean of {HYBRID['steps']}) = {toks:.1f} tokens/s; peak "
+        f"{peak:.2f} GiB")
+    return dict(step_ms=ms, tokens_per_s=toks, peak_gib=peak, losses=losses,
+                launches=counts, fp32_loss_rel_err=loss_err,
+                fp32_grad_rel_err=grad_err,
+                fingerprint=mesh.mesh_fingerprint())
+
+
+def _zero_steps_agree(tag, new, ref_new, ref_grads, lr):
+    """ZeRO-1's updated parameters against the world-1 Adam step (rule at
+    ZERO_STEP_REL)."""
+    top = max(float(g.abs().max()) for g in ref_grads.values())
+    worst_big, worst_noise = 0.0, 0.0
+    for k, g in ref_grads.items():
+        d = (new[k].to(g.device) - ref_new[k]).abs()
+        noise = g.abs() < HYBRID_GRAD_FLOOR * top
+        if (~noise).any():
+            worst_big = max(worst_big, float(d[~noise].max()) / lr)
+        if noise.any():
+            worst_noise = max(worst_noise, float(d[noise].max()) / lr)
+    check(worst_big <= ZERO_STEP_REL and worst_noise <= 2 * (1 + 1e-6),
+          f"{tag}: the ZeRO-1 Adam step against the world-1 step: "
+          f"{worst_big:.3g} lr where the gradient is above the floor (<= "
+          f"{ZERO_STEP_REL}), {worst_noise:.3g} lr where it is noise (<= 2)")
+    return worst_big, worst_noise
+
+
+def hybrid_four_ranks(seed, rank):
+    """Phase 25 (b): four gloo ranks sharing the card, the meshes of
+    HYBRID_MESHES in turn."""
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import mesh as M
+    from paddle_tpu_torch.parallel.fleet import DistributedStrategy
+    from paddle_tpu_torch.text.ernie import ErnieConfig
+
+    cfg0 = ErnieConfig(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    seq, b = TRAIN_SEQ, HYBRID["batch"]
+    n_mask = max(1, int(seq * 0.15))
+    batch = pretrain_batch(np.random.default_rng(seed), b, seq,
+                           cfg0.vocab_size, n_mask)
+    lr = HYBRID["lr"]
+    refs = {}
+    if rank == 0:  # the world-1 steps (and Adam step) the meshes are held to
+        world1 = M.build_mesh(M.MeshConfig(devices=[0]))
+        M.set_mesh(world1)
+        for experts in (0, 4):
+            tr = _hybrid_trainer(cfg0, world1, seed, experts)
+            whole = tr.init_params()
+            loss, grads = _hybrid_grads(tr, tr.place_params(whole), batch,
+                                        seed)
+            ref = dict(loss=loss, grads=_flat(grads))
+            if experts == 0:
+                p = {k: v.to(DEV, copy=True) for k, v in _flat(whole).items()}
+                opt = Adam(learning_rate=lr)
+                new, st = opt.update(ref["grads"], opt.init(p), p)
+                ref.update(adam=new, moment_bytes=sum(
+                    s.numel() * s.element_size()
+                    for slots in st["per_param"].values() for s in slots
+                    if torch.is_tensor(s)))
+            refs[experts] = ref
+            del tr, whole
+            torch.cuda.empty_cache()
+    out = {}
+    for name, degrees, num_micro, schedule, experts, zero in HYBRID_MESHES:
+        t_mesh = time.perf_counter()
+        m = M.build_mesh(M.MeshConfig(**dict({"dp": 1}, **degrees)))
+        M.set_mesh(m)
+        strategy = DistributedStrategy()
+        strategy.pipeline = True
+        strategy.pipeline_configs.schedule = schedule
+        strategy.pipeline_configs.micro_batch = num_micro
+        strategy.sequence_parallel = "sp" in degrees
+        strategy.sharding = zero
+        # the same seed draws the world-1 reference's parameters
+        tr = _hybrid_trainer(cfg0, m, seed, experts, strategy)
+        whole = tr.init_params()
+        local = tr.place_batch(batch)
+        params = tr.place_params(whole)
+        opt = _HybridCapture(Adam(learning_rate=lr))
+        state = tr.init_opt_state(opt, params)
+        step = tr.make_train_step(opt)
+        gen = torch.Generator().manual_seed(seed)
+        C.reset_routes()
+        config.reset_counts()
+        params, state, loss = step(params, state, local, gen)
+        torch.cuda.synchronize()
+        res = dict(launches=config.launch_counts(), routes=C.routes())
+        if zero:  # its update got dp slices: one step more, ZeRO-1 off
+            loss, grads = _hybrid_grads(tr, tr.place_params(whole), local,
+                                        seed)
+        else:
+            grads = tr.unshard_params(_nested(opt.grads))
+        opt.grads = {}
+        res["loss"] = float(loss)
+        if rank == 0:
+            ref = refs[experts]
+            res["loss_rel_err"], res["grad_rel_err"] = hybrid_agree(
+                f"[hybrid] {name} (4 gloo ranks) vs the world-1 step", loss,
+                _flat(grads), ref["loss"], ref["grads"],
+                TOL_HYBRID_LOSS_REL, TOL_HYBRID_GRAD_REL)
+        del grads
+        if zero:
+            res["moment_bytes"] = sum(
+                s.numel() * s.element_size()
+                for slots in state["per_param"].values() for s in slots
+                if torch.is_tensor(s))
+            new = _flat(tr.unshard_params(params))
+            if rank == 0:
+                res["full_moment_bytes"] = refs[0]["moment_bytes"]
+                res["zero_step_err_lr"] = _zero_steps_agree(
+                    f"[hybrid] {name}", new, refs[0]["adam"],
+                    refs[0]["grads"], lr)
+            del new
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        params, state, ms, peak, losses = timed_steps(
+            step, params, state, local, gen,
+            HYBRID["mesh_steps"] + HYBRID["mesh_warm"], HYBRID["mesh_warm"])
+        res.update(step_ms=ms, peak_gib=peak,
+                   step_peak_gib=peak - base / 2 ** 30, losses=losses,
+                   seconds=time.perf_counter() - t_mesh)
+        out[name] = res
+        del params, state, step, tr, local, whole
+        torch.cuda.empty_cache()
+    M.set_mesh(None)
+    return dict(meshes=out)
+
+
+def hybrid_phase(seed, train_ms=None):
+    """Phase 25 (module docstring): the world-1 NCCL job and the 4-rank
+    gloo job; ``train_ms`` is the train phase's step in this run."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="hybrid_phase_")
+    try:
+        t0, (one,) = _dp_job("hybrid1", 1, out_dir, seed,
+                             HYBRID["timeout_s"])
+        t1, four = _dp_job("hybrid4", 4, out_dir, seed, HYBRID["timeout_s"])
+        t2 = time.time()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(one["backend"] == "nccl" and four[0]["backend"] == "gloo",
+          f"[hybrid] backends: world 1 {one['backend']}, 4 ranks "
+          f"{four[0]['backend']}")
+    against = (f"the train phase's {train_ms:.2f} ms in this run: x"
+               f"{one['step_ms'] / train_ms:.3f}" if train_ms else
+               "the train phase's, PERF.md")
+    log(f"[hybrid] world 1: step {one['step_ms']:.2f} ms ({against}), peak "
+        f"{one['peak_gib']:.2f} GiB, launches {one['launches']}")
+    meshes = {name: [r["meshes"][name] for r in four]
+              for name, *_ in HYBRID_MESHES}
+    for name, ranks in meshes.items():
+        for r, res in enumerate(ranks):
+            log(f"[hybrid] {name} rank {r}: {res['step_ms']:.1f} ms a step, "
+                f"peak {res['peak_gib']:.2f} GiB ({res['step_peak_gib']:.2f} "
+                f"above the step's start), launches "
+                f"{ {k: v for k, v in res['launches'].items() if v} }, "
+                f"routes {res['routes']}")
+    for r in range(4):
+        g, f = meshes["pp2tp2_gpipe"][r], meshes["pp2tp2_1f1b"][r]
+        check(f["step_peak_gib"] < g["step_peak_gib"],
+              f"[hybrid] rank {r}: 1F1B's step peak {f['step_peak_gib']:.3f}"
+              f" GiB below GPipe's {g['step_peak_gib']:.3f}")
+    for rows, where in ((("flash_attention_packed",
+                          "flash_attention_packed_bwd"), "packed (rows 1-2)"),
+                        (("flash_attention", "flash_attention_bwd"),
+                         "split-head (rows 3-4)")):
+        for k in rows:
+            n = {name: sum(res["launches"].get(k, 0) for res in ranks)
+                 for name, ranks in meshes.items()}
+            check(any(n.values()), f"[hybrid] {where}: {k} launched on "
+                  f"{[m for m, v in n.items() if v]} ({n})")
+    z = meshes["dp2sp2_zero"]
+    check(all(2 * r["moment_bytes"] <= z[0]["full_moment_bytes"] * 1.001
+              for r in z), f"[hybrid] ZeRO-1: each rank's moments "
+          f"{[r['moment_bytes'] for r in z]} B against the whole "
+          f"{z[0]['full_moment_bytes']} B")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[hybrid] phase {phase_s:.1f} s (jobs: world 1 {t1 - t0:.1f} s, "
+        f"4 ranks {t2 - t1:.1f} s)")
+    launches = dict(one["launches"])
+    mesh_launches = {name: {k: sum(res["launches"].get(k, 0)
+                                   for res in ranks) for k in HYBRID_ROWS}
+                     for name, ranks in meshes.items()}
+    return launches, mesh_launches, dict(
+        world1={k: v for k, v in one.items() if k != "times"},
+        meshes=meshes, train_step_ms=train_ms, phase_s=phase_s,
+        jobs_s=dict(hybrid1=t1 - t0, hybrid4=t2 - t1))
 
 
 def main(argv=None):
@@ -7382,6 +7785,9 @@ def main(argv=None):
     dyq_counts, ptq_counts, dygraph_quant = dygraph_quant_phase(args.seed)
     torch.cuda.empty_cache()
     dp_counts, dp_out = dp_phase(args.seed, train["step_ms"])
+    torch.cuda.empty_cache()
+    hybrid_counts, hybrid_mesh_counts, hybrid_out = hybrid_phase(
+        args.seed, train["step_ms"])
 
     kernels = []
     for k in fap.KERNELS + ln.KERNELS:
@@ -7527,6 +7933,12 @@ def main(argv=None):
             entry["name"], 0)
         # phase 24's path: one data-parallel step in the world-1 rank
         entry["dp_launches"] = dp_counts.get(entry["name"], 0)
+        # phase 25's paths: one world-1 hybrid step, and one step of each
+        # mesh summed over its four ranks
+        entry["hybrid_launches"] = hybrid_counts.get(entry["name"], 0)
+        entry["hybrid_mesh_launches"] = {
+            name: c.get(entry["name"], 0)
+            for name, c in hybrid_mesh_counts.items()}
         # phases 21-22's paths launch no port kernel (checked there)
         entry["resnet_launches"] = resnet["port_kernel_launches"].get(
             entry["name"], 0)
@@ -7553,6 +7965,7 @@ def main(argv=None):
     print(json.dumps({"yolo": yolo}), flush=True)
     print(json.dumps({"hapi": hapi_out}), flush=True)
     print(json.dumps({"dp": dp_out}), flush=True)
+    print(json.dumps({"hybrid": hybrid_out}), flush=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

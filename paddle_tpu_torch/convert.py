@@ -223,3 +223,34 @@ def grad_scaler_state_from_jax(jax_state: Dict) -> Dict:
     return {"scale": float(jax_state["scale"]),
             "incr_count": int(jax_state["incr_count"]),
             "decr_count": int(jax_state["decr_count"])}
+
+
+def hybrid_params_from_jax(np_params: Dict[str, Dict[str, np.ndarray]],
+                           trainer=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX ``HybridPretrainer``'s ``{"embed", "blocks" (stacked
+    [L, ...]), "head"}`` parameters (numpy arrays) as the port's: whole
+    fp32 CPU tensors, or with ``trainer`` (a port ``HybridPretrainer``)
+    this rank's slices on its device (``trainer.place_params``), after a
+    strict key and shape check against the trainer's own layout.  The
+    names and layouts are the same in both packages (Linear weights
+    (in, out); the tied decoder kept once, under "embed")."""
+    whole = {g: {k: torch.from_numpy(np.array(
+        np.asarray(v).astype(np.float32) if np.asarray(v).dtype.kind == "f"
+        else np.asarray(v), order="C")) for k, v in leaves.items()}
+        for g, leaves in np_params.items()}
+    if trainer is None:
+        return whole
+    own = trainer.init_params_shapes()
+    for g in sorted(set(own) | set(whole)):
+        mine, theirs = own.get(g, {}), whole.get(g, {})
+        missing = sorted(set(mine) - set(theirs))
+        unexpected = sorted(set(theirs) - set(mine))
+        if missing or unexpected:
+            raise KeyError(f"hybrid_params_from_jax: {g}: missing "
+                           f"{missing}, unexpected {unexpected}")
+        for k, t in theirs.items():
+            if tuple(t.shape) != tuple(mine[k].shape):
+                raise ValueError(f"hybrid_params_from_jax: {g}/{k} has shape "
+                                 f"{tuple(t.shape)}, the trainer expects "
+                                 f"{tuple(mine[k].shape)}")
+    return trainer.place_params(whole)

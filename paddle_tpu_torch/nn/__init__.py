@@ -17,6 +17,7 @@ from .layer.extras import (AdaptiveAvgPool3D, AlphaDropout, AvgPool3D,
                            MaxPool3D, Pad1D, Pad3D, PairwiseDistance,
                            PixelShuffle, RowConv, SpectralNorm, Unfold,
                            ZeroPad2D)
+from .layer.moe import MoEFFN
 from .layer.loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss,
                          KLDivLoss, L1Loss, MarginRankingLoss, MSELoss,
                          NLLLoss, SmoothL1Loss)
@@ -36,8 +37,7 @@ from .layer.transformer import (
     TransformerEncoderLayer,
 )
 
-# The JAX package's nn names not ported yet (ROADMAP.md Queue 1): the
-# mixture-of-experts FFN (item 8b).
-_DEFERRED = ("MoEFFN",)
+# The JAX package's nn names not ported yet (ROADMAP.md Queue 1): none.
+_DEFERRED = ()
 
 __all__ = [n for n in dir() if not n.startswith("_")]

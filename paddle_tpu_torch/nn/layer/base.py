@@ -85,6 +85,8 @@ class Parameter(nn.Parameter):
         p = super().__new__(cls, data, grad)
         p.__dict__["_param_name"] = name or ""
         p.__dict__["initializer"] = initializer
+        # mesh dims splitting each dim (parallel.sharding reads it), or None
+        p.__dict__["sharding_axes"] = None
         return p
 
     @property
@@ -123,6 +125,7 @@ class Parameter(nn.Parameter):
         result = type(self)(
             self.data.clone(memory_format=torch.preserve_format),
             self.requires_grad, self.name, self.initializer)
+        result.sharding_axes = self.__dict__.get("sharding_axes")
         memo[id(self)] = result
         return result
 

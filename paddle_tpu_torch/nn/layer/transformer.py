@@ -67,10 +67,15 @@ class MultiHeadAttention(Layer):
         self.k_proj = Linear(kdim or embed_dim, embed_dim, **attrs)
         self.v_proj = Linear(vdim or embed_dim, embed_dim, **attrs)
         self.out_proj = Linear(embed_dim, embed_dim, **attrs)
+        # sequence parallelism: the mesh dim splitting the sequence, or
+        # None (set by text.pretrainer; attention then goes through
+        # Ulysses, parallel/ring_attention.py)
+        self.seq_axis = None
 
-    def _split_heads(self, x):
+    def _split_heads(self, x, heads=None):
         b, s, _ = x.shape
-        return x.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+        return x.reshape(b, s, heads or self.num_heads,
+                         self.head_dim).transpose(1, 2)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -80,13 +85,27 @@ class MultiHeadAttention(Layer):
             qp = self.q_proj(query)
             kp = self.k_proj(key)
             vp = self.v_proj(value)
+            heads = self.num_heads
+            if self.seq_axis is not None:
+                from ...parallel import ring_attention as _ring
+                from ...parallel.mesh import mesh_axis_size
+
+                qp, kp, vp = (_ring.ulysses_to_heads(t, self.seq_axis)
+                              for t in (qp, kp, vp))
+                heads //= mesh_axis_size(self.seq_axis)
             out = attn_ops.flash_attention_packed(
-                qp, kp, vp, self.num_heads, attn_mask=attn_mask,
+                qp, kp, vp, heads, attn_mask=attn_mask,
                 dropout_p=self.dropout, training=self.training)
-            if out is not None:
-                return self.out_proj(out)
-            return self._attend(self._split_heads(qp), self._split_heads(kp),
-                                self._split_heads(vp), attn_mask, None)
+            if out is None:
+                out = attn_ops.flash_attention(
+                    self._split_heads(qp, heads), self._split_heads(kp, heads),
+                    self._split_heads(vp, heads), attn_mask=attn_mask,
+                    dropout_p=self.dropout, training=self.training)
+                b, h, s_, d = out.shape
+                out = out.transpose(1, 2).reshape(b, s_, h * d)
+            if self.seq_axis is not None:
+                out = _ring.ulysses_to_seq(out, self.seq_axis)
+            return self.out_proj(out)
         q = self._split_heads(self.q_proj(query))
         if isinstance(cache, MultiHeadAttention.StaticCache):
             k, v = cache.k, cache.v

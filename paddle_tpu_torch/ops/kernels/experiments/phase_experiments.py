@@ -19,9 +19,10 @@ takes row 11's profile, then runs the named phases in the order given:
 BiGRU-CRF; ``--lac-vocab`` sets its vocabulary), 21 (ResNet-50), 22
 (YOLOv3-DarkNet53), 23 (ERNIE-base IMDB through DataLoader and
 hapi.Model), 24 (data-parallel ERNIE-base through the launcher, fleet
-and DataParallel) and 24probe (each of the port's collectives on CUDA
+and DataParallel), 24probe (each of the port's collectives on CUDA
 tensors under gloo on two ranks, ``chip_smoke.dp_probe``: its JSON line
-holds each outcome).  Each phase keeps its
+holds each outcome) and 25 (hybrid-parallel ERNIE-base: one NCCL rank,
+then four gloo ranks over five meshes, ``chip_smoke.hybrid_phase``).  Each phase keeps its
 own checks.  The card's name and power limit are printed first, then one
 JSON line a phase: its seconds, step ms, profiled device busy ms and
 the objects Python's collector tracks after it.
@@ -69,6 +70,7 @@ def main(argv=None):
            "21": cs.resnet_phase, "22": cs.yolo_phase,
            "23": lambda s: cs.hapi_phase(s)[1],
            "24": lambda s: cs.dp_phase(s)[1],
+           "25": lambda s: cs.hybrid_phase(s)[2]["world1"],
            "24probe": lambda s: {"gloo_cuda_collectives": cs.dp_probe(
                tempfile.mkdtemp(prefix="dp_probe_"), s)}}
     for phase in args.phases.split(","):

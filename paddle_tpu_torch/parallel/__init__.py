@@ -1,5 +1,5 @@
 """paddle_tpu_torch.parallel -- the distributed engine (counterpart of
-paddle_tpu/parallel/), its data-parallel half.
+paddle_tpu/parallel/).
 
 The reference's multi-device stack (NCCL rings, SSA graph executors,
 transpiler program rewrites) becomes, in the port, one process per device
@@ -7,11 +7,18 @@ started by ``distributed/launch.py``, a ``DeviceMesh`` whose named dims are
 the parallelism kinds, and ``torch.distributed`` collectives on each dim's
 process group (NCCL on the card, gloo on the CPU).
 
-Dims: dp (data parallel).  pp / tp / sp / ep, the sharding rules,
-pipeline, ring attention, the sharded embedding and the plan search come
-with ROADMAP.md Queue 1 item 8b; a degree above 1 on those dims raises.
+Dims (any subset, any sizes):
+  dp -- data parallel (batch split; ZeRO-1 optimizer-state split)
+  pp -- pipeline parallel (stage split; GPipe or 1F1B over ppermute)
+  tp -- tensor parallel (Megatron column / row-parallel layers)
+  sp -- sequence parallel (Ulysses all-to-all, ring attention)
+  ep -- expert parallel (MoE experts split; tokens by all-to-all)
+
+The sharded embedding (``parallel/embedding.py``), the plan search
+(``autoplan.py``) and the static Executor's ``ShardingPlan`` come with
+ROADMAP.md Queue 1 item 9b.
 """
-from . import collective, compress, data_parallel, fleet, mesh, metrics
+from . import collective, compress, data_parallel, fleet, mesh, metrics, sharding
 from .compress import (
     CommOptions,
     bucket_signature,
@@ -58,4 +65,12 @@ from .collective import (
     reduce_scatter,
     scatter,
     send,
+)
+from .sharding import (
+    ShardingRules,
+    infer_sharding,
+    shard_layer,
+    shard_params,
+    shard_pytree,
+    unshard,
 )

@@ -15,9 +15,31 @@ tensor and returns the collective's result for this rank, as a new
 tensor (the input is not changed), through ``torch.distributed`` on the
 group's process group.  A group whose dims are absent from the mesh or
 hold one member is the identity, as in the JAX package.
+
+Differentiable forwards (tensor, sequence, pipeline and expert
+parallelism) run through these functions, so each is an autograd
+Function whose backward is its transposed collective:
+
+  - ``all_reduce`` (sum) -> identity: the sum is consumed the same on
+    every member (Megatron's "g"); ``copy_to_group`` is its partner,
+    identity forward and sum backward (Megatron's "f"), for a value every
+    member holds whole and consumes differently;
+  - ``all_gather`` <-> ``reduce_scatter``;
+  - the tiled ``all_to_all`` -> the inverse all-to-all;
+  - ``ppermute`` -> the inverse permutation.
+
+Routes.  The tiled all-to-all is one ``all_to_all_single`` on every
+backend.  ``ppermute`` is a batch of point-to-point sends and receives,
+except on gloo with CUDA tensors (ranks sharing one card, where NCCL
+refuses two ranks): gloo hands a device pointer to its TCP transport
+there and fails, so that route is a dense ``all_to_all_single`` whose
+slot j carries what goes to member j (zeros where nothing does).  The
+route is picked once per call from the group's backend and the tensor's
+device (``ppermute_route``), never by catching an error.
 """
 from __future__ import annotations
 
+import collections
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -29,9 +51,10 @@ from . import mesh as _mesh
 
 __all__ = [
     "ReduceOp", "Group", "new_group", "get_group", "bound_data_axis",
-    "shard_map", "group_mean", "all_reduce", "all_gather", "all_to_all",
-    "broadcast", "reduce", "reduce_scatter", "scatter", "barrier", "send",
-    "recv", "ppermute",
+    "shard_map", "group_mean", "all_reduce", "copy_to_group", "all_gather",
+    "all_to_all", "broadcast", "reduce", "reduce_scatter", "scatter",
+    "barrier", "send", "recv", "ppermute", "ppermute_route", "axis_index",
+    "routes", "reset_routes",
 ]
 
 
@@ -212,7 +235,8 @@ def all_reduce(tensor, op: str = ReduceOp.SUM, group=None, sync_op=True,
     payload (parallel/compress.py; SUM and AVG only, single-dim groups);
     None inherits the ambient comm_scope, "none" forces full precision.
     PROD gathers every member's tensor and multiplies in rank order (the
-    JAX package's sign-safe product)."""
+    JAX package's sign-safe product).  The exact SUM is differentiable,
+    its backward the identity (module docstring)."""
     del sync_op
     g = _resolve(group)
     opname = op.lower() if isinstance(op, str) else op
@@ -236,6 +260,8 @@ def all_reduce(tensor, op: str = ReduceOp.SUM, group=None, sync_op=True,
                 hierarchy=hierarchy, mean=opname == ReduceOp.AVG)
         if opname == ReduceOp.PROD:
             return torch.prod(_gather_stack(x, pg), dim=0)
+        if opname == ReduceOp.SUM:
+            return _AllReduce.apply(x, pg)
         out = x.clone()
         dist.all_reduce(out, op=_TORCH_OP[opname], group=pg)
         if opname == ReduceOp.AVG:
@@ -308,10 +334,201 @@ def group_mean(x, group=None):
     return x if pg is None else _GroupMean.apply(x, pg)
 
 
+# -- differentiable collectives ---------------------------------------------
+
+# calls a route took since reset_routes(), keyed "<call> (<backend>,
+# <device type>)"; chip_smoke.py prints them per rank
+_ROUTES: collections.Counter = collections.Counter()
+
+
+def _route(call, pg, x):
+    _ROUTES[f"{call} ({dist.get_backend(pg)}, {x.device.type})"] += 1
+
+
+def routes() -> Dict[str, int]:
+    """The calls each route of the differentiable collectives took since
+    ``reset_routes()``."""
+    return dict(_ROUTES)
+
+
+def reset_routes() -> None:
+    _ROUTES.clear()
+
+
+def _raw_sum(x, pg):
+    _route("all_reduce", pg, x)
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=pg)
+    return out
+
+
+def _raw_all_gather(x, pg, axis):
+    _route("all_gather", pg, x)
+    return torch.cat(list(_gather_stack(x, pg)), dim=axis)
+
+
+def _raw_reduce_scatter(x, pg, axis):
+    n = dist.get_world_size(pg)
+    if x.shape[axis] % n:
+        raise ValueError(f"reduce_scatter: dim {axis} of {tuple(x.shape)} "
+                         f"does not split over {n} members")
+    _route("reduce_scatter", pg, x)
+    moved = x.movedim(axis, 0).contiguous()
+    out = torch.empty((moved.shape[0] // n,) + tuple(moved.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=pg)
+    return out.movedim(0, axis)
+
+
+def _raw_all_to_all(x, pg, split_axis, concat_axis):
+    """Chunk j of ``x`` along ``split_axis`` to member j; the chunks
+    received, in member order, concatenated along ``concat_axis``: one
+    ``all_to_all_single`` over the chunks stacked on a leading dim."""
+    n = dist.get_world_size(pg)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"does not split over {n} members")
+    _route("all_to_all_single", pg, x)
+    moved = x.movedim(split_axis, 0)
+    stacked = moved.reshape((n, moved.shape[0] // n)
+                            + tuple(moved.shape[1:])).contiguous()
+    out = torch.empty_like(stacked)
+    dist.all_to_all_single(out, stacked, group=pg)
+    return torch.cat([c.movedim(0, split_axis) for c in out.unbind(0)],
+                     dim=concat_axis)
+
+
+def ppermute_route(pg, x) -> str:
+    """The route ``ppermute`` takes on process group ``pg`` for ``x``:
+    "all_to_all_single" on gloo with a CUDA tensor, else
+    "point_to_point" (module docstring)."""
+    if dist.get_backend(pg) == "gloo" and x.is_cuda:
+        return "all_to_all_single"
+    return "point_to_point"
+
+
+def _raw_ppermute(x, pg, perm):
+    x = x.contiguous()
+    me = dist.get_rank(pg)
+    _route(f"ppermute as {ppermute_route(pg, x)}", pg, x)
+    if ppermute_route(pg, x) == "all_to_all_single":
+        n = dist.get_world_size(pg)
+        slots = x.new_zeros((n,) + tuple(x.shape))
+        for s, d in perm:
+            if s == me:
+                slots[d].copy_(x)
+        got = torch.empty_like(slots)
+        dist.all_to_all_single(got, slots, group=pg)
+        src = [s for s, d in perm if d == me]
+        return got[src[0]].clone() if src else torch.zeros_like(x)
+    out = torch.zeros_like(x)
+    ops: List[dist.P2POp] = []
+    for s, d in perm:
+        if s == me and d == me:
+            out.copy_(x)
+        elif s == me:
+            ops.append(dist.P2POp(dist.isend, x,
+                                  dist.get_global_rank(pg, d), pg))
+        elif d == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(pg, s), pg))
+    for w in dist.batch_isend_irecv(ops) if ops else ():
+        w.wait()
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the group; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        return _raw_sum(x, pg)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _Copy(torch.autograd.Function):
+    """Identity; backward: the sum of the cotangents over the group."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_sum(ct, ctx.pg), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, axis):
+        ctx.pg, ctx.axis = pg, axis
+        return _raw_all_gather(x, pg, axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_reduce_scatter(ct, ctx.pg, ctx.axis), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, axis):
+        ctx.pg, ctx.axis = pg, axis
+        return _raw_reduce_scatter(x, pg, axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _raw_all_gather(ct.contiguous(), ctx.pg, ctx.axis), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, split_axis, concat_axis):
+        ctx.pg, ctx.axes = pg, (split_axis, concat_axis)
+        return _raw_all_to_all(x, pg, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        split_axis, concat_axis = ctx.axes
+        return (_raw_all_to_all(ct, ctx.pg, concat_axis, split_axis), None,
+                None, None)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, perm):
+        ctx.pg, ctx.perm = pg, perm
+        return _raw_ppermute(x, pg, perm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _raw_ppermute(ct, ctx.pg, inverse), None, None
+
+
+def copy_to_group(tensor, group=None):
+    """``tensor`` itself, whose gradient is summed over the group: mark a
+    value every member holds whole before each member consumes it
+    differently (a column-parallel product's input, a replicated
+    parameter used on this member's tokens).  The partner of the
+    differentiable ``all_reduce``."""
+    pg = _resolve(group).process_group()
+    return tensor if pg is None else _Copy.apply(tensor, pg)
+
+
+def axis_index(group=None) -> int:
+    """This rank's index within the group (0 for a one-member group)."""
+    pg = _resolve(group).process_group()
+    return 0 if pg is None else dist.get_rank(pg)
+
+
 def all_gather(tensor_or_list, tensor=None, group=None, axis: int = 0):
     """ref: distributed/collective.py:274 (list-out API); also functional:
     ``out = all_gather(x)`` returns every member's ``x`` concatenated along
-    ``axis`` in rank order."""
+    ``axis`` in rank order (differentiable: backward reduce-scatters)."""
     out_list = None
     if isinstance(tensor_or_list, list):
         out_list, x = tensor_or_list, tensor
@@ -320,10 +537,7 @@ def all_gather(tensor_or_list, tensor=None, group=None, axis: int = 0):
     g = _resolve(group)
     x = torch.as_tensor(x)
     pg = g.process_group()
-    if pg is None:
-        out = x
-    else:
-        out = torch.cat(list(_gather_stack(x, pg)), dim=axis)
+    out = x if pg is None else _AllGather.apply(x.contiguous(), pg, axis)
     if out_list is not None:
         n = 1 if pg is None else dist.get_world_size(pg)
         out_list.extend(torch.chunk(out, n, dim=axis))
@@ -334,7 +548,7 @@ def all_gather(tensor_or_list, tensor=None, group=None, axis: int = 0):
 def reduce_scatter(tensor, op: str = ReduceOp.SUM, group=None, axis: int = 0):
     """ref: operators/collective/c_reducescatter_op.cc.  The sum of every
     member's ``tensor``, split along ``axis`` into one chunk a member: this
-    rank gets its own chunk."""
+    rank gets its own chunk (differentiable: backward all-gathers)."""
     g = _resolve(group)
     if op.lower() != ReduceOp.SUM:
         raise NotImplementedError("reduce_scatter supports sum")
@@ -342,26 +556,7 @@ def reduce_scatter(tensor, op: str = ReduceOp.SUM, group=None, axis: int = 0):
     pg = g.process_group()
     if pg is None:
         return x
-    n = dist.get_world_size(pg)
-    if x.shape[axis] % n:
-        raise ValueError(f"reduce_scatter: dim {axis} of {tuple(x.shape)} "
-                         f"does not split over {n} members")
-    moved = x.movedim(axis, 0).contiguous()
-    out = torch.empty((moved.shape[0] // n,) + tuple(moved.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=pg)
-    return out.movedim(0, axis)
-
-
-def _all_to_all_tiled(x, pg, split_axis, concat_axis):
-    n = dist.get_world_size(pg)
-    if x.shape[split_axis] % n:
-        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
-                         f"does not split over {n} members")
-    chunks = [c.contiguous() for c in torch.chunk(x, n, dim=split_axis)]
-    recv = [torch.empty_like(c) for c in chunks]
-    dist.all_to_all(recv, chunks, group=pg)
-    return torch.cat(recv, dim=concat_axis)
+    return _ReduceScatter.apply(x, pg, axis)
 
 
 def all_to_all(in_tensor_list, out_tensor_list=None, group=None,
@@ -369,7 +564,8 @@ def all_to_all(in_tensor_list, out_tensor_list=None, group=None,
     """ref: distributed/collective.py alltoall.  Functional form: pass a
     tensor, get it split along ``split_axis`` into one chunk a member,
     chunk j sent to member j, and the chunks received concatenated along
-    ``concat_axis`` (the Ulysses sequence-parallel primitive).  List form:
+    ``concat_axis`` (the Ulysses sequence-parallel primitive;
+    differentiable: backward is the inverse all-to-all).  List form:
     entry j goes to member j, the list received comes back."""
     g = _resolve(group)
     if isinstance(in_tensor_list, (list, tuple)):
@@ -380,8 +576,8 @@ def all_to_all(in_tensor_list, out_tensor_list=None, group=None,
         x = torch.as_tensor(in_tensor_list)
         listed = False
     pg = g.process_group()
-    out = x if pg is None else _all_to_all_tiled(x, pg, split_axis,
-                                                 concat_axis)
+    out = x if pg is None else _AllToAll.apply(x, pg, split_axis,
+                                               concat_axis)
     if listed and out_tensor_list is not None:
         out_tensor_list.extend(list(out))
         return out_tensor_list
@@ -443,29 +639,16 @@ def ppermute(tensor, perm, group=None):
     """Ring permute: for each (src, dst) pair of ``perm`` (ranks within
     the group) member src's tensor goes to member dst; a member no pair
     sends to gets zeros (``lax.ppermute``'s semantics).  The JAX package
-    allows it only inside ``shard_map``; here every rank is a process, so
-    it is a batch of sends and receives."""
+    allows it only inside ``shard_map``; here every rank is a process and
+    every member of the group calls it.  Differentiable: the backward
+    permutes the cotangents back.  Route: ``ppermute_route``."""
     g = _resolve(group)
-    x = torch.as_tensor(tensor).contiguous()
+    x = torch.as_tensor(tensor)
     pg = g.process_group()
     if pg is None:
         return x.clone() if any(s == d for s, d in perm) \
             else torch.zeros_like(x)
-    me = dist.get_rank(pg)
-    out = torch.zeros_like(x)
-    ops: List[dist.P2POp] = []
-    for s, d in perm:
-        if s == me and d == me:
-            out.copy_(x)
-        elif s == me:
-            ops.append(dist.P2POp(dist.isend, x,
-                                  dist.get_global_rank(pg, d), pg))
-        elif d == me:
-            ops.append(dist.P2POp(dist.irecv, out,
-                                  dist.get_global_rank(pg, s), pg))
-    for w in dist.batch_isend_irecv(ops) if ops else ():
-        w.wait()
-    return out
+    return _PPermute.apply(x, pg, tuple((int(s), int(d)) for s, d in perm))
 
 
 def send(tensor, dst: int, group=None):

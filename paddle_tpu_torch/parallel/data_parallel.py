@@ -16,10 +16,10 @@ script runs in one plain process.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 
 from ..distributed import env as _env
 from ..nn.layer.base import Layer
@@ -56,36 +56,35 @@ def scale_loss(loss, axis: Optional[str] = None):
 
 
 def shard_batch(batch, mesh=None, batch_axes=None, seq_axis=None):
-    """This rank's part of a host batch dict, on the rank's device: the
-    leading dim split evenly over the mesh's batch dims, this rank taking
-    its slice; scalars and batch-1 leaves replicate (whole on every rank);
-    an indivisible batch raises -- the placement rule of the JAX package's
-    ``ShardingPlan.feed_shardings`` (ref: fluid/dygraph/parallel.py
-    split-batch helpers)."""
-    if seq_axis is not None:
-        raise NotImplementedError(
-            "shard_batch(seq_axis=...): sequence parallelism comes with "
-            "ROADMAP.md Queue 1 item 8b")
+    """This rank's part of a host batch dict, on the rank's device, by the
+    placement rule of the JAX package's ``ShardingPlan.feed_sharding``
+    (ref: fluid/dygraph/parallel.py split-batch helpers): the leading dim
+    split evenly over the mesh's batch dims (an indivisible one raises),
+    and with ``seq_axis`` the second dim too where that mesh dim divides
+    it; scalars, batch-1 leaves, and every leaf of a mesh with no batch
+    dim are whole on every rank."""
+    from . import sharding as _sharding
+
     mesh = mesh or _mesh.current_mesh()
     axes = tuple(a for a in (batch_axes or (_mesh.DP_AXIS,))
                  if a in mesh.axis_names)
-    n = 1
-    for a in axes:
-        n *= mesh.shape[a]
-    if axes and n > 1:
-        index = dist.get_rank(mesh.group(axes))
+    n = math.prod(mesh.shape[a] for a in axes)
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
-        if axes and n > 1 and t.dim() > 0 and t.shape[0] != 1:
+        spec = ()
+        if axes and t.dim() > 0 and t.shape[0] != 1:
             if t.shape[0] % n:
                 raise ValueError(
                     f"data-parallel feed '{k}' batch dim {t.shape[0]} does "
                     f"not divide the {n} devices (the reference's "
                     "with_data_parallel requires an even split)")
-            per = t.shape[0] // n
-            t = t[index * per:(index + 1) * per]
-        out[k] = t.to(mesh.device) if mesh.device is not None else t
+            spec = (axes if len(axes) > 1 else axes[0],)
+            if (seq_axis is not None and seq_axis in mesh.axis_names
+                    and t.dim() > 1 and t.shape[1] > 1
+                    and t.shape[1] % mesh.shape[seq_axis] == 0):
+                spec += (seq_axis,)
+        out[k] = _sharding.place(t, spec, mesh)
     return out
 
 

@@ -26,10 +26,17 @@ function composition inside one eager step:
                       dp, applied as SGD (ref dgc_op.cc +
                       sparse_all_reduce_op_handle.cc)
 
-Not in this slice, each raising ``NotImplementedError``: ``sharding``
-(ZeRO), ``pipeline``, ``sequence_parallel``, hybrid degrees above 1 other
-than dp, ``embedding_plan_kwargs`` and ``auto_shard_plan`` (ROADMAP.md
-Queue 1 item 8b); the elastic configuration (item 8c).
+The hybrid switches are read by ``text.pretrainer.HybridPretrainer``:
+``hybrid_configs`` degrees build the mesh in ``init``; ``pipeline``
+(``pipeline_configs.schedule`` "gpipe" or "1f1b", ``micro_batch``),
+``sequence_parallel`` (the mesh must carry ``sp`` > 1), ``sharding``
+(ZeRO-1: each dp rank keeps and updates 1/dp of every fp32 moment) and
+``recompute``.
+
+Not in the port yet, each raising ``NotImplementedError``:
+``embedding_plan_kwargs`` and ``auto_shard_plan``, which price and lower
+static programs (ROADMAP.md Queue 1 item 9b); the elastic configuration
+(item 8c).
 """
 from __future__ import annotations
 
@@ -124,7 +131,7 @@ class CommConfig:
 
 @dataclasses.dataclass
 class EmbeddingConfig:
-    """Vocab-sharded embedding knobs (ROADMAP.md Queue 1 item 8b)."""
+    """Vocab-sharded embedding knobs (ROADMAP.md Queue 1 item 9b)."""
     axis: str = _mesh.TP_AXIS
     capacity_factor: Any = None
     quantize: str = ""
@@ -173,37 +180,33 @@ class DistributedStrategy:
 
 
 def _not_in_this_slice(strategy: DistributedStrategy) -> None:
-    later = [(name, item) for name, item in (
-        ("sharding", "8b"), ("pipeline", "8b"), ("sequence_parallel", "8b"),
-        ("elastic", "8c")) if getattr(strategy, name, False)]
-    if later:
+    if getattr(strategy, "elastic", False):
         raise NotImplementedError(
-            "DistributedStrategy " + ", ".join(
-                f"{name}=True (ROADMAP.md Queue 1 item {item})"
-                for name, item in later)
-            + ": the port runs data parallelism only so far")
+            "DistributedStrategy elastic=True (ROADMAP.md Queue 1 item 8c): "
+            "the port has no elastic training yet")
 
 
 def embedding_plan_kwargs(strategy: DistributedStrategy) -> Dict[str, Any]:
     """``ShardingPlan`` kwargs for a strategy's sharded-embedding knobs:
     empty when ``strategy.sharded_embedding`` is off; the sharded
-    embedding itself comes with ROADMAP.md Queue 1 item 8b."""
+    embedding and ``ShardingPlan`` come with ROADMAP.md Queue 1 item 9b."""
     if not getattr(strategy, "sharded_embedding", False):
         return {}
     raise NotImplementedError(
-        "sharded embeddings come with ROADMAP.md Queue 1 item 8b")
+        "sharded embeddings and ShardingPlan come with ROADMAP.md Queue 1 "
+        "item 9b")
 
 
 def auto_shard_plan(program, strategy: Optional[DistributedStrategy] = None,
                     mesh=None, feed=None, fetch_names=()):
     """None when ``strategy.auto_shard`` is off (callers fall through to
     hand-written knobs); the plan search comes with ROADMAP.md Queue 1
-    item 8b."""
+    item 9b."""
     if strategy is not None and not getattr(strategy, "auto_shard", False):
         return None
     raise NotImplementedError(
         "the auto-sharding plan search comes with ROADMAP.md Queue 1 "
-        "item 8b")
+        "item 9b")
 
 
 class _RoleMaker:

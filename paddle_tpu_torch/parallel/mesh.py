@@ -11,9 +11,10 @@ dims named ``dp`` / ``pp`` / ``ep`` / ``sp`` / ``tp``, and a dim's process
 group carries its collectives (NCCL on the card, gloo when the process
 asked for the CPU).
 
-This slice runs data parallelism only: a degree above 1 on ``pp``, ``tp``,
-``sp`` or ``ep`` raises ``NotImplementedError`` (ROADMAP.md Queue 1 item
-8b).
+Every dim may have a degree above 1; the canonical order (``dp``
+outermost, ``tp`` innermost) lays the ranks out, so a ``tp`` group holds
+neighbouring ranks.  A group over several dims (``mesh.group(("dp",
+"sp"))``) holds the ranks that differ only in those dims.
 """
 from __future__ import annotations
 
@@ -40,15 +41,6 @@ _CANONICAL_ORDER = (DP_AXIS, PP_AXIS, EP_AXIS, SP_AXIS, TP_AXIS)
 _TIMEOUT = datetime.timedelta(minutes=10)
 
 _global_mesh: Optional["Mesh"] = None
-
-
-def _not_in_this_slice(sizes: Dict[str, int]) -> None:
-    other = {a: n for a, n in sizes.items() if a != DP_AXIS and n > 1}
-    if other:
-        raise NotImplementedError(
-            f"parallel degrees {other}: the port runs data parallelism only "
-            "so far; pipeline, tensor, sequence and expert parallelism come "
-            "with ROADMAP.md Queue 1 item 8b")
 
 
 class MeshConfig:
@@ -110,11 +102,24 @@ class Mesh:
                 "the mesh has no process group: call init_parallel_env() "
                 "(or fleet.init()) in each rank first")
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        if len(axes) != 1:
-            raise NotImplementedError(
-                f"a group over dims {axes}: one dim per group until ROADMAP "
-                "item 8b")
-        return self.device_mesh.get_group(axes[0])
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        ranks = self.device_mesh.mesh
+        dims = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(ranks.dim()) if i not in dims]
+        groups = ranks.permute(rest + dims).reshape(
+            -1, math.prod(self.shape[a] for a in axes)).tolist()
+        return self.enumerated_group(groups)
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on dim ``axis`` (0 where the dim is
+        absent or the mesh has no process groups)."""
+        if axis not in self.axis_names or self.device_mesh is None:
+            return 0
+        return self.device_mesh.get_local_rank(axis)
 
     def enumerated_group(self, groups):
         """This rank's process group of a partition of the ranks
@@ -124,7 +129,8 @@ class Mesh:
         ``torch.distributed`` requires."""
         key = tuple(tuple(int(r) for r in g) for g in groups)
         if key not in self._subgroups:
-            self.group(DP_AXIS)  # raises without process groups
+            if self.device_mesh is None:
+                self.group(DP_AXIS)  # raises without process groups
             mine, _ = dist.new_subgroups_by_enumeration(
                 [list(g) for g in key], timeout=_TIMEOUT)
             self._subgroups[key] = mine
@@ -152,7 +158,6 @@ def build_mesh(config: Optional[MeshConfig] = None, **axes) -> Mesh:
     if config is None:
         config = MeshConfig(**axes) if axes else MeshConfig()
     sizes = config.resolve()
-    _not_in_this_slice(sizes)
     names = tuple(a for a in _CANONICAL_ORDER if sizes[a] > 1)
     if not names:  # degenerate single-dim mesh so collectives still resolve
         names = (DP_AXIS,)
@@ -262,7 +267,6 @@ def init_parallel_env(strategy=None, *, dp: Optional[int] = None, pp: int = 1,
     run alone gets a one-member group.  A default group the caller set up
     already is used as it is."""
     del strategy
-    _not_in_this_slice({PP_AXIS: pp, TP_AXIS: tp, SP_AXIS: sp, EP_AXIS: ep})
     if not dist.is_initialized():
         cpu = isinstance(_device.get_device(), _device.CPUPlace)
         if not cpu:
@@ -296,7 +300,9 @@ def data_sharding(mesh: Optional[Mesh] = None,
                   seq_axis: Optional[str] = None) -> tuple:
     """The placement of an input batch as a spec tuple: the leading dim over
     the mesh's batch dims (None when there are none), then the sequence
-    dim's, as the JAX package's ``PartitionSpec``."""
+    dim's, as the JAX package's ``PartitionSpec``.  ``parallel.sharding.
+    place(x, spec)`` takes this rank's slice of a batch by it
+    (``shard_batch`` does, with ``seq_axis=`` too)."""
     mesh = mesh or current_mesh()
     batch = tuple(a for a in batch_axes if a in mesh.axis_names)
     spec = [batch if batch else None]

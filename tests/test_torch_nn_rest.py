@@ -99,7 +99,7 @@ def test_functional_table_and_nn_cover_the_slice():
                      "conv3d_transpose", "max_pool3d", "avg_pool3d",
                      "adaptive_avg_pool3d"}
     ported = set(TF.__all__)
-    assert TF._DEFERRED == () and tnn._DEFERRED == ("MoEFFN",)
+    assert TF._DEFERRED == () and tnn._DEFERRED == ()
     assert set(JF.__all__) - ported == set(TF._DEFERRED) | {
         "activation", "common", "conv", "input", "loss", "norm", "pooling"}
     # every name of the JAX package's nn but those queued for later slices

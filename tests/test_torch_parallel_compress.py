@@ -9,6 +9,7 @@ fp8 scales included), ``wire_bytes``, ``bucket_assignment``,
 ``bucket_signature``, ``hierarchical_groups``, ``resolve_hierarchy``,
 ``dp_hierarchy`` and ``MeshConfig.resolve``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,11 +178,13 @@ def test_mesh_config_rejects_what_jax_rejects(cfg):
 
 @pytest.mark.parametrize("axis", ["pp", "tp", "sp", "ep"])
 def test_other_degrees_raise_until_item_8b(axis):
-    with pytest.raises(NotImplementedError, match="8b"):
-        TM.build_mesh(TM.MeshConfig(dp=1, devices=[0, 1],
-                                    **{axis: 2}))
-    with pytest.raises(NotImplementedError, match="8b"):
-        TM.init_parallel_env(**{axis: 2})
+    """Item 8b landed: a degree above 1 on each dim builds the mesh the
+    JAX package builds (sizes only here: no process group)."""
+    m = TM.build_mesh(TM.MeshConfig(dp=1, devices=[0, 1], **{axis: 2}))
+    jm = JM.build_mesh(JM.MeshConfig(dp=1, devices=jax.devices()[:2],
+                                     **{axis: 2}))
+    assert m.axis_names == tuple(jm.axis_names) == (axis,)
+    assert m.shape == {axis: 2} and m.device_mesh is None
 
 
 def test_a_mesh_without_a_process_group_sizes_only():

@@ -84,7 +84,9 @@ def test_import_scan_covers_every_package_of_the_port():
                 "utils.trace", "utils.checkpoint", "distributed.env",
                 "distributed.launch", "parallel.mesh", "parallel.collective",
                 "parallel.compress", "parallel.data_parallel",
-                "parallel.metrics", "parallel.fleet"):
+                "parallel.metrics", "parallel.fleet", "parallel.sharding",
+                "parallel.pipeline", "parallel.ring_attention",
+                "nn.layer.moe", "text.pretrainer"):
         assert f"paddle_tpu_torch.{mod}" in names, mod
 
 

@@ -269,6 +269,265 @@ def ernie_dp(rank, out_dir):
     return res
 
 
+# -- model-parallel cases ------------------------------------------------------
+
+class _on_mesh:
+    """Run a case on a mesh of these degrees, the job's default mesh
+    restored afterwards."""
+
+    def __init__(self, **degrees):
+        self.degrees = degrees
+
+    def __enter__(self):
+        from paddle_tpu_torch.parallel import mesh as M
+
+        self.old = M.get_mesh()
+        m = M.build_mesh(M.MeshConfig(**dict({"dp": 1}, **self.degrees)))
+        M.set_mesh(m)
+        return m
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.parallel import mesh as M
+
+        M.set_mesh(self.old)
+
+
+@case
+def coll_grads(rank, out_dir):
+    """Each differentiable collective on 2 ranks: its output and the
+    gradient of <cotangent, output> for this rank's input."""
+    from paddle_tpu_torch.parallel import collective as dist
+
+    ops = {"all_reduce": lambda x: dist.all_reduce(x),
+           "copy_to_group": lambda x: dist.copy_to_group(x),
+           "all_gather": lambda x: dist.all_gather(x, axis=1),
+           "reduce_scatter": lambda x: dist.reduce_scatter(x),
+           "all_to_all": lambda x: dist.all_to_all(x, split_axis=1,
+                                                   concat_axis=0)}
+    for name, perm in J.COLL_PERMS.items():
+        ops[name] = lambda x, perm=perm: dist.ppermute(x, perm)
+    res = {}
+    for i, (name, same_x, same_w) in enumerate(J.coll_ops()):
+        x = torch.from_numpy(J.rank_array(0 if same_x else rank,
+                                          J.COLL_SHAPE, seed=70 + i))
+        x.requires_grad_(True)
+        y = ops[name](x)
+        w = torch.from_numpy(J.rank_array(0 if same_w else rank,
+                                          tuple(y.shape), seed=90 + i))
+        (y * w).sum().backward()
+        res[f"{name}/y"], res[f"{name}/grad"] = _np(y), _np(x.grad)
+    res["routes"] = np.array(sorted(dist.routes()))
+    return res
+
+
+def _seq_chunk(x, rank, n=2, dim=2):
+    per = x.shape[dim] // n
+    return np.ascontiguousarray(np.take(x, range(rank * per, (rank + 1) * per),
+                                        axis=dim))
+
+
+@case
+def seq_attention(rank, out_dir):
+    """ring_attention and ulysses_attention on sp=2, causal and not: this
+    rank's output and the gradients of <cotangent, output>."""
+    from paddle_tpu_torch.parallel import ring_attention as R
+
+    q, k, v, ct = J.attn_inputs()
+    res = {}
+    with _on_mesh(sp=2):
+        for name, fn in (("ring", R.ring_attention),
+                         ("ulysses", R.ulysses_attention)):
+            for causal in (False, True):
+                qkv = [torch.from_numpy(_seq_chunk(t, rank)).requires_grad_()
+                       for t in (q, k, v)]
+                out = fn(*qkv, axis="sp", causal=causal)
+                (out * torch.from_numpy(_seq_chunk(ct, rank))).sum().backward()
+                tag = f"{name}/{int(causal)}"
+                res[f"{tag}/out"] = _np(out)
+                for n_, t in zip("qkv", qkv):
+                    res[f"{tag}/d{n_}"] = _np(t.grad)
+    return res
+
+
+@case
+def pipeline(rank, out_dir):
+    """GPipe (pipeline_apply and PipelineStage) and 1F1B on pp=2, 2 blocks
+    a stage, the block tanh(x W + b)."""
+    from paddle_tpu_torch.parallel import pipeline as PL
+    from paddle_tpu_torch.parallel import sharding as S
+
+    blocks, head, x, tgt = J.pipe_inputs()
+
+    def block_fn(blk, h):
+        return torch.tanh(h @ blk["w"] + blk["b"])
+
+    def head_loss(hp, y, t, micro_idx=0):
+        return ((y @ hp["w_out"] - t) ** 2).mean()
+
+    res = {}
+    with _on_mesh(pp=2) as m:
+        local = {k: S.place(torch.from_numpy(v), S.PartitionSpec("pp"), m)
+                 .requires_grad_() for k, v in blocks.items()}
+        xs = torch.from_numpy(x).requires_grad_()
+        stage = PL.blockwise_stage_fn(block_fn)
+        out = PL.unmicrobatch(PL.pipeline_apply(
+            stage, local, PL.microbatch(xs, J.PIPE["num_micro"]), axis="pp"))
+        (out ** 2).sum().backward()
+        res["gpipe/out"], res["gpipe/dx"] = _np(out), _np(xs.grad)
+        for k, t in local.items():
+            res[f"gpipe/d{k}"] = _np(t.grad)
+        pipe = PL.PipelineStage(block_fn, {k: torch.from_numpy(v)
+                                           for k, v in blocks.items()},
+                                num_micro=2, mesh=m)
+        pipe.shard_params()
+        with torch.no_grad():
+            res["stage/out"] = _np(pipe(torch.from_numpy(x)))
+        loss, sg, hg, dxs = PL.pipeline_train_1f1b(
+            lambda p, h, b: stage(p, h), head_loss,
+            {k: t.detach() for k, t in local.items()},
+            {k: torch.from_numpy(v) for k, v in head.items()},
+            PL.microbatch(torch.from_numpy(x), J.PIPE["num_micro"]),
+            PL.microbatch(torch.from_numpy(tgt), J.PIPE["num_micro"]),
+            axis="pp")
+        res["1f1b/loss"] = _np(loss)
+        res["1f1b/dx"] = _np(PL.unmicrobatch(dxs))
+        res["1f1b/dw_out"] = _np(hg["w_out"])
+        for k, t in sg.items():
+            res[f"1f1b/d{k}"] = _np(t)
+    return res
+
+
+@case
+def moe_ep2(rank, out_dir):
+    """MoEFFN (top-2 and top-1) on ep=2, each rank on its half of the
+    batch: its output, the gradients of <cotangent, output> (the gate's
+    summed over the ranks), its experts' gradients and the aux loss."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import all_reduce
+    from paddle_tpu_torch.parallel import sharding as S
+
+    w, x, ct = J.moe_inputs()
+    half = J.MOE["batch"] // 2
+    res = {}
+    with _on_mesh(ep=2) as m:
+        for top_k in (2, 1):
+            layer = nn.MoEFFN(J.MOE["d"], J.MOE["f"], J.MOE["experts"],
+                              top_k=top_k,
+                              capacity_factor=J.MOE["capacity_factor"])
+            layer.set_state_dict(w)
+            S.shard_layer(layer, m)
+            xi = torch.from_numpy(x[rank * half:(rank + 1) * half]) \
+                .requires_grad_()
+            y = layer(xi)
+            (y * torch.from_numpy(ct[rank * half:(rank + 1) * half])) \
+                .sum().backward()
+            tag = f"top{top_k}"
+            res.update({f"{tag}/y": _np(y), f"{tag}/dx": _np(xi.grad),
+                        f"{tag}/aux": _np(layer.aux_loss),
+                        f"{tag}/dgate": _np(all_reduce(
+                            layer.gate_weight.grad)),
+                        f"{tag}/dwi": _np(layer.wi.grad),
+                        f"{tag}/dwo": _np(layer.wo.grad)})
+    return res
+
+
+@case
+def shard_batch_seq(rank, out_dir):
+    """shard_batch with seq_axis on a dp2 x sp2 mesh."""
+    from paddle_tpu_torch.parallel import shard_batch as sb
+
+    with _on_mesh(dp=2, sp=2):
+        res = {k: _np(v) for k, v in sb(J.seq_batch(),
+                                         seq_axis="sp").items()}
+        try:
+            sb({"bad": np.zeros((3, 4))}, seq_axis="sp")
+        except ValueError:
+            res["indivisible_raises"] = np.array(True)
+    return res
+
+
+@case
+def group_dp_sp(rank, out_dir):
+    """An all-reduce over a group of two dims of a dp2 x sp2 mesh."""
+    import paddle_tpu_torch.distributed as dist
+
+    x = torch.from_numpy(J.rank_array(rank, (3,), seed=80))
+    with _on_mesh(dp=2, sp=2) as m:
+        return {"sum_dp_sp": _np(dist.all_reduce(x, group=("dp", "sp"))),
+                "sum_sp": _np(dist.all_reduce(x, group="sp")),
+                "coords": np.array([m.axis_index("dp"), m.axis_index("sp")])}
+
+
+class _GradCapture:
+    """An optimizer whose update keeps the gradients and moves nothing."""
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, state, params, lr=None):
+        self.grads = {k: v.detach().clone() for k, v in grads.items()}
+        return params, state
+
+
+def _hybrid_run(name, rank, out_dir):
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel.fleet import DistributedStrategy
+    from paddle_tpu_torch.text.ernie import ErnieConfig
+    from paddle_tpu_torch.text.pretrainer import HybridPretrainer
+
+    degrees, num_micro, schedule, experts, zero = J.HYBRID_MESHES[name]
+    with np.load(Path(out_dir) / f"hybrid_params_{experts}.npz") as z:
+        whole = J.nested_params({k: z[k] for k in z.files})
+    batch = J.hybrid_batch()
+    res = {}
+    with _on_mesh(**degrees) as m:
+        strategy = DistributedStrategy()
+        strategy.pipeline = True
+        strategy.pipeline_configs.schedule = schedule
+        strategy.pipeline_configs.micro_batch = num_micro
+        strategy.sequence_parallel = "sp" in degrees
+        strategy.sharding = zero
+
+        def trainer():
+            return HybridPretrainer(ErnieConfig(**J.HYBRID), mesh=m,
+                                    moe_experts=experts, strategy=strategy,
+                                    device="cpu")
+
+        tr = trainer()
+        placed = convert.hybrid_params_from_jax(whole, tr)
+        local = tr.place_batch(batch)
+        gen = torch.Generator().manual_seed(0)
+        strategy.sharding = False  # the gradients whole on every dp rank
+        cap = _GradCapture()
+        tr_cap = trainer()
+        _, _, loss = tr_cap.make_train_step(cap)(
+            placed, tr_cap.init_opt_state(cap, placed), local, gen)
+        res["loss"] = _np(loss)
+        full = tr.unshard_params(J.nested_params(cap.grads))
+        res.update({f"grad/{k}": _np(v)
+                    for k, v in J.flat_params(full).items()})
+        if zero:
+            strategy.sharding = True
+            for tag, t in (("zero", tr), ("plain", tr_cap)):
+                p = convert.hybrid_params_from_jax(whole, t)
+                opt = Adam(learning_rate=1e-3)
+                st = t.init_opt_state(opt, p)
+                p, st, _ = t.make_train_step(opt)(p, st, local, gen)
+                res.update({f"{tag}/{k}": _np(v) for k, v in J.flat_params(
+                    t.unshard_params(p)).items()})
+                res[f"{tag}/moment_bytes"] = np.array(sum(
+                    s.numel() * s.element_size()
+                    for slots in st["per_param"].values() for s in slots
+                    if torch.is_tensor(s)))
+    return res
+
+
+for _name in J.HYBRID_MESHES:
+    CASES[f"hybrid_{_name}"] = (
+        lambda rank, out_dir, _n=_name: _hybrid_run(_n, rank, out_dir))
+
+
 def main():
     out_dir = Path(sys.argv[1])
     import paddle_tpu_torch as P
