@@ -103,8 +103,10 @@ Phases (any failed check raises, so the script exits non-zero):
               token match rate against fp32 >= 0.9 over the first 8 new
               tokens of each request (the JAX package's gate; the rate over
               all 64 is printed).  Then decode and
-              prefill tokens/s, TTFT p50/p99; whole runs in fp32 and int8
-              KV under torch.profiler, with row 9's device time split into
+              prefill tokens/s, TTFT p50/p99; runs of the first 32
+              requests in fp32 and int8 KV under torch.profiler (their
+              tokens equal unprofiled runs' of the same 32), with row 9's
+              device time split into
               prefill chunks and decode steps (the kernels launched under
               each step's profiler range) and the device's busy time by
               kernel (the cache, whose int8 scales are calibrated on the
@@ -434,6 +436,54 @@ Phases (any failed check raises, so the script exits non-zero):
               launches of one step and the collective routes it took
               (``collective.routes()``: ppermute as all_to_all_single on
               gloo with CUDA tensors).
+26. elastic -- (a) resumable ERNIE-base fine-tuning on one NCCL rank:
+              ``fleet.init(DistributedStrategy(elastic=True,
+              elastic_configs=ElasticConfig(save_every=2)))`` sets the
+              elastic flags and phase 23's IMDB classifier (fp32 b32
+              s256, dropout 0, AdamW) fits 4 steps through ``Model.fit``,
+              which writes manifest checkpoints at steps 2 and 4; 48 / 48
+              / 96 / 96 / 4 / 4 launches of rows 1 / 2 / 7 / 8 / 5 / 6 and
+              no other; ``utils.checkpoint.load`` of step 4's directory
+              equals the model's parameters and AdamW slots bit for bit;
+              a fresh model with zeroed weights through
+              ``elastic.restore_model(step=2)`` fits steps 3-4 on the same
+              batches with the uninterrupted run's losses (bit for bit, or
+              within 1e-4 relative, printed which).  Printed: each step's
+              ms (2 and 4 save), the checkpoint's bytes,
+              ``elastic.checkpoint_ms`` / ``restore_ms``.  (b) bench.py's
+              ERNIE-base pretraining step (fp32 b8 s512, dropout 0)
+              through ``HybridPretrainer`` with fleet ``sharding``
+              (ZeRO-1) on 4 gloo ranks sharing the card (``--dp-worker
+              elastic4``), then ``save_checkpoint(plan=ShardingPlan(
+              zero_stage=1))``: the Adam moments written as dp slices,
+              the parameters once, each rank's slices read back bit for
+              bit; 2 gloo ranks (``elastic2``) restore under dp2: the
+              gathered state equals the saved one bit for bit,
+              ``resharded_leaves`` equals the leaves saved as dp slices
+              (the ``_placement_sig`` rule), rank 0 restores with no plan
+              and takes the world-1 step, and the dp2 step from the
+              restored state agrees with it (loss within 2e-4, the Adam
+              step by ZERO_STEP_REL's rule).  Rows 1, 2, 5-8 counted in
+              each job's step.  Printed: save / restore ms and bytes a
+              rank.
+27. heter-ps -- phase 18's ERNIE-base sentence classification (fp32 b32
+              s128, dropout 0) with ``word_embeddings`` (18000 x 768) in
+              a host ``SparseTable(num_shards=4, optimizer="adagrad")``
+              behind a ``PSServer``, reached through
+              ``RemoteSparseTable``; the rest of the model on the card
+              under Adam; the rows' gradient pushed through
+              ``AsyncCommunicator``.  One step against the same model
+              whose local embedding holds the pulled rows: loss and dense
+              gradients equal, the per-position row gradients merged as
+              ``ps._merge_duplicate_ids`` within 1e-5 of the embedding's
+              weight gradient; after the flush the table's rows equal a
+              numpy sparse-adagrad update by hand, bit for bit; 12 / 12 /
+              24 / 24 / 1 / 1 launches of rows 1 / 2 / 7 / 8 / 5 / 6 a
+              step and no other; timed steps (pull, push, step ms, rows a
+              step, busy share); then a ``TableSnapshotter`` snapshot,
+              the primary stops, a ``StandbyServer`` promotes and serves
+              the snapshot's rows bit for bit, and two more steps train
+              against it.
 Phases 17-20 and 23 run right after the build (and row 11's profile),
 before the first CUDA graph capture: the card's profiler loses eager
 launches after one; phases 21-22 follow them.
@@ -535,7 +585,8 @@ PAGED_SERVE = dict(vocab=32000, hidden=128, max_positions=4096,
                    max_blocks_per_seq=256, prefill_chunk=64, requests=96,
                    shared=32, system_len=512, prompt_lo=16, prompt_hi=2048,
                    max_new=64, oracle=4, cold=4, int8_probe=12,
-                   profile_prompt=1024, profile_steps=20)
+                   profile_prompt=1024, profile_steps=20,
+                   profile_requests=32)
 # The paged server's own launches (PAGED_SERVE): a decode step is 64 rows
 # with own tables (live width 128 at the profile's mean context of 1078; 4
 # idle slots of length 0), a prefill chunk 64 rows on one stride-0 table
@@ -2405,10 +2456,14 @@ def paged_slice_phase(seed):
             f"+ {run['decode_steps']} decode steps, {run['prefix_hits']} "
             f"prefix hits")
 
-    # row 9's device time over whole runs, prefill chunks and decode steps
-    slices = {kv: slice_device_time(model, prompts, cfg, kv,
-                                    runs[name]["tokens"])
-              for kv, name in (("float32", "kernel"), ("int8", "int8"))}
+    # row 9's device time over runs of the first profile_requests
+    # requests, prefill chunks and decode steps (the profile of a whole
+    # run took ~95 s of trace processing a KV type; the script's run has a
+    # time limit)
+    sub = prompts[:cfg["profile_requests"]]
+    slices = {kv: slice_device_time(
+        model, sub, cfg, kv, serve_once(model, sub, cfg, kv_dtype=kv)[
+            "tokens"]) for kv in ("float32", "int8")}
     # 20 decode steps of 64 rows at ~1024 tokens of context, profiled
     prof = profile_decode(model, cfg, rng, PagedDecoder, PagedKVCache)
     out = dict(runs=speed, int8_token_match_first8=head,
@@ -2448,11 +2503,12 @@ def slice_device_time(model, prompts, cfg, kv_dtype, tokens, log_as=None,
     events = [e for e in device_events(prof) if e[2] not in SLICE_RANGES]
     total = sum(us for us, _, name in events if kernels.search(name)) / 1e3
     cpu = torch.autograd.DeviceType.CPU
-    ranges = sorted((e.time_range.start, e.name) for e in prof.events()
+    all_events = prof.events()
+    ranges = sorted((e.time_range.start, e.name) for e in all_events
                     if e.name in SLICE_RANGES and e.device_type == cpu)
     starts = [r[0] for r in ranges]
     by_range = dict.fromkeys(SLICE_RANGES, 0.0)
-    for e in prof.events():
+    for e in all_events:
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and kernels.search(e.name)):
             i = bisect.bisect_right(starts, e.time_range.start) - 1
@@ -7138,15 +7194,17 @@ def dp_gloo_probe(rank, first, out_dir):
 
 
 def dp_worker(mode, out_dir, seed):
-    """A rank of phase 24's jobs: join the job (gloo over a default group
-    this process creates for the 2-rank jobs, as NCCL refuses two ranks on
-    one card; NCCL through fleet.init for the 1-rank job), run ``mode``
-    ("nccl1", "gloo2" or "probe<first>"), write its result to
-    ``out_dir/<mode>.rank<r>.json``."""
+    """A rank of phases 24-26's jobs: join the job (gloo over a default
+    group this process creates for the multi-rank jobs, as NCCL refuses two
+    ranks on one card; NCCL through fleet.init for the 1-rank jobs), run
+    ``mode`` ("nccl1", "gloo2", "probe<first>", "hybrid1", "hybrid4",
+    "elastic4" or "elastic2"), write its result to
+    ``out_dir/<mode>.rank<r>.json`` and leave the job in order
+    (``shutdown_parallel_env``)."""
     import datetime
 
     import torch.distributed as tdist
-    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import fleet, shutdown_parallel_env
 
     t_init = time.time()
     rank = int(os.environ["PADDLE_TRAINER_ID"])
@@ -7162,6 +7220,8 @@ def dp_worker(mode, out_dir, seed):
                  init_start=t_init, ready=time.time())
     if mode.startswith("probe"):
         res = dp_gloo_probe(rank, int(mode[len("probe"):]), out_dir)
+    elif mode in ("elastic4", "elastic2"):
+        res = elastic_ranks(seed, rank, out_dir)
     else:
         res = {"nccl1": dp_one_rank, "gloo2": dp_two_ranks,
                "hybrid1": hybrid_one_rank,
@@ -7169,7 +7229,10 @@ def dp_worker(mode, out_dir, seed):
     res.update(times=times, backend=tdist.get_backend())
     with open(os.path.join(out_dir, f"{mode}.rank{rank}.json"), "w") as f:
         json.dump(res, f)
-    tdist.destroy_process_group()
+    # a barrier (not after a probe, whose group a failed collective may
+    # have broken), then the groups destroyed and collected while the
+    # interpreter is whole
+    shutdown_parallel_env(barrier=not mode.startswith("probe"))
     return 0
 
 
@@ -7661,6 +7724,648 @@ def hybrid_phase(seed, train_ms=None):
         jobs_s=dict(hybrid1=t1 - t0, hybrid4=t2 - t1))
 
 
+# -- phases 26-27: elastic training and the heterogeneous parameter server --
+
+ELASTIC = dict(batch=32, steps=4, save_every=2, reshard_batch=8, lr=1e-4,
+               timeout_s=600)
+# a PS step: the rows of the batch's ids pulled from the host table over
+# TCP, the dense rest of ERNIE-base on the card under Adam, the rows'
+# gradient pushed back through the AsyncCommunicator (adagrad on the host)
+HETER = dict(shards=4, table_lr=0.05, steps=6, warm=2, probe_s=0.1,
+             max_missed=2, after_failover=2)
+# the pushed row gradients against the local-embedding step's weight
+# gradient rows: the same sums in another order (numpy's add.at over the
+# positions against the card's embedding backward), so within fp32
+# rounding of the tensor's largest value
+TOL_HETER_ROW_REL = 1e-5
+
+
+def _fit_log():
+    """A hapi callback keeping each fit step's loss (a device read a step)
+    and the wall time at each step's start and at the fit's end, the card
+    synchronized first."""
+    from paddle_tpu_torch import hapi
+
+    class FitLog(hapi.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.t = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+        def on_train_end(self, logs=None):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+
+    return FitLog()
+
+
+def _flight(kind):
+    from paddle_tpu_torch.utils import trace
+
+    return [e for e in trace.flight_recorder().events() if e["kind"] == kind]
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
+def elastic_fit_phase(seed, tmp):
+    """Phase 26 (a): resumable ERNIE-base fine-tuning through Model.fit on
+    one NCCL rank (module docstring)."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.distributed import (
+        DistributedStrategy,
+        fleet,
+        shutdown_parallel_env,
+    )
+    from paddle_tpu_torch.elastic import checkpoint as ec
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.parallel.fleet import ElasticConfig
+    from paddle_tpu_torch.text import Imdb
+    from paddle_tpu_torch.utils import checkpoint as uckpt
+
+    cfg = ELASTIC
+    quiet = ernie_cfg(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    state = finetune_state(quiet, seed)
+    n = cfg["steps"] * cfg["batch"]
+    train = Imdb(mode="train", synthetic_size=n, maxlen=HAPI["maxlen"])
+    ckpt = os.path.join(tmp, "fit")
+    names = ["elastic_save_every", "elastic_ckpt_dir", "elastic_keep_last"]
+    saved_flags = flags.get_flags(names)
+    strategy = DistributedStrategy()
+    strategy.elastic = True
+    strategy.elastic_configs = ElasticConfig(save_every=cfg["save_every"],
+                                             ckpt_dir=ckpt)
+    out = {"config": dict(cfg, maxlen=HAPI["maxlen"])}
+    fleet.init(strategy=strategy)
+    try:
+        check(flags.get_flag("elastic_save_every") == cfg["save_every"]
+              and flags.get_flag("elastic_ckpt_dir") == ckpt,
+              "[elastic] fleet.init(DistributedStrategy(elastic=True)) set "
+              "the elastic flags")
+        model = hapi_model(quiet, state, seed)
+        rec = _fit_log()
+        n_ckpt0, n_rest0 = (len(_flight("elastic_checkpoint")),
+                            len(_flight("elastic_restore")))
+        config.reset_counts()
+        with deterministic():
+            model.fit(io.DataLoader(train, batch_size=cfg["batch"]),
+                      epochs=1, shuffle=False, verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        counts = config.launch_counts()
+        check_counts(f"[elastic] fit of {cfg['steps']} steps", counts,
+                     {k: cfg["steps"] * v
+                      for k, v in FINETUNE_LAUNCHES.items()}, only=True)
+        steps = ec.list_steps(ckpt)
+        check(steps == [2, 4], f"[elastic] Model.fit wrote checkpoints at "
+              f"steps {steps} ([2, 4]: save_every {cfg['save_every']})")
+        step_ms = [(b - a) * 1e3 for a, b in zip(rec.t, rec.t[1:])]
+        saves = _flight("elastic_checkpoint")[n_ckpt0:]
+        ckpt_bytes = _dir_bytes(os.path.join(ckpt, "step_00000002"))
+
+        # the whole state of step 4 through utils.checkpoint.load
+        whole = uckpt.load(os.path.join(ckpt, "step_00000004"))
+        _, slots = ec._opt_slots(model)
+        d_param = max(max_abs(torch.from_numpy(whole[f"param/{k}"]), p.cpu())
+                      for k, p in model.network.named_parameters())
+        d_slot = max(max_abs(torch.from_numpy(whole[f"opt/{i + 1:04d}"]),
+                             s.cpu()) for i, s in enumerate(slots))
+        check(d_param == 0.0 and d_slot == 0.0
+              and int(whole["opt/0000"]) == cfg["steps"],
+              f"[elastic] utils.checkpoint.load of step 4's directory: "
+              f"{len(whole)} leaves, parameters and optimizer slots bit for "
+              f"bit (largest differences {d_param}, {d_slot})")
+        del whole, model, slots
+        torch.cuda.empty_cache()
+
+        # a fresh model (zeroed weights, no optimizer state) restored at
+        # step 2 fits steps 3-4 on the same batches
+        flags.set_flags({"elastic_save_every": 0})
+        fresh = hapi_model(quiet, {k: np.zeros_like(v)
+                                   for k, v in state.items()}, seed)
+        meta = ec.restore_model(fresh, ckpt, step=2)
+        restores = _flight("elastic_restore")[n_rest0:]
+        rec2 = _fit_log()
+        with deterministic():
+            fresh.fit(io.DataLoader(io.Subset(train, list(range(
+                2 * cfg["batch"], n))), batch_size=cfg["batch"]),
+                epochs=1, shuffle=False, verbose=0, callbacks=[rec2])
+        resumed, straight = rec2.losses, rec.losses[2:]
+        bitwise = resumed == straight
+        worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+        check(meta["step"] == 2 and len(resumed) == 2
+              and worst <= TOL_TRAIN_LOSS_REL,
+              f"[elastic] restored at step 2, steps 3-4 losses {resumed} "
+              f"against the uninterrupted run's {straight}: "
+              f"{'bit for bit' if bitwise else f'rel err {worst:.3g}'} "
+              f"(<= {TOL_TRAIN_LOSS_REL})")
+        del fresh
+        torch.cuda.empty_cache()
+    finally:
+        shutdown_parallel_env()
+        flags.set_flags(saved_flags)
+    log(f"[elastic] (a) fp32 ERNIE-base b{cfg['batch']} s{HAPI['maxlen']} "
+        f"through Model.fit, one NCCL rank: steps {[round(x, 2) for x in step_ms]}"
+        f" ms (steps 2 and 4 save); checkpoint {ckpt_bytes / 1e6:.1f} MB, "
+        f"elastic.checkpoint_ms {[round(e['dur_ms'], 1) for e in saves]}, "
+        f"elastic.restore_ms {[round(e['dur_ms'], 1) for e in restores]}; "
+        f"losses {rec.losses}, resumed {resumed}; launches {counts}")
+    out.update(step_ms=step_ms, saving_steps=[2, 4], losses=rec.losses,
+               resumed_losses=resumed, resumed_bitwise=bitwise,
+               resumed_loss_rel_err=worst, checkpoint_bytes=ckpt_bytes,
+               checkpoint_ms=[e["dur_ms"] for e in saves],
+               restore_ms=[e["dur_ms"] for e in restores], launches=counts)
+    return counts, out
+
+
+def _elastic_flat(params, state):
+    """A hybrid trainer's parameters and Adam state as a flat checkpoint
+    state: ``param/<group>/<name>``, ``opt/<group>/<name>/m`` and ``/v``
+    (ZeRO-1's marked dp slices, or whole), ``opt/step``."""
+    flat = {f"param/{k}": v for k, v in _flat(params).items()}
+    for k, (m, v) in state["per_param"].items():
+        flat[f"opt/{k}/m"], flat[f"opt/{k}/v"] = m, v
+    flat["opt/step"] = np.asarray(state["step"], np.int64)
+    return flat
+
+
+def _elastic_rank_bytes(ckpt, rank, world, reading=False):
+    """Bytes of the shard files that rank ``rank`` of a dp-only mesh of
+    ``world`` ranks writes (a split leaf's shard ``rank``, rank 0 the whole
+    ones) or, ``reading``, reads from a checkpoint of as many shards or
+    more (the shards of its rows, every whole leaf)."""
+    from paddle_tpu_torch.elastic import checkpoint as ec
+
+    d = os.path.join(ckpt, f"step_{ec.latest_step(ckpt):08d}")
+    total = 0
+    for leaf in ec.load_manifest(ckpt)["leaves"]:
+        shards = leaf["shards"]
+        if len(shards) == 1:
+            mine = shards if reading or rank == 0 else []
+        else:
+            per = len(shards) // world
+            mine = shards[rank * per:(rank + 1) * per]
+        total += sum(os.path.getsize(os.path.join(d, s["file"]))
+                     for s in mine)
+    return total
+
+
+def elastic_ranks(seed, rank, out_dir):
+    """Phase 26 (b), a rank of the 4-rank job (ZeRO-1 step, save) or of
+    the 2-rank job (restore under dp2, the world-1 reference on rank 0,
+    one dp2 step)."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.elastic import checkpoint as ec
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import mesh as M
+    from paddle_tpu_torch.parallel.fleet import DistributedStrategy
+    from paddle_tpu_torch.parallel.sharding import ShardingPlan, slice_spec
+    from paddle_tpu_torch.text.ernie import ErnieConfig
+
+    world = tdist.get_world_size()
+    cfg0 = ErnieConfig(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    seq, b, lr = TRAIN_SEQ, ELASTIC["reshard_batch"], ELASTIC["lr"]
+    batch = pretrain_batch(np.random.default_rng(seed), b, seq,
+                           cfg0.vocab_size, max(1, int(seq * 0.15)))
+    strategy = DistributedStrategy()
+    strategy.sharding = True
+    ckpt = os.path.join(out_dir, "ckpt")
+    m = M.build_mesh(M.MeshConfig(dp=world))
+    M.set_mesh(m)
+    plan = ShardingPlan(zero_stage=1)
+    res = dict(fingerprint=plan.fingerprint())
+    if world == 4:
+        tr = _hybrid_trainer(cfg0, m, seed, 0, strategy)
+        params = tr.place_params(tr.init_params())
+        opt = Adam(learning_rate=lr)
+        state = tr.init_opt_state(opt, params)
+        step = tr.make_train_step(opt)
+        config.reset_counts()
+        params, state, loss = step(params, state, tr.place_batch(batch),
+                                   torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        res.update(launches=config.launch_counts(), loss=float(loss))
+        flat = _elastic_flat(params, state)
+        slots = [k for k in flat if k.startswith("opt/") and k != "opt/step"]
+        tdist.barrier()
+        t0 = time.perf_counter()
+        ec.save_checkpoint(ckpt, flat, 1, plan=plan, optimizer_slots=slots)
+        res["save_ms"] = (time.perf_counter() - t0) * 1e3
+        res["bytes"] = _elastic_rank_bytes(ckpt, rank, world)
+        # read back on the same mesh: this rank's slices bit for bit
+        got, meta = ec.restore_checkpoint(ckpt, plan=plan,
+                                          optimizer_slots=slots)
+        d = max(max_abs(torch.as_tensor(got[k]).to(DEV),
+                        torch.as_tensor(v).to(DEV)) for k, v in flat.items())
+        check(d == 0.0 and meta["resharded_leaves"] == 0,
+              f"[elastic] rank {rank}: dp4 restore of its own dp4 save, "
+              f"{len(got)} leaves bit for bit (largest difference {d}), "
+              f"{meta['resharded_leaves']} resharded")
+        res["split_moments"] = sum(1 for k in slots
+                                   if slice_spec(flat[k]) is not None)
+        return res
+
+    # the 2-rank job
+    names = [leaf["name"] for leaf in ec.load_manifest(ckpt)["leaves"]]
+    slots = [k for k in names if k.startswith("opt/") and k != "opt/step"]
+    tdist.barrier()
+    t0 = time.perf_counter()
+    got, meta = ec.restore_checkpoint(ckpt, plan=plan, optimizer_slots=slots)
+    res["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    res["bytes"] = _elastic_rank_bytes(ckpt, rank, world, reading=True)
+    # the _placement_sig rule on dp-only meshes: a leaf moves when it is
+    # split on either side (dp's size goes 4 -> 2), not when it is whole
+    # on both
+    split = sum(1 for leaf in ec.load_manifest(ckpt)["leaves"]
+                if leaf["spec"] or slice_spec(got[leaf["name"]]) is not None)
+    res.update(resharded=meta["resharded_leaves"], split_either=split)
+    check(meta["resharded_leaves"] == split,
+          f"[elastic] rank {rank}: resharded_leaves "
+          f"{meta['resharded_leaves']} = the {split} leaves split over dp4 "
+          f"when saved or over dp2 when restored")
+    whole = None
+    if rank == 0:  # the world-1 rank restores with no plan
+        t0 = time.perf_counter()
+        whole, _ = ec.restore_checkpoint(ckpt)
+        res["restore_whole_ms"] = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for k in names:   # every rank in the same order: the gathers match
+        v = got[k]
+        marked = slice_spec(v)
+        if marked is not None:
+            dim = next(i for i, a in enumerate(marked[0]) if a is not None)
+            v = C.all_gather(v, group="dp", axis=dim)
+        if rank == 0:
+            worst = max(worst, max_abs(torch.as_tensor(v).cpu(),
+                                       torch.as_tensor(whole[k])))
+    if rank == 0:
+        check(worst == 0.0, f"[elastic] dp2 restore of the dp4 checkpoint, "
+              f"gathered: {len(names)} leaves equal the saved state bit for "
+              f"bit (largest difference {worst})")
+    step_count = int(torch.as_tensor(got["opt/step"]))
+    gen = torch.Generator().manual_seed(seed + 1)
+    ref = {}
+    if rank == 0:  # the world-1 step from the restored whole state
+        world1 = M.build_mesh(M.MeshConfig(devices=[0]))
+        M.set_mesh(world1)
+        tr1 = _hybrid_trainer(cfg0, world1, seed)
+        p1 = tr1.place_params(_nested({k[6:]: torch.from_numpy(v)
+                                       for k, v in whole.items()
+                                       if k.startswith("param/")}))
+        opt1 = _HybridCapture(Adam(learning_rate=lr))
+        st1 = tr1.init_opt_state(opt1, p1)
+        for k, (mo, vo) in st1["per_param"].items():
+            mo.copy_(torch.from_numpy(whole[f"opt/{k}/m"]))
+            vo.copy_(torch.from_numpy(whole[f"opt/{k}/v"]))
+        st1["step"] = step_count
+        p1, _, loss1 = tr1.make_train_step(opt1)(p1, st1, batch, gen)
+        ref = dict(loss=loss1, new=_flat(p1), grads=opt1.grads)
+        del tr1, st1, whole
+        torch.cuda.empty_cache()
+        M.set_mesh(m)
+    tr = _hybrid_trainer(cfg0, m, seed, 0, strategy)
+    params = tr.place_params(_nested({k[6:]: v for k, v in got.items()
+                                      if k.startswith("param/")}))
+    opt = Adam(learning_rate=lr)
+    state = tr.init_opt_state(opt, params)
+    wrong = [k for k, (mo, _) in state["per_param"].items()
+             if mo.shape != got[f"opt/{k}/m"].shape]
+    check(not wrong, f"[elastic] rank {rank}: every restored moment is the "
+          f"dp2 step's slice ({wrong})")
+    for k, (mo, vo) in state["per_param"].items():
+        mo.copy_(got[f"opt/{k}/m"])
+        vo.copy_(got[f"opt/{k}/v"])
+    state["step"] = step_count
+    del got
+    config.reset_counts()
+    params, state, loss = tr.make_train_step(opt)(
+        params, state, tr.place_batch(batch),
+        torch.Generator().manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    res.update(launches=config.launch_counts(), loss=float(loss))
+    if rank == 0:
+        r = abs(float(loss) - float(ref["loss"])) / abs(float(ref["loss"]))
+        check(r <= TOL_HYBRID_LOSS_REL, f"[elastic] dp2 step from the "
+              f"restored state vs the world-1 step: loss {float(loss):.6f} "
+              f"vs {float(ref['loss']):.6f}, rel err {r:.3g} <= "
+              f"{TOL_HYBRID_LOSS_REL}")
+        res["loss_rel_err"] = r
+        res["step_err_lr"] = _zero_steps_agree(
+            "[elastic] dp2 (ZeRO-1) step vs world 1", _flat(params),
+            ref["new"], ref["grads"], lr)
+    return res
+
+
+def elastic_phase(seed):
+    """Phase 26 (module docstring): (a) in this process, (b) the 4-rank and
+    2-rank gloo jobs."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="elastic_phase_")
+    try:
+        fit_counts, out = elastic_fit_phase(seed, tmp)
+        torch.cuda.empty_cache()
+        t_jobs = time.perf_counter()
+        _, four = _dp_job("elastic4", 4, tmp, seed, ELASTIC["timeout_s"])
+        _, two = _dp_job("elastic2", 2, tmp, seed, ELASTIC["timeout_s"])
+        t_end = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    L = ernie_cfg().num_hidden_layers
+    reshard = {}
+    for tag, ranks in (("dp4", four), ("dp2", two)):
+        reshard[tag] = {k: sum(r["launches"].get(k, 0) for r in ranks)
+                        for k in ERNIE_KERNELS}
+        check_counts(f"[elastic] (b) the {tag} step summed over its "
+                     f"{len(ranks)} ranks", reshard[tag],
+                     {k: len(ranks) * v
+                      for k, v in ernie_expect(L, False).items()})
+    check(all(r["split_moments"] > 0 for r in four),
+          f"[elastic] (b) the dp4 save held the Adam moments as dp slices "
+          f"({[r['split_moments'] for r in four]} a rank)")
+    log(f"[elastic] (b) fp32 ERNIE-base b{ELASTIC['reshard_batch']} "
+        f"s{TRAIN_SEQ} ZeRO-1 on 4 gloo ranks, saved and restored on 2: "
+        f"save {[round(r['save_ms'], 1) for r in four]} ms, written "
+        f"{[round(r['bytes'] / 1e6, 1) for r in four]} MB a rank; restore "
+        f"{[round(r['restore_ms'], 1) for r in two]} ms, read "
+        f"{[round(r['bytes'] / 1e6, 1) for r in two]} MB a rank (whole, "
+        f"no plan: {two[0]['restore_whole_ms']:.1f} ms); resharded "
+        f"{two[0]['resharded']} leaves; dp2 step loss rel err "
+        f"{two[0]['loss_rel_err']:.3g}, step err {two[0]['step_err_lr']} lr;"
+        f" jobs {t_end - t_jobs:.1f} s")
+    out["reshard"] = dict(
+        dp4=[{k: v for k, v in r.items() if k != "times"} for r in four],
+        dp2=[{k: v for k, v in r.items() if k != "times"} for r in two],
+        launches=reshard, jobs_s=t_end - t_jobs)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return fit_counts, reshard, out
+
+
+def _pulled_rows():
+    """A layer standing in for ``word_embeddings``: it returns the rows set
+    on it for this step (pulled from the PS table), so autograd gives their
+    gradient."""
+    from paddle_tpu_torch import nn
+
+    class PulledRows(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.rows = None
+
+        def forward(self, ids):
+            return self.rows
+
+    return PulledRows()
+
+
+def heter_ps_phase(seed):
+    """Phase 27 (module docstring): ERNIE-base sentence classification with
+    its word embeddings in a host PS table."""
+    import tempfile
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.distributed import ps as PS
+    from paddle_tpu_torch.distributed.ps_server import (
+        PSServer,
+        RemoteSparseTable,
+    )
+    from paddle_tpu_torch.elastic.failover import (
+        StandbyServer,
+        TableSnapshotter,
+    )
+    from paddle_tpu_torch.ops.kernels import config
+
+    t_phase = time.perf_counter()
+    cfg = HETER
+    rng = np.random.default_rng(seed + 27)
+    quiet = ernie_cfg(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    vocab, dim = quiet.vocab_size, quiet.hidden_size
+    state = finetune_state(quiet, seed)
+    dense = {k: v for k, v in state.items()
+             if k != "ernie.embeddings.word_embeddings.weight"}
+    model = finetune_model(quiet, state, seed)
+    model.ernie.embeddings.word_embeddings = _pulled_rows()
+    model.train()
+    table = PS.SparseTable(dim=dim, num_shards=cfg["shards"],
+                           optimizer="adagrad", seed=seed)
+    primary = PSServer(table).start()
+    remote = RemoteSparseTable([primary.endpoint], dim=dim)
+    comm = PS.AsyncCommunicator(remote, lr=cfg["table_lr"])
+    opt = P.optimizer.Adam(learning_rate=FINETUNE["lr"],
+                           parameters=model.parameters())
+    out = {"config": dict(cfg, vocab=vocab, dim=dim)}
+    tmp = tempfile.mkdtemp(prefix="heter_ps_")
+    standby = None
+    try:
+        # -- one step against the same model with a local embedding that
+        # holds the pulled rows: loss, dense gradients, row gradients
+        batch, _ = finetune_batch(rng, vocab)
+        ids = batch[0].cpu().numpy()
+        flat = ids.reshape(-1)
+        before = remote.pull(flat)
+        rows = torch.tensor(before, device=DEV, requires_grad=True)
+
+        def ps_loss(rows, batch):
+            """The loss with ``rows`` ([b * s, dim], the batch's ids in
+            order) in place of the word-embedding lookup."""
+            model.ernie.embeddings.word_embeddings.rows = rows.view(
+                *batch[0].shape, dim)
+            return finetune_loss(model, batch)
+
+        with deterministic(), dygraph.guard():
+            loss = ps_loss(rows, batch)
+            loss.backward()
+        g_rows = rows.grad.cpu().numpy()
+        g_dense = {k: p.grad.detach().clone()
+                   for k, p in model.named_parameters()}
+        local = finetune_model(quiet, dense | {
+            "ernie.embeddings.word_embeddings.weight":
+                np.zeros((quiet.vocab_size, dim), np.float32)}, seed)
+        with torch.no_grad():
+            local.ernie.embeddings.word_embeddings.weight[
+                torch.from_numpy(flat).to(DEV)] = rows.detach()
+        local.train()
+        with deterministic(), dygraph.guard():
+            lloss = finetune_loss(local, batch)
+            lloss.backward()
+        uniq, merged = PS._merge_duplicate_ids(flat, g_rows)
+        w_grad = local.ernie.embeddings.word_embeddings.weight.grad[
+            torch.from_numpy(uniq).to(DEV)].cpu()
+        row_err = max_abs(torch.from_numpy(merged), w_grad) / max(
+            float(w_grad.abs().max()), 1e-30)
+        d_dense = max(max_abs(g_dense[k], p.grad)
+                      for k, p in local.named_parameters()
+                      if k in g_dense)
+        loss_same = float(loss.detach()) == float(lloss.detach())
+        check(loss_same and d_dense == 0.0 and row_err <= TOL_HETER_ROW_REL,
+              f"[heter-ps] a PS step against the local-embedding step: "
+              f"loss {float(loss):.6f} vs {float(lloss):.6f}, dense "
+              f"gradients bit for bit (largest difference {d_dense}), the "
+              f"{len(uniq)} pushed rows merged as ps._merge_duplicate_ids "
+              f"against the embedding's weight gradient: {row_err:.3g} of "
+              f"the largest (<= {TOL_HETER_ROW_REL})")
+        del local, g_dense
+        torch.cuda.empty_cache()
+        comm.start()
+        comm.send(flat, g_rows)
+        opt.minimize(loss)
+        model.clear_gradients()
+        comm.flush()
+        # the table's rows after the push: sparse adagrad by hand (the
+        # accumulator starts at 0: it is the merged gradient squared)
+        after = remote.pull(uniq)
+        first = {}
+        for i, r in enumerate(flat):
+            first.setdefault(int(r), before[i])
+        hand = np.stack([first[int(r)] for r in uniq])
+        hand -= cfg["table_lr"] * merged / (np.sqrt(merged * merged) + 1e-6)
+        check(np.array_equal(after, hand),
+              f"[heter-ps] after the flush the table's {len(uniq)} rows equal "
+              f"a numpy sparse-adagrad update by hand, bit for bit (largest "
+              f"difference {float(np.abs(after - hand).max())})")
+
+        # -- timed steps: pull the batch's distinct rows, the dense step
+        # on the card, push the rows' gradient through the communicator
+        batches = [finetune_batch(rng, vocab) for _ in range(2)]
+        timing = {"pull": [], "push": [], "step": []}
+
+        def step(batch, timed=False):
+            ids = batch[0].cpu().numpy()
+            uniq, inv = np.unique(ids.reshape(-1), return_inverse=True)
+            t0 = time.perf_counter()
+            slab = torch.from_numpy(remote.pull(uniq)).to(DEV)
+            t1 = time.perf_counter()
+            slab.requires_grad_(True)
+            with dygraph.guard():
+                loss = ps_loss(slab[torch.from_numpy(inv).to(DEV)], batch)
+                loss.backward()
+                opt.minimize(loss)
+                model.clear_gradients()
+            t2 = time.perf_counter()
+            comm.send(uniq, slab.grad.cpu().numpy())
+            t3 = time.perf_counter()
+            if timed:
+                timing["pull"].append((t1 - t0) * 1e3)
+                timing["push"].append((t3 - t2) * 1e3)
+            return loss.detach(), len(uniq)
+
+        _, counts = count_one(step, batches[0][0])
+        check_counts("[heter-ps] a PS step", counts, FINETUNE_LAUNCHES,
+                     only=True)
+        losses, rows_a_step = [], []
+        for i in range(cfg["steps"]):
+            if i == cfg["warm"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            loss, u = step(batches[i % 2][0], timed=i >= cfg["warm"])
+            losses.append(loss)
+            rows_a_step.append(u)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (cfg["steps"] - cfg["warm"]) * 1e3
+        comm.flush()
+        prof = profile_split(lambda: step(batches[0][0]))
+        comm.flush()
+        losses = torch.stack(losses).tolist()
+        check(all(np.isfinite(losses)), f"[heter-ps] losses finite: "
+              f"{[round(x, 4) for x in losses]}")
+
+        # -- failover: snapshot, the primary stops, the standby promotes
+        # and serves the snapshot's rows bitwise, training carries on
+        snap = os.path.join(tmp, "table.snap")
+        TableSnapshotter(table, snap).snapshot_now()
+        touched = table.state_dict()["ids"]
+        expect_rows = remote.pull(touched)
+        standby = StandbyServer(
+            PS.SparseTable(dim=dim, num_shards=cfg["shards"],
+                           optimizer="adagrad", seed=seed + 99),
+            snapshot_path=snap, primary_endpoint=primary.endpoint,
+            probe_interval_s=cfg["probe_s"],
+            max_missed=cfg["max_missed"]).start()
+        comm.stop()
+        remote.close()
+        t_stop, t_wall = time.perf_counter(), time.time()
+        primary.stop()
+        check(standby.wait_promoted(timeout=30), "[heter-ps] the standby "
+              "promoted after the primary stopped")
+        failover_ms = (time.perf_counter() - t_stop) * 1e3
+        # its split from the flight events: each missed probe, and the
+        # promotion (the snapshot replayed, the server started)
+        evs = [e for kind in ("ps_probe_missed", "failover")
+               for e in _flight(kind) if e["ts"] >= t_wall]
+        failover_split = dict(
+            missed_s=[e["ts"] - t_wall for e in evs
+                      if e["kind"] == "ps_probe_missed"],
+            promoted_s=[e["ts"] - t_wall for e in evs
+                        if e["kind"] == "failover"])
+        remote = RemoteSparseTable([standby.endpoint], dim=dim)
+        got = remote.pull(touched)
+        check(np.array_equal(got, expect_rows),
+              f"[heter-ps] the standby serves the snapshot's {len(touched)} "
+              f"rows bit for bit after {failover_ms:.1f} ms")
+        comm = PS.AsyncCommunicator(remote, lr=cfg["table_lr"])
+        comm.start()
+        after_losses = [float(step(batches[i % 2][0])[0])
+                        for i in range(cfg["after_failover"])]
+        comm.flush()
+        check(all(np.isfinite(after_losses)), f"[heter-ps] training "
+              f"carries on against the standby: losses {after_losses}")
+    finally:
+        comm.stop()
+        remote.close()
+        primary.stop()
+        if standby is not None:
+            standby.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    timed = cfg["steps"] - cfg["warm"]
+    pull_ms = sum(timing["pull"]) / timed
+    push_ms = sum(timing["push"]) / timed
+    log(f"[heter-ps] ERNIE-base fp32 b{FINETUNE['batch']} s{FINETUNE['seq']}"
+        f", word embeddings ({vocab} x {dim}) in a "
+        f"{cfg['shards']}-shard host table behind PSServer: step {ms:.2f} "
+        f"ms, pull {pull_ms:.2f} ms, push {push_ms:.2f} ms, rows "
+        f"{rows_a_step} a step (pulled and pushed), busy share "
+        f"{prof['busy_ms'] / prof['wall_ms']:.3f}; failover {failover_ms:.1f}"
+        f" ms (probes missed at {failover_split['missed_s']} s, promoted at "
+        f"{failover_split['promoted_s']} s); launches {counts}")
+    out.update(step_ms=ms, pull_ms=pull_ms, push_ms=push_ms,
+               rows_a_step=rows_a_step, losses=losses,
+               after_failover_losses=after_losses, failover_ms=failover_ms,
+               failover_split=failover_split,
+               row_grad_rel_err=row_err, loss_bitwise=loss_same,
+               launches=counts, profile=prof,
+               busy_share=prof["busy_ms"] / prof["wall_ms"],
+               phase_s=time.perf_counter() - t_phase)
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its seconds logged as ``[time] <name>``: the
+    script's whole run has a time limit (1200 s), and this is where it
+    goes."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7747,47 +8452,55 @@ def main(argv=None):
     log(f"[phases 21-22] {t_vision - t_end:.1f} s: resnet "
         f"{t_yolo - t_end:.1f} s, yolo {t_vision - t_yolo:.1f} s")
     gen = torch.Generator().manual_seed(args.seed)
-    results = kernel_phase(gen)
-    at_train = train_shape_phase(gen)
-    serve_counts, fwd_ms = slice_phase(args.seed)
+    results = timed(kernel_phase, gen)
+    at_train = timed(train_shape_phase, gen)
+    serve_counts, fwd_ms = timed(slice_phase, args.seed)
     per_fwd = {"flash_attention_packed": 12, "residual_layer_norm": 24,
                "layer_norm": 2}
     share = {k: results[(k, torch.bfloat16)]["ms"] * n / fwd_ms
              for k, n in per_fwd.items()}
     log("[slice] share of the bf16 b8 s512 forward's device time: "
         + ", ".join(f"{k} {v:.3f}" for k, v in share.items()))
-    counts, train = train_phase(args.seed)
+    counts, train = timed(train_phase, args.seed)
     torch.cuda.empty_cache()
     log("[bhsd] (b, h, s, d) kernels against their plain versions")
-    bhsd, cross = bhsd_kernel_phase(gen)
-    bhsd_counts, bhsd_model = bhsd_model_phase(args.seed,
-                                               train["tokens_per_s"])
+    bhsd, cross = timed(bhsd_kernel_phase, gen)
+    bhsd_counts, bhsd_model = timed(bhsd_model_phase, args.seed,
+                                    train["tokens_per_s"])
     torch.cuda.empty_cache()
-    paged, paged_server = paged_kernel_phase(gen, args.seed)
-    paged_launches, paged_slice = paged_slice_phase(args.seed)
+    paged, paged_server = timed(paged_kernel_phase, gen, args.seed)
+    paged_launches, paged_slice = timed(paged_slice_phase, args.seed)
     torch.cuda.empty_cache()
-    vision = vision_kernel_phase(gen)
-    vision_counts, static_out = static_phase(args.seed)
+    vision = timed(vision_kernel_phase, gen)
+    vision_counts, static_out = timed(static_phase, args.seed)
     torch.cuda.empty_cache()
-    train_counts, vision_train = vision_train_phase(args.seed)
+    train_counts, vision_train = timed(vision_train_phase, args.seed)
     torch.cuda.empty_cache()
-    bn_cases, int8_cases = int8_kernel_phase(gen, vision)
-    int8_counts, int8_out = int8_phase(args.seed)
+    bn_cases, int8_cases = timed(int8_kernel_phase, gen, vision)
+    int8_counts, int8_out = timed(int8_phase, args.seed)
     torch.cuda.empty_cache()
-    cold, cold_rows = cold_phase(args.seed)
+    cold, cold_rows = timed(cold_phase, args.seed)
     torch.cuda.empty_cache()
-    qat_counts, float_counts, static_train = static_train_phase(args.seed)
+    qat_counts, float_counts, static_train = timed(static_train_phase,
+                                                   args.seed)
     torch.cuda.empty_cache()
-    recipe_counts, recipe = recipe_phase(args.seed)
+    recipe_counts, recipe = timed(recipe_phase, args.seed)
     torch.cuda.empty_cache()
-    seq2seq_counts, seq2seq = seq2seq_phase(args.seed)
+    seq2seq_counts, seq2seq = timed(seq2seq_phase, args.seed)
     torch.cuda.empty_cache()
-    dyq_counts, ptq_counts, dygraph_quant = dygraph_quant_phase(args.seed)
+    dyq_counts, ptq_counts, dygraph_quant = timed(dygraph_quant_phase,
+                                                  args.seed)
     torch.cuda.empty_cache()
-    dp_counts, dp_out = dp_phase(args.seed, train["step_ms"])
+    dp_counts, dp_out = timed(dp_phase, args.seed, train["step_ms"])
     torch.cuda.empty_cache()
-    hybrid_counts, hybrid_mesh_counts, hybrid_out = hybrid_phase(
-        args.seed, train["step_ms"])
+    hybrid_counts, hybrid_mesh_counts, hybrid_out = timed(
+        hybrid_phase, args.seed, train["step_ms"])
+    torch.cuda.empty_cache()
+    elastic_counts, reshard_counts, elastic_out = timed(elastic_phase,
+                                                        args.seed)
+    torch.cuda.empty_cache()
+    heter_counts, heter_out = timed(heter_ps_phase, args.seed)
+    torch.cuda.empty_cache()
 
     kernels = []
     for k in fap.KERNELS + ln.KERNELS:
@@ -7939,6 +8652,12 @@ def main(argv=None):
         entry["hybrid_mesh_launches"] = {
             name: c.get(entry["name"], 0)
             for name, c in hybrid_mesh_counts.items()}
+        # phase 26's paths: (a) the 4-step fit, (b) one step of the dp4
+        # and of the dp2 job summed over its ranks; phase 27's: a PS step
+        entry["elastic_fit_launches"] = elastic_counts.get(entry["name"], 0)
+        entry["elastic_reshard_launches"] = {
+            tag: c.get(entry["name"], 0) for tag, c in reshard_counts.items()}
+        entry["heter_ps_launches"] = heter_counts.get(entry["name"], 0)
         # phases 21-22's paths launch no port kernel (checked there)
         entry["resnet_launches"] = resnet["port_kernel_launches"].get(
             entry["name"], 0)
@@ -7966,6 +8685,8 @@ def main(argv=None):
     print(json.dumps({"hapi": hapi_out}), flush=True)
     print(json.dumps({"dp": dp_out}), flush=True)
     print(json.dumps({"hybrid": hybrid_out}), flush=True)
+    print(json.dumps({"elastic": elastic_out}), flush=True)
+    print(json.dumps({"heter_ps": heter_out}), flush=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

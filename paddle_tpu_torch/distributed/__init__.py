@@ -4,7 +4,8 @@ A parity namespace over ``paddle_tpu_torch.parallel``: the collectives
 (collective.py:59-:419 of the reference), ParallelEnv, init_parallel_env
 and the fleet facade.  ``launch`` is the multi-process entry
 (``python -m paddle_tpu_torch.distributed.launch``).  The parameter
-server (``ps``, ``ps_server``) comes with ROADMAP.md Queue 1 item 8c."""
+server: host sparse tables and communicators (``ps``) and their TCP
+transport (``ps_server``)."""
 from . import env
 from .env import ParallelEnv, get_rank, get_world_size
 
@@ -13,6 +14,7 @@ from .env import ParallelEnv, get_rank, get_world_size
 # ``distributed.env`` (the io sampler and the trace do) loads no more.
 _FROM_PARALLEL = {
     "init_parallel_env": "mesh",
+    "shutdown_parallel_env": "mesh",
     **{name: "collective" for name in (
         "Group", "ReduceOp", "all_gather", "all_reduce", "all_to_all",
         "barrier", "broadcast", "get_group", "new_group", "ppermute", "recv",
@@ -25,7 +27,26 @@ _FROM_PARALLEL = {
 }
 
 
+# the parameter server, loaded on first access too
+_FROM_HERE = {
+    "ps": None, "ps_server": None,
+    **{name: "ps" for name in (
+        "AsyncCommunicator", "GeoCommunicator", "HalfAsyncCommunicator",
+        "HeartBeatMonitor", "LargeScaleEmbedding", "SparseTable",
+        "SyncCommunicator")},
+    "PSServer": "ps_server", "RemoteSparseTable": "ps_server",
+}
+
+
 def __getattr__(name):
+    if name in _FROM_HERE:
+        import importlib
+
+        mod = importlib.import_module(
+            f"paddle_tpu_torch.distributed.{_FROM_HERE[name] or name}")
+        value = mod if _FROM_HERE[name] is None else getattr(mod, name)
+        globals()[name] = value
+        return value
     if name in _FROM_PARALLEL:
         import importlib
 
@@ -38,7 +59,7 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_FROM_PARALLEL))
+    return sorted(set(globals()) | set(_FROM_PARALLEL) | set(_FROM_HERE))
 
 
 def spawn(func, args=(), nprocs=1, **kwargs):

@@ -19,8 +19,8 @@ _data_axis_stack = []
 
 # elastic world override: after an eviction the surviving job's logical
 # world is smaller than the launcher said at start-up; the elastic
-# membership (ROADMAP.md item 8c) sets it so every world-size consumer
-# agrees with the rebuilt mesh.  None = no override.
+# membership (``elastic.ElasticMember.record_resume``) sets it so every
+# world-size consumer agrees with the rebuilt mesh.  None = no override.
 _elastic_world: Optional[int] = None
 
 

@@ -74,8 +74,9 @@ def launch(training_script: str, script_args: List[str],
     (PDTPU_TELEMETRY_PORT = telemetry_port + rank), ``ledger_dir``
     (PDTPU_LEDGER_DIR) and ``history_dir`` (PDTPU_HISTORY_DIR) pass through
     to the workers as the JAX package's launcher exports them; the elastic
-    membership, the telemetry plane, the ledger and the SLO sampler that
-    read them are ROADMAP.md Queue 1 items 8c and 10."""
+    membership reads PDTPU_ELASTIC_DIR (``elastic.ElasticMember.
+    from_env``); the telemetry plane, the ledger and the SLO sampler that
+    read the rest are ROADMAP.md Queue 1 item 10."""
     base_port = started_port or _free_port()
     endpoints = ",".join(f"127.0.0.1:{base_port + i}" for i in range(nproc))
     job_trace_id = uuid.uuid4().hex

@@ -175,18 +175,23 @@ class Model:
         device."""
         if self._optimizer is None:
             raise RuntimeError("call prepare(optimizer, loss) first")
+        # periodic elastic checkpointing rides the callback list when the
+        # elastic flags are set (fleet's ElasticConfig sets them)
         if (int(_flags.get_flag("elastic_save_every")) > 0
                 and _flags.get_flag("elastic_ckpt_dir")):
-            raise NotImplementedError(
-                "fit's periodic elastic checkpoints (flags elastic_save_every"
-                " / elastic_ckpt_dir) need the port of elastic/ (ROADMAP.md "
-                "Queue 1 item 8c)")
+            from ..elastic.checkpoint import ElasticCheckpoint
+
+            callbacks = list(callbacks) if callbacks else []
+            if not any(isinstance(c, ElasticCheckpoint) for c in callbacks):
+                callbacks.append(ElasticCheckpoint(
+                    _flags.get_flag("elastic_ckpt_dir"),
+                    save_every=int(_flags.get_flag("elastic_save_every")),
+                    keep_last=int(_flags.get_flag("elastic_keep_last"))))
         if _flags.get_flag("watchdog"):
             raise NotImplementedError(
                 "fit's goodput watchdog (flags watchdog / "
                 "watchdog_checkpoint_on_anomaly) needs the port of "
-                "utils/watchdog.py (ROADMAP.md Queue 1 item 10) and its "
-                "checkpoints elastic/ (item 8c)")
+                "utils/watchdog.py (ROADMAP.md Queue 1 item 10)")
         loader = self._loader(train_data, batch_size, shuffle, num_workers,
                               drop_last=drop_last)
         prefetch = prefetch_to_device and not getattr(

@@ -21,9 +21,14 @@ BiGRU-CRF; ``--lac-vocab`` sets its vocabulary), 21 (ResNet-50), 22
 hapi.Model), 24 (data-parallel ERNIE-base through the launcher, fleet
 and DataParallel), 24probe (each of the port's collectives on CUDA
 tensors under gloo on two ranks, ``chip_smoke.dp_probe``: its JSON line
-holds each outcome) and 25 (hybrid-parallel ERNIE-base: one NCCL rank,
-then four gloo ranks over five meshes, ``chip_smoke.hybrid_phase``).  Each phase keeps its
-own checks.  The card's name and power limit are printed first, then one
+holds each outcome), 25 (hybrid-parallel ERNIE-base: one NCCL rank,
+then four gloo ranks over five meshes, ``chip_smoke.hybrid_phase``), 26
+(resumable fine-tuning through Model.fit's elastic checkpoints, then a
+ZeRO-1 checkpoint of four gloo ranks restored on two,
+``chip_smoke.elastic_phase``) and 27 (ERNIE-base with its word
+embeddings in a host parameter-server table, and the standby's
+failover, ``chip_smoke.heter_ps_phase``).  Each phase keeps its own
+checks.  The card's name and power limit are printed first, then one
 JSON line a phase: its seconds, step ms, profiled device busy ms and
 the objects Python's collector tracks after it.
 """
@@ -71,6 +76,8 @@ def main(argv=None):
            "23": lambda s: cs.hapi_phase(s)[1],
            "24": lambda s: cs.dp_phase(s)[1],
            "25": lambda s: cs.hybrid_phase(s)[2]["world1"],
+           "26": lambda s: cs.elastic_phase(s)[2],
+           "27": lambda s: cs.heter_ps_phase(s)[1],
            "24probe": lambda s: {"gloo_cuda_collectives": cs.dp_probe(
                tempfile.mkdtemp(prefix="dp_probe_"), s)}}
     for phase in args.phases.split(","):

@@ -14,9 +14,10 @@ Dims (any subset, any sizes):
   sp -- sequence parallel (Ulysses all-to-all, ring attention)
   ep -- expert parallel (MoE experts split; tokens by all-to-all)
 
-The sharded embedding (``parallel/embedding.py``), the plan search
-(``autoplan.py``) and the static Executor's ``ShardingPlan`` come with
-ROADMAP.md Queue 1 item 9b.
+``sharding.ShardingPlan`` is the placement plan (its specs and
+fingerprint; the elastic checkpoints read it).  The sharded embedding
+(``parallel/embedding.py``), the plan search (``autoplan.py``) and the
+static Executor's use of a plan come with ROADMAP.md Queue 1 item 9b.
 """
 from . import collective, compress, data_parallel, fleet, mesh, metrics, sharding
 from .compress import (
@@ -67,6 +68,7 @@ from .collective import (
     send,
 )
 from .sharding import (
+    ShardingPlan,
     ShardingRules,
     infer_sharding,
     shard_layer,

@@ -33,10 +33,13 @@ The hybrid switches are read by ``text.pretrainer.HybridPretrainer``:
 (ZeRO-1: each dp rank keeps and updates 1/dp of every fp32 moment) and
 ``recompute``.
 
+``elastic`` with ``elastic_configs`` (``ElasticConfig``) sets the
+``elastic_*`` flags in ``init``, so ``hapi.Model.fit`` writes periodic
+elastic checkpoints (elastic/checkpoint.py).
+
 Not in the port yet, each raising ``NotImplementedError``:
 ``embedding_plan_kwargs`` and ``auto_shard_plan``, which price and lower
-static programs (ROADMAP.md Queue 1 item 9b); the elastic configuration
-(item 8c).
+static programs (ROADMAP.md Queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -108,8 +111,11 @@ class DGCConfig:  # proto :47 DGCConfig
 
 @dataclasses.dataclass
 class ElasticConfig:
-    """Elastic fault-tolerance knobs (ref: the fleet elastic manager;
-    ROADMAP.md Queue 1 item 8c)."""
+    """Elastic fault-tolerance knobs (ref: the fleet elastic manager + the
+    incubate checkpoint saver; paddle_tpu_torch/elastic/).  ``save_every``
+    > 0 with a ``ckpt_dir`` turns on periodic elastic checkpoints inside
+    hapi ``Model.fit`` (through the elastic_* flags); ``heartbeat_s`` /
+    ``dead_after_s`` size an ``elastic.ElasticMember``."""
     ckpt_dir: str = ""
     save_every: int = 0
     keep_last: int = 2
@@ -179,13 +185,6 @@ class DistributedStrategy:
         return f"DistributedStrategy(enabled={on})"
 
 
-def _not_in_this_slice(strategy: DistributedStrategy) -> None:
-    if getattr(strategy, "elastic", False):
-        raise NotImplementedError(
-            "DistributedStrategy elastic=True (ROADMAP.md Queue 1 item 8c): "
-            "the port has no elastic training yet")
-
-
 def embedding_plan_kwargs(strategy: DistributedStrategy) -> Dict[str, Any]:
     """``ShardingPlan`` kwargs for a strategy's sharded-embedding knobs:
     empty when ``strategy.sharded_embedding`` is off; the sharded
@@ -227,7 +226,9 @@ class _RoleMaker:
         return True
 
     def is_server(self) -> bool:
-        return False  # the parameter server comes with item 8c
+        # the parameter server is host tables served over TCP
+        # (distributed/ps_server.py), not a fleet role
+        return False
 
 
 class Fleet:
@@ -243,7 +244,6 @@ class Fleet:
              strategy: Optional[DistributedStrategy] = None) -> "Fleet":
         self._role_maker = role_maker or _RoleMaker()
         self._strategy = strategy or DistributedStrategy()
-        _not_in_this_slice(self._strategy)
         hc = self._strategy.hybrid_configs
         if not isinstance(hc, HybridConfig):  # allow dict like fleet does
             hc = HybridConfig(**{k: v for k, v in dict(hc).items()
@@ -253,6 +253,16 @@ class Fleet:
             dp=None if hc.dp_degree == -1 else hc.dp_degree,
             pp=hc.pp_degree, tp=hc.mp_degree, sp=hc.sp_degree,
             ep=hc.ep_degree)
+        ec = self._strategy.elastic_configs
+        if self._strategy.elastic and ec.save_every > 0 and ec.ckpt_dir:
+            # surface the cadence through the flags Model.fit reads, so
+            # strategy-driven jobs get periodic elastic checkpoints without
+            # touching their fit() call
+            from ..core import flags as _flags
+
+            _flags.set_flags({"elastic_save_every": int(ec.save_every),
+                              "elastic_ckpt_dir": ec.ckpt_dir,
+                              "elastic_keep_last": int(ec.keep_last)})
         return self
 
     @property
@@ -307,7 +317,6 @@ class DistributedOptimizer:
 
     def __init__(self, inner, strategy: DistributedStrategy):
         from ..optimizer.optimizers import SGD, Lamb, LarsMomentum
-        _not_in_this_slice(strategy)
         self.strategy = strategy
         cq = getattr(strategy, "comm_quantize", "")
         if cq not in ("", "none") and cq not in _compress.COMPRESS_KINDS:

@@ -283,10 +283,58 @@ def init_parallel_env(strategy=None, *, dp: Optional[int] = None, pp: int = 1,
         else:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1, timeout=_TIMEOUT)
+    _register_exit_teardown()
     cfg = MeshConfig(dp=-1 if dp is None else dp, pp=pp, tp=tp, sp=sp, ep=ep)
     mesh = build_mesh(cfg)
     set_mesh(mesh)
     return mesh
+
+
+def _release_groups() -> None:
+    """Drop the port's handles on process groups (the global mesh with its
+    DeviceMesh and subgroups, the named groups, fleet's mesh), destroy the
+    default group and collect, so the groups' C++ destructors join gloo's
+    and the store's threads now, while the interpreter is whole."""
+    import gc
+    import sys
+
+    set_mesh(None)
+    coll = sys.modules.get("paddle_tpu_torch.parallel.collective")
+    if coll is not None:
+        coll._groups.clear()
+    fl = sys.modules.get("paddle_tpu_torch.parallel.fleet")
+    if fl is not None:
+        fl.fleet._mesh = None
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
+
+
+def shutdown_parallel_env(barrier: bool = True) -> None:
+    """Leave the job in order: every rank waits for the others (a barrier
+    on the default group: no rank tears its connections down while a peer
+    is still in a collective; ``barrier=False`` skips it for a job whose
+    group may be broken), then the groups are destroyed and collected.
+    A process group that outlives ``destroy_process_group`` (a mesh still
+    referring to it) is destroyed at interpreter exit, where gloo's
+    threads may still be joinable and the process aborts ("terminate
+    called without an active exception").  A process that set up the
+    environment and does not call this gets the release, without the
+    barrier, at exit."""
+    if barrier and dist.is_initialized():
+        dist.barrier()
+    _release_groups()
+
+
+_exit_teardown = [False]
+
+
+def _register_exit_teardown() -> None:
+    if not _exit_teardown[0]:
+        import atexit
+
+        atexit.register(_release_groups)
+        _exit_teardown[0] = True
 
 
 def replicated(x, mesh: Optional[Mesh] = None) -> torch.Tensor:

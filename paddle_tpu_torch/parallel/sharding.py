@@ -1,7 +1,9 @@
 """Parameter and state sharding: rules -> specs -> this rank's slices
-(counterpart of paddle_tpu/parallel/sharding.py, without ``ShardingPlan``,
-which is the static Executor's placement plan: ROADMAP.md Queue 1 item
-9b).
+(counterpart of paddle_tpu/parallel/sharding.py).  ``ShardingPlan`` comes
+with its placement half (the specs of a state and of a feed, the
+fingerprint), which the elastic checkpoints read; the static Executor's
+use of a plan and the sharded embedding are ROADMAP.md Queue 1 items 9 and
+9b.
 
 A spec (``PartitionSpec``, a tuple as the JAX one) says which mesh dim
 splits which tensor dim.  The JAX package places a pytree on the mesh and
@@ -22,12 +24,19 @@ package):
 3. ZeRO: the largest divisible dim of every remaining leaf over dp
    (stage 3 for parameters; fleet's ``sharding`` applies it to the
    optimizer state only, stage 1).
+
+A rank's slice records what it is a slice of: ``place`` (and
+``mark_slice``) set ``sharding_axes`` (the spec) and ``global_shape`` on
+it, which ``slice_spec`` reads back; ``elastic.checkpoint`` writes such a
+slice as the shard of the whole tensor it holds.
 """
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..nn import functional as F
@@ -40,7 +49,8 @@ __all__ = [
     "PartitionSpec", "ShardingRules", "zero_spec", "infer_sharding",
     "place", "shard_params", "layer_annotations", "shard_layer",
     "shard_pytree", "unshard", "ColumnParallelLinear", "RowParallelLinear",
-    "VocabParallelEmbedding", "TRANSFORMER_RULES",
+    "VocabParallelEmbedding", "TRANSFORMER_RULES", "ShardingPlan",
+    "mark_slice", "slice_spec", "spec_index",
 ]
 
 Rules = Sequence[Tuple[str, Sequence[Optional[Union[str, Tuple[str, ...]]]]]]
@@ -190,12 +200,48 @@ def _coords(a, mesh) -> Tuple[int, int]:
     return idx, n
 
 
+def spec_index(spec, shape, mesh, coords=None) -> List[List[int]]:
+    """The ``[[start, stop], ...]`` box of the whole tensor of ``shape``
+    that the rank at mesh ``coords`` ({dim name: index}; default this
+    rank's) holds under ``spec``."""
+    out = []
+    for dim, size in enumerate(shape):
+        a = tuple(spec)[dim] if dim < len(tuple(spec)) else None
+        idx, n = 0, 1
+        for x in _names(a):
+            c = (mesh.axis_index(x) if coords is None
+                 else int(coords.get(x, 0)))
+            idx, n = idx * mesh.shape[x] + c, n * mesh.shape[x]
+        per = int(size) // n
+        out.append([idx * per, (idx + 1) * per])
+    return out
+
+
+def mark_slice(t, spec, global_shape):
+    """Record on ``t``, this rank's slice of a whole tensor of
+    ``global_shape``, the spec it was cut by; returns ``t``."""
+    t.sharding_axes = tuple(spec)
+    t.global_shape = tuple(int(d) for d in global_shape)
+    return t
+
+
+def slice_spec(t) -> Optional[Tuple[tuple, Tuple[int, ...]]]:
+    """(spec, whole shape) of a slice marked by ``place`` / ``mark_slice``,
+    or None for a whole tensor."""
+    shape = getattr(t, "global_shape", None)
+    if shape is None:
+        return None
+    return tuple(t.sharding_axes), tuple(shape)
+
+
 def place(x, spec, mesh=None) -> torch.Tensor:
     """This rank's slice of the whole tensor ``x`` under ``spec``, on the
     rank's device (the JAX package's ``device_put`` with a
-    ``NamedSharding``): a new tensor, never a view of ``x``."""
+    ``NamedSharding``): a new tensor, never a view of ``x``, marked with
+    its spec and ``x``'s shape when ``spec`` splits a dim."""
     mesh = mesh or _mesh.current_mesh()
     t = torch.as_tensor(x)
+    whole = tuple(t.shape)
     for dim, a in enumerate(tuple(spec)):
         if a is None:
             continue
@@ -203,8 +249,12 @@ def place(x, spec, mesh=None) -> torch.Tensor:
         per = t.shape[dim] // n
         t = t.narrow(dim, idx * per, per)
     if mesh.device is not None and t.device != mesh.device:
-        return t.to(mesh.device).contiguous()
-    return t.clone(memory_format=torch.contiguous_format)
+        t = t.to(mesh.device).contiguous()
+    else:
+        t = t.clone(memory_format=torch.contiguous_format)
+    if any(a is not None for a in tuple(spec)):
+        mark_slice(t, spec, whole)
+    return t
 
 
 def shard_params(params: Dict[str, Any], mesh=None,
@@ -272,6 +322,7 @@ def _local(p, spec, mesh):
     q = Parameter(place(p.detach(), spec, mesh), trainable=p.requires_grad,
                   name=p.name, initializer=p.initializer)
     q.sharding_axes = tuple(spec)
+    q.global_shape = tuple(p.shape)
     return q
 
 
@@ -397,6 +448,227 @@ def shard_layer(layer, mesh=None, rules: Optional[ShardingRules] = None,
         owner = layer.get_submodule(path) if path else layer
         setattr(owner, leaf, _local(getattr(owner, leaf), spec, mesh))
     return layer
+
+
+# -- the placement plan ------------------------------------------------------
+
+_plan_tokens = iter(range(1, 1 << 62))
+
+_EMBEDDING_9B = ("vocab-sharded embedding tables (ShardingPlan "
+                 "embedding_shard / embedding_*) come with the sharded "
+                 "embedding, ROADMAP.md Queue 1 item 9b")
+
+
+class _Shape:
+    """A leaf's shape without its values (``infer_sharding`` reads
+    ``.shape`` only)."""
+
+    def __init__(self, shape):
+        self.shape = tuple(int(d) for d in shape)
+
+
+def _leaf_shape(v) -> Tuple[int, ...]:
+    """The whole tensor's shape: a marked slice's ``global_shape``, else
+    the value's own."""
+    marked = slice_spec(v)
+    if marked is not None:
+        return marked[1]
+    return tuple(int(d) for d in np.shape(v)) if not hasattr(v, "shape") \
+        else tuple(int(d) for d in v.shape)
+
+
+class ShardingPlan:
+    """Resolved placement intent on a mesh (the JAX package's
+    ``ShardingPlan``, its placement half).
+
+    One plan = one placement policy: how feed batches split across the mesh
+    (``batch_axes`` / ``seq_axis``) and how a flat persistable-state dict is
+    laid out (``annotations`` > ``rules`` > ZeRO ``zero_stage``, the
+    ``infer_sharding`` precedence; under ZeRO-1/2 the optimizer slots named
+    to ``state_shardings`` split over dp).  The constructor takes the JAX
+    plan's arguments; the specs are the port's ``PartitionSpec``s on the
+    port's ``Mesh`` and ``fingerprint()`` is the JAX plan's string for the
+    same mesh shape and knobs.  ``comm_*`` builds a
+    ``compress.CommOptions``.  ``donate`` is recorded for the fingerprint
+    (the Executor does not take a plan yet: ROADMAP.md Queue 1 item 9).
+    The ``embedding_*`` knobs raise ``NotImplementedError`` (item 9b)."""
+
+    def __init__(self, mesh=None, rules: Optional[ShardingRules] = None,
+                 annotations: Optional[Dict[str, Tuple]] = None,
+                 zero_stage: int = 0,
+                 batch_axes: Sequence[str] = (_mesh.DP_AXIS,),
+                 seq_axis: Optional[str] = None,
+                 donate: bool = True,
+                 devices: Optional[Sequence] = None,
+                 comm_quantize: str = "",
+                 comm_block_size: int = 256,
+                 comm_buffer_mb: float = 25.0,
+                 comm_hierarchy: Any = "auto",
+                 embedding_shard: Optional[Union[str, Dict[str, str]]] = None,
+                 embedding_capacity: Optional[float] = None,
+                 embedding_quantize: str = ""):
+        if mesh is not None and devices is not None:
+            raise ValueError("pass either mesh or devices, not both")
+        if (embedding_shard is not None or embedding_capacity is not None
+                or embedding_quantize):
+            raise NotImplementedError(_EMBEDDING_9B)
+        self._mesh = mesh
+        self._devices = list(devices) if devices is not None else None
+        self.rules = rules
+        self.annotations = dict(annotations) if annotations else None
+        self.zero_stage = int(zero_stage)
+        self.batch_axes = tuple(batch_axes)
+        self.seq_axis = seq_axis
+        self.donate = bool(donate)
+        known_mesh = mesh if mesh is not None else _mesh.get_mesh()
+        _validate_axes(self.batch_axes, known_mesh, "batch_axes")
+        if seq_axis is not None:
+            _validate_axes((seq_axis,), known_mesh, "seq_axis")
+        if self.annotations:
+            for _name, _spec in self.annotations.items():
+                _validate_axes(_spec, known_mesh,
+                               f"annotation for {_name!r}")
+        from . import compress as _compress
+
+        if comm_quantize and comm_quantize != "none" \
+                and comm_quantize not in _compress.COMPRESS_KINDS:
+            from ..static.registry import suggest_names
+
+            suggestion = suggest_names(
+                comm_quantize,
+                candidates=list(_compress.COMPRESS_KINDS) + ["none"])
+            raise ValueError(
+                f"comm_quantize={comm_quantize!r} is not a known kind "
+                f"{_compress.COMPRESS_KINDS}"
+                + (f" — {suggestion}" if suggestion else ""))
+        self.comm = None
+        if comm_quantize:
+            self.comm = _compress.CommOptions(
+                quantize=comm_quantize, block_size=int(comm_block_size),
+                buffer_mb=float(comm_buffer_mb), hierarchy=comm_hierarchy)
+        self.embedding_shard = None
+        self.embedding_capacity = None
+        self.embedding_quantize = ""
+        # identity token (the JAX plan's cheap in-memory cache key)
+        self.token = next(_plan_tokens)
+
+    def comm_scope(self):
+        """Context manager making this plan's comm options ambient (a no-op
+        context when the plan carries none)."""
+        from . import compress as _compress
+        return _compress.comm_scope(self.comm)
+
+    def embedding_axis_for(self, name: str, lookup: bool = False):
+        raise NotImplementedError(_EMBEDDING_9B)
+
+    def bind_embedding_tables(self, program):
+        raise NotImplementedError(_EMBEDDING_9B)
+
+    def embedding_scope(self, program=None):
+        raise NotImplementedError(_EMBEDDING_9B)
+
+    def resolve_mesh(self):
+        """The mesh this plan places onto (resolved once, then pinned).  A
+        ``devices``-only plan gets a one-dim dp mesh over those ranks."""
+        if self._mesh is None:
+            if self._devices is not None:
+                self._mesh = _mesh.build_mesh(
+                    _mesh.MeshConfig(devices=self._devices))
+            else:
+                self._mesh = _mesh.current_mesh()
+        return self._mesh
+
+    def num_devices(self) -> int:
+        return self.resolve_mesh().size
+
+    def _batch_spec_axes(self, mesh) -> Tuple[str, ...]:
+        return tuple(a for a in self.batch_axes if a in mesh.axis_names)
+
+    def batch_divisor(self, mesh=None) -> int:
+        mesh = mesh or self.resolve_mesh()
+        return math.prod(mesh.shape[a] for a in self._batch_spec_axes(mesh))
+
+    def feed_sharding(self, name: str, arr, mesh=None) -> PartitionSpec:
+        """The spec of one feed array: the leading (batch) dim over the
+        batch dims, the second over ``seq_axis`` when it divides; scalars
+        and batch-1 feeds replicate.  An indivisible batch raises."""
+        mesh = mesh or self.resolve_mesh()
+        batch = self._batch_spec_axes(mesh)
+        shape = tuple(np.shape(arr)) if not hasattr(arr, "shape") \
+            else tuple(arr.shape)
+        ndim = len(shape)
+        if not batch or ndim == 0 or shape[0] == 1:
+            return PartitionSpec()
+        n = self.batch_divisor(mesh)
+        if shape[0] % n != 0:
+            raise ValueError(
+                f"data-parallel feed '{name}' batch dim {shape[0]} "
+                f"does not divide the {n} devices (the reference's "
+                "with_data_parallel requires an even split)")
+        spec = [batch if len(batch) > 1 else batch[0]]
+        if (self.seq_axis is not None and self.seq_axis in mesh.axis_names
+                and ndim > 1 and shape[1] % mesh.shape[self.seq_axis] == 0
+                and shape[1] > 1):
+            spec.append(self.seq_axis)
+        return PartitionSpec(*spec)
+
+    def feed_shardings(self, batch: Dict[str, Any],
+                       mesh=None) -> Dict[str, PartitionSpec]:
+        mesh = mesh or self.resolve_mesh()
+        return {k: self.feed_sharding(k, v, mesh) for k, v in batch.items()}
+
+    def state_shardings(self, state: Dict[str, Any], mesh=None,
+                        optimizer_slots=None) -> Dict[str, PartitionSpec]:
+        """The spec of every leaf of a flat state dict (annotations > rules
+        > ZeRO-3 > replicated; a marked slice counts at its whole shape).
+        Under ``zero_stage`` 1-2 the leaves named in ``optimizer_slots``
+        split over dp (``zero_spec``) where nothing else places them."""
+        mesh = mesh or self.resolve_mesh()
+        shapes = {k: _Shape(_leaf_shape(v)) for k, v in state.items()}
+        out = infer_sharding(shapes, mesh, self.rules, self.annotations,
+                             self.zero_stage)
+        if self.zero_stage in (1, 2) and optimizer_slots:
+            for name in optimizer_slots:
+                if name not in state or out.get(name) != PartitionSpec():
+                    continue
+                spec = zero_spec(shapes[name].shape, mesh)
+                if spec != PartitionSpec():
+                    out[name] = spec
+        return out
+
+    def placement_spec(self, name: str, shape: Tuple[int, ...],
+                       mesh=None) -> PartitionSpec:
+        """The spec of one persistable var by name and shape, with the
+        precedence ``state_shardings`` applies."""
+        mesh = mesh or self.resolve_mesh()
+        return infer_sharding({name: _Shape(shape)}, mesh, self.rules,
+                              self.annotations, self.zero_stage)[name]
+
+    def placement_divisor(self, name: str, shape: Tuple[int, ...],
+                          mesh=None) -> int:
+        """How many ways this plan splits the named var (1 = replicated)."""
+        mesh = mesh or self.resolve_mesh()
+        spec = self.placement_spec(name, tuple(shape), mesh)
+        return math.prod(mesh.shape[x] for a in tuple(spec)
+                         for x in _names(a))
+
+    def fingerprint(self) -> str:
+        """Content fingerprint: mesh shape + every placement knob, the JAX
+        plan's string for the same mesh shape and knobs."""
+        mesh = self.resolve_mesh()
+        rules = "-"
+        if self.rules is not None:
+            rules = ";".join(f"{p.pattern}->{a}"
+                             for p, a in self.rules.rules)
+        ann = "-"
+        if self.annotations:
+            ann = ";".join(f"{k}->{v}"
+                           for k, v in sorted(self.annotations.items()))
+        comm = self.comm.signature() if self.comm is not None else "-"
+        return (f"{_mesh.mesh_fingerprint(mesh)}|batch={self.batch_axes}"
+                f"|seq={self.seq_axis}|zero={self.zero_stage}"
+                f"|donate={int(self.donate)}|rules={rules}|ann={ann}"
+                f"|comm={comm}|emb=-")
 
 
 # Default rule table for transformer-family models (ERNIE/BERT/GPT blocks):

@@ -61,6 +61,7 @@ from ..parallel.sharding import (
     PartitionSpec,
     TRANSFORMER_RULES,
     infer_sharding,
+    mark_slice,
     place,
     shard_layer,
     unshard,
@@ -536,16 +537,26 @@ class HybridPretrainer:
     # -- train step ---------------------------------------------------------
     def init_opt_state(self, optimizer, params):
         """``optimizer.init`` over this rank's parameter slices (their
-        dp slices under ZeRO-1), keyed "<group>/<name>"."""
+        dp slices under ZeRO-1), keyed "<group>/<name>".  A ZeRO-1 slot is
+        marked as the dp slice of its parameter's whole shape
+        (``sharding.mark_slice``), so an elastic checkpoint writes it as
+        one."""
         zero = self._zero_dims(params)
-        flat = {}
+        flat, whole = {}, {}
         for g, leaves in params.items():
             for k, v in leaves.items():
                 dim = zero.get((g, k))
                 if dim is not None:
+                    whole[f"{g}/{k}"] = (dim, tuple(v.shape))
                     v = place(v, (None,) * dim + (_mesh.DP_AXIS,), self.mesh)
                 flat[f"{g}/{k}"] = v
-        return optimizer.init(flat)
+        state = optimizer.init(flat)
+        for name, (dim, shape) in whole.items():
+            for slot in state["per_param"][name]:
+                if isinstance(slot, torch.Tensor) and \
+                        tuple(slot.shape) == tuple(flat[name].shape):
+                    mark_slice(slot, (None,) * dim + (_mesh.DP_AXIS,), shape)
+        return state
 
     def _update(self, optimizer, grads, opt_state, params, zero):
         flat_g, flat_p = {}, {}

@@ -18,10 +18,11 @@ the JAX package's does.
 
 Writes are atomic (tmp file in the target directory + ``os.replace`` per
 file; the .npz — the file ``load`` keys its existence check on — lands
-last), so a crashed saver never leaves a load-able half checkpoint.  The
-JAX package's ``load`` also reads the elastic manifest layout (a directory
-holding ``manifest.json``); that route waits for ``elastic/`` (ROADMAP.md
-Queue 1 item 8c) and raises until then.
+last), so a crashed saver never leaves a load-able half checkpoint.
+Sharded/resharding checkpoints live in elastic/checkpoint.py; ``load``
+recognizes that manifest layout when handed one (a directory containing
+``manifest.json``, written by either package) and returns the gathered
+flat state dict, so callers keep a single load entry point.
 """
 from __future__ import annotations
 
@@ -110,9 +111,10 @@ def save(state: Any, path: str) -> None:
 def load(path: str) -> Any:
     if os.path.isdir(path) and os.path.exists(
             os.path.join(path, MANIFEST_NAME)):
-        raise NotImplementedError(
-            f"{path} is an elastic manifest checkpoint; reading one needs "
-            "the port of elastic/ (ROADMAP.md Queue 1 item 8c)")
+        from ..elastic import checkpoint as _eckpt
+
+        state, _meta = _eckpt.read_state(path)
+        return state
     npz_path = path + ".npz" if not path.endswith(".npz") else path
     if not os.path.exists(npz_path):
         raise FileNotFoundError(npz_path)

@@ -4,8 +4,9 @@ Only what the ported paths record is copied: thread-safe ``Counter``,
 ``Gauge`` and ``Histogram`` metrics with optional labels, ``.value()`` and
 the bucket-interpolated ``percentile`` estimator, and get-or-create
 ``counter`` / ``gauge`` / ``histogram`` on a process-wide default registry,
-and the reads the profiler's chrome export takes (``samples``,
-``MetricRegistry.metrics``).
+the read-time gauge (``Gauge.set_function`` / ``remove``, which the PS
+server uses), and the reads the profiler's chrome export takes
+(``samples``, ``MetricRegistry.get`` / ``metrics``).
 Collection is gated by the ``metrics`` flag (``PDTPU_FLAGS_metrics``,
 default on): with it off every instrumented path still runs but records
 nothing.  Exporters, metric history and the SLO engine are not ported yet.
@@ -18,7 +19,7 @@ from __future__ import annotations
 import math
 import re
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core import flags as _flags
 
@@ -89,9 +90,16 @@ class Counter(Metric):
 
 
 class Gauge(Metric):
-    """Last-written value."""
+    """Last-written value; optionally computed at read time through
+    ``set_function`` (the callback gauge the PS server's heartbeat age
+    uses)."""
 
     kind = "gauge"
+
+    def __init__(self, name: str, description: str = "",
+                 labelnames: Sequence[str] = ()):
+        super().__init__(name, description, labelnames)
+        self._functions: Dict[Tuple[str, ...], Callable[[], float]] = {}
 
     def set(self, value: float, **labels) -> None:
         key = self._key(labels)
@@ -100,9 +108,42 @@ class Gauge(Metric):
         with self._lock:
             self._cells[key] = value
 
-    def value(self, **labels):
+    def set_function(self, fn: Callable[[], float], **labels) -> None:
+        """Register ``fn`` to produce this sample's value when it is read."""
+        key = self._key(labels)
         with self._lock:
-            return self._cells.get(self._key(labels), 0)
+            self._functions[key] = fn
+
+    def remove(self, **labels) -> None:
+        """Drop the sample (and any read-time function) for ``labels``."""
+        key = self._key(labels)
+        with self._lock:
+            self._cells.pop(key, None)
+            self._functions.pop(key, None)
+
+    def value(self, **labels):
+        key = self._key(labels)
+        with self._lock:
+            fn = self._functions.get(key)
+            if fn is None:
+                return self._cells.get(key, 0)
+        try:
+            return fn()
+        except Exception:
+            return math.nan
+
+    def samples(self) -> List[Tuple[Dict[str, str], Any]]:
+        with self._lock:
+            items = dict(self._cells)
+            fns = list(self._functions.items())
+        if fns and enabled():
+            # evaluated outside the lock; a raising callback reads as nan
+            for key, fn in fns:
+                try:
+                    items[key] = fn()
+                except Exception:
+                    items[key] = math.nan
+        return [(dict(zip(self.labelnames, k)), v) for k, v in items.items()]
 
 
 class _HistCell:
@@ -224,6 +265,10 @@ class MetricRegistry:
                   buckets: Optional[Sequence[float]] = None) -> Histogram:
         return self._get_or_create(Histogram, name, description, labelnames,
                                    buckets=buckets)
+
+    def get(self, name: str) -> Optional[Metric]:
+        with self._lock:
+            return self._metrics.get(name)
 
     def names(self) -> List[str]:
         with self._lock:

@@ -169,18 +169,32 @@ def test_localsgd_in_one_process_is_the_inner_optimizer():
 @pytest.mark.parametrize("flag,item", [("sharding", "8b"), ("pipeline", "8b"),
                                        ("sequence_parallel", "8b"),
                                        ("elastic", "8c")])
-def test_later_strategies_raise(flag, item):
-    """Item 8b's switches are taken (text.pretrainer reads them); the
-    elastic configuration still raises, naming item 8c."""
+def test_later_strategies_raise(flag, item, tmp_path):
+    """Items 8b's and 8c's switches are taken now (text.pretrainer reads
+    8b's); none raises.  ``elastic`` with an ``ElasticConfig`` sets the
+    elastic_* flags in ``Fleet.init``, as the JAX package's does."""
     s = _strategy(TF, **{flag: True})
+    TF.DistributedOptimizer(TO.SGD(0.1), s)
     if item == "8b":
-        TF.DistributedOptimizer(TO.SGD(0.1), s)
-        TF._not_in_this_slice(s)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        TF.DistributedOptimizer(TO.SGD(0.1), s)
-    with pytest.raises(NotImplementedError, match=item):
-        TF.Fleet().init(strategy=s)
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.core import flags as tflags
+    from paddle_tpu_torch.parallel import mesh as tmesh
+
+    s.elastic_configs.save_every = 3
+    s.elastic_configs.ckpt_dir = str(tmp_path)
+    s.elastic_configs.keep_last = 4
+    names = ["elastic_save_every", "elastic_ckpt_dir", "elastic_keep_last"]
+    saved = tflags.get_flags(names)
+    try:
+        with tdevice.device_guard("cpu"):
+            TF.Fleet().init(strategy=s)
+        assert tflags.get_flags(names) == {
+            "elastic_save_every": 3, "elastic_ckpt_dir": str(tmp_path),
+            "elastic_keep_last": 4}
+    finally:
+        tmesh.shutdown_parallel_env(barrier=False)
+        tflags.set_flags(saved)
 
 
 def test_plan_helpers_and_bad_quantize():

@@ -21,9 +21,10 @@ Queue 3); both train from the same weights, carried by
   state dict (the same ``arr_i`` in the same order, bit for bit, as does
   ``Model.save``'s ``.pdparams``); ``save`` / ``load`` round-trips the
   parameters and the optimizer state bit for bit; a manifest directory
-  raises;
-* ``fit`` refuses the elastic and watchdog flags it cannot honour yet;
-  ``_LazyLogs`` reads lazily.
+  (the JAX package's elastic checkpoint) loads, a torn one raises;
+* ``fit`` refuses the watchdog flags it cannot honour yet and writes the
+  periodic elastic checkpoints of the elastic flags; ``_LazyLogs`` reads
+  lazily.
 """
 import os
 
@@ -267,19 +268,30 @@ def test_lazy_logs_read_on_demand():
     assert logs.copy() == {"step": 3, "loss": 0.5}
 
 
-def test_fit_refuses_the_flags_it_cannot_honour():
+def test_fit_refuses_the_flags_it_cannot_honour(tmp_path):
+    """The watchdog flag still raises (item 10); the elastic flags are
+    honoured since the port of elastic/ (a checkpoint every 2 steps)."""
+    from paddle_tpu_torch.elastic import checkpoint as teckpt
+
     _, tm = _lenet_models()
     ds = TV.datasets.MNIST(mode="train", synthetic_size=16)
-    for flags, item in (({"elastic_save_every": 2,
-                          "elastic_ckpt_dir": "/nonexistent"}, "item 8"),
-                        ({"watchdog": True}, "item 10")):
-        saved = tflags.get_flags(list(flags))
-        tflags.set_flags(flags)
-        try:
-            with pytest.raises(NotImplementedError, match=item):
-                tm.fit(ds, batch_size=16, verbose=0)
-        finally:
-            tflags.set_flags(saved)
+    flags = {"watchdog": True}
+    saved = tflags.get_flags(list(flags))
+    tflags.set_flags(flags)
+    try:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tm.fit(ds, batch_size=16, verbose=0)
+    finally:
+        tflags.set_flags(saved)
+    flags = {"elastic_save_every": 2, "elastic_ckpt_dir": str(tmp_path)}
+    saved = tflags.get_flags(list(flags))
+    tflags.set_flags(flags)
+    try:
+        tm.fit(TV.datasets.MNIST(mode="train", synthetic_size=64),
+               batch_size=16, verbose=0)
+    finally:
+        tflags.set_flags(saved)
+    assert teckpt.list_steps(str(tmp_path)) == [2, 4]
 
 
 # -- checkpoints -------------------------------------------------------------
@@ -313,10 +325,18 @@ def test_checkpoint_npz_is_the_reference_file(tmp_path):
         str(tmp_path / "jm.pdparams"))
     assert list(got) == list(ref)
     assert all(np.array_equal(got[k], ref[k]) for k in ref)
-    (tmp_path / "elastic").mkdir()
-    (tmp_path / "elastic" / "manifest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcheckpoint.load(str(tmp_path / "elastic"))
+    from paddle_tpu.elastic import checkpoint as jeckpt
+    from paddle_tpu_torch.elastic.checkpoint import CheckpointError
+
+    flat = {k: np.asarray(v) for k, v in jm.network.state_dict().items()}
+    jeckpt.write_state(str(tmp_path / "elastic"), flat, step=3)
+    back = tcheckpoint.load(str(tmp_path / "elastic"))
+    assert sorted(back) == sorted(flat)
+    assert all(np.array_equal(back[k], flat[k]) for k in flat)
+    (tmp_path / "torn").mkdir()
+    (tmp_path / "torn" / "manifest.json").write_text("{}")
+    with pytest.raises(CheckpointError, match="unreadable"):
+        tcheckpoint.load(str(tmp_path / "torn"))
 
 
 def test_save_load_round_trips_parameters_and_optimizer_state(tmp_path):

@@ -10,6 +10,13 @@ rendezvous on a free port the launcher picks, and run under a hard
 timeout that kills the whole process group, so a hang fails the tests of
 one job instead of running out the suite's clock.
 
+Each rank ends with ``shutdown_parallel_env()`` (a barrier, then its
+process groups destroyed and collected): a group left for interpreter
+exit aborted a rank after its last case now and then.  The check, the
+pair job 20 times beside six busy processes::
+
+    python -m pytest tests/test_torch_parallel_teardown.py -m slow
+
 The inputs are made from numpy seeds by functions here, which the worker
 and the tests both call.
 """
@@ -267,3 +274,21 @@ def nested_params(flat):
         g, k = key.split("/", 1)
         out.setdefault(g, {})[k] = v
     return out
+
+
+# -- elastic checkpoints (tests/test_torch_elastic_checkpoint.py) ------------
+
+# the optimizer slots of elastic_state(): ZeRO-1 splits them over dp
+ELASTIC_SLOTS = ("opt/w.m", "opt/b.m")
+
+
+def elastic_state(seed=90):
+    """A flat state: parameters, their moments, a scalar and an int leaf
+    that 4 ranks do not divide."""
+    rng = np.random.default_rng(seed)
+    return {"param/w": rng.normal(size=(64, 16)).astype(np.float32),
+            "param/b": rng.normal(size=(16,)).astype(np.float32),
+            "opt/w.m": rng.normal(size=(64, 16)).astype(np.float32),
+            "opt/b.m": rng.normal(size=(16,)).astype(np.float32),
+            "scalar": np.float32(3.5),
+            "count": np.arange(6, dtype=np.int32)}

@@ -458,6 +458,56 @@ def group_dp_sp(rank, out_dir):
                 "coords": np.array([m.axis_index("dp"), m.axis_index("sp")])}
 
 
+@case
+def elastic_save_dp4(rank, out_dir):
+    """Four ranks write two checkpoints of ``elastic_state``: ZeRO-3 (each
+    leaf this rank's placed slice) and ZeRO-1 (the moments this rank's dp
+    slice, the parameters whole)."""
+    from paddle_tpu_torch.elastic import checkpoint as ec
+    from paddle_tpu_torch.parallel.sharding import ShardingPlan, place
+
+    st = J.elastic_state()
+    plan3 = ShardingPlan(zero_stage=3, donate=False)
+    specs = plan3.state_shardings(st)
+    ec.save_checkpoint(str(Path(out_dir) / "port_zero3"),
+                       {k: place(v, specs[k]) for k, v in st.items()}, 7,
+                       plan=plan3)
+    plan1 = ShardingPlan(zero_stage=1, donate=False)
+    specs1 = plan1.state_shardings(st, optimizer_slots=J.ELASTIC_SLOTS)
+    local = {k: place(v, specs1[k]) if k in J.ELASTIC_SLOTS
+             else torch.from_numpy(np.asarray(v)) for k, v in st.items()}
+    ec.save_checkpoint(str(Path(out_dir) / "port_zero1"), local, 8,
+                       plan=plan1, optimizer_slots=J.ELASTIC_SLOTS)
+    return {"plan3": np.array(plan3.fingerprint()),
+            "moment_rows": np.array(local["opt/w.m"].shape[0])}
+
+
+@case
+def elastic_restore_dp2(rank, out_dir):
+    """Two ranks restore the JAX package's 4-way ZeRO-3 checkpoint under a
+    dp2 ZeRO-3 plan and the 4-rank ZeRO-1 one under a dp2 ZeRO-1 plan;
+    each rank's slices, their specs and the reshard counts."""
+    from paddle_tpu_torch.elastic import checkpoint as ec
+    from paddle_tpu_torch.parallel.sharding import ShardingPlan, slice_spec
+
+    res = {}
+    for tag, plan, slots in (
+            ("jax3", ShardingPlan(zero_stage=3, donate=False), None),
+            ("zero1", ShardingPlan(zero_stage=1, donate=False),
+             J.ELASTIC_SLOTS)):
+        ckpt = "jax_zero3" if tag == "jax3" else "port_zero1"
+        state, meta = ec.restore_checkpoint(str(Path(out_dir) / ckpt),
+                                            plan=plan, optimizer_slots=slots)
+        res[f"{tag}/resharded"] = np.array(meta["resharded_leaves"])
+        res[f"{tag}/step"] = np.array(meta["step"])
+        for k, v in state.items():
+            res[f"{tag}/{k}"] = _np(v)
+            marked = slice_spec(v)
+            res[f"{tag}/spec/{k}"] = np.array(
+                repr(None if marked is None else marked[0]))
+    return res
+
+
 class _GradCapture:
     """An optimizer whose update keeps the gradients and moves nothing."""
 
@@ -531,7 +581,8 @@ for _name in J.HYBRID_MESHES:
 def main():
     out_dir = Path(sys.argv[1])
     import paddle_tpu_torch as P
-    from paddle_tpu_torch.distributed import fleet, get_rank
+    from paddle_tpu_torch.distributed import (fleet, get_rank,
+                                              shutdown_parallel_env)
 
     torch.set_num_threads(1)
     P.set_device("cpu")
@@ -542,7 +593,10 @@ def main():
         tmp = out_dir / f".{name}.rank{rank}.npz"
         np.savez(tmp, **res)
         os.replace(tmp, out_dir / f"{name}.rank{rank}.npz")
-    torch.distributed.destroy_process_group()
+    # a barrier, then the process groups destroyed and collected while
+    # the interpreter is whole (a group left to interpreter exit aborted
+    # the rank with "terminate called without an active exception")
+    shutdown_parallel_env()
 
 
 if __name__ == "__main__":
