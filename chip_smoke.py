@@ -484,6 +484,35 @@ Phases (any failed check raises, so the script exits non-zero):
               the primary stops, a ``StandbyServer`` promotes and serves
               the snapshot's rows bit for bit, and two more steps train
               against it.
+28. static-book -- the static graph's model-building surface: (a) the
+              book's vgg16_bn_drop (b128 fp32, random BN statistics;
+              every part's weights from a fixed program seed) through
+              ``save_inference_model``, loaded by
+              ``load_inference_model`` into a fresh Scope and Executor and
+              run under DEFAULT_PIPELINE: 10 / 4 launches of rows 10 / 13
+              a forward and no other, the fetches bit for bit the
+              in-memory program's (same op order); then ``static.save``
+              and ``PostTrainingQuantization(model_prefix=...)`` at the
+              int8 phase's calibration, ``save_quantized_model``,
+              ``static.load`` and QUANT_INFER_PIPELINE: 10 / 2 / 4
+              launches of rows 15 / 14 / 13 and no other, the kernels
+              against their plain wrappers (1e-6), bit for bit the same
+              PTQ through ``program=`` on the same state and batch, top-1
+              agreement with fp32 printed beside the fp32 top-2 gap and
+              the int8 logits' deviation; (b) the
+              label-semantic-roles db_lstm at Paddle v1.8's widths
+              (word_dim 32, mark_dim 5, hidden 512, depth 8, batch 10,
+              maxlen 64 from the Conll05st synthetic corpus): 4 SGD steps
+              at 0.01 (fp32, TF32 off) whose losses agree with the CPU's
+              within 1e-4, then its crf_decoding program saved, reloaded
+              and decoded: paths equal the in-memory program's wherever
+              the Viterbi margin exceeds 1e-4; (c) the book's
+              machine-translation greedy decode on ``while_loop``
+              (dict 30000, word_dim 32, hidden 32, max_length 8) at batch
+              2 and 64, ids equal to the CPU's, and a ``cond`` program
+              on both branches equal to the CPU's.  No port kernel
+              launches in (b) and (c).  Printed: forward and step ms,
+              peak memory, launches and busy share of each part.
 Phases 17-20 and 23 run right after the build (and row 11's profile),
 before the first CUDA graph capture: the card's profiler loses eager
 launches after one; phases 21-22 follow them.
@@ -494,14 +523,16 @@ Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"recipe": ...}``, ``{"seq2seq": ...}``, ``{"dygraph_quant": ...}``,
 ``{"ops": ...}``, ``{"dygraph": ...}``, ``{"tagging": ...}``,
 ``{"rnn": ...}``, ``{"resnet": ...}``, ``{"yolo": ...}``, ``{"hapi":
-...}``, ``{"dp": ...}``, ``{"hybrid": ...}`` and ``{"kernels": [...]}``
+...}``, ``{"dp": ...}``, ``{"hybrid": ...}``, ``{"elastic": ...}``,
+``{"heter_ps": ...}``, ``{"static_book": ...}`` and ``{"kernels": [...]}``
 JSON lines (one kernel entry for each of the 15 TPU kernels; rows 10 and
 13-15 with their launches on the static-train path, rows 11-13 with their
 cold times, rows 1, 2 and 5-8 with their launches on each path of phases
 14-16, 18, 19 and 23, every row with its launches on phases 21 and 22's
 paths, 0, on phase 24's data-parallel step, ``dp_launches``, and on phase
 25's world-1 hybrid step and each mesh's step, ``hybrid_launches`` /
-``hybrid_mesh_launches``) and the card's name and power limit;
+``hybrid_mesh_launches``, and on phase 28's reloaded fp32 and int8
+forwards, ``static_book_launches``) and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -819,15 +850,37 @@ def profiled_ms(fn, reps=20, warmup=3):
 
 
 def device_events(prof):
-    """(device us, count, name) of each kernel a profile recorded."""
+    """(device us, count, name) of each kernel a profile recorded, summed
+    by name: the device rows of ``prof.key_averages()``, read from the raw
+    events (raw_events)."""
+    return by_name((name, ns) for dev, name, _, ns in raw_events(prof)
+                   if dev)
+
+
+def by_name(events):
+    """(us, count, name) of each name among (name, ns) pairs."""
+    us, count = {}, {}
+    for name, ns in events:
+        us[name] = us.get(name, 0.0) + ns / 1e3
+        count[name] = count.get(name, 0) + 1
+    return [(us[k], count[k], k) for k in us]
+
+
+def raw_events(prof):
+    """(on the device, name, start ns, duration ns) of each event a
+    finished torch.profiler run recorded, read from its raw results.
+    ``prof.events()`` and ``key_averages()`` build a FunctionEvent tree
+    first: for the 213818 events of a paged slice run of 32 requests
+    that took 28.7 s, against 2.3 s here, with the same sums
+    (phase_experiments.py --phases paged_read)."""
+    cuda = torch.autograd.DeviceType.CUDA
     out = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.name() == "[memory]" or getattr(e, "is_hidden_event",
+                                             lambda: False)():
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        out.append((us, e.count, e.key))
+        out.append((e.device_type() == cuda, e.name(), e.start_ns(),
+                    e.duration_ns()))
     return out
 
 
@@ -2458,8 +2511,8 @@ def paged_slice_phase(seed):
 
     # row 9's device time over runs of the first profile_requests
     # requests, prefill chunks and decode steps (the profile of a whole
-    # run took ~95 s of trace processing a KV type; the script's run has a
-    # time limit)
+    # run took ~95 s of trace processing a KV type, 32 requests ~30 s; the
+    # script's run has a time limit)
     sub = prompts[:cfg["profile_requests"]]
     slices = {kv: slice_device_time(
         model, sub, cfg, kv, serve_once(model, sub, cfg, kv_dtype=kv)[
@@ -2499,21 +2552,21 @@ def slice_device_time(model, prompts, cfg, kv_dtype, tokens, log_as=None,
                              ProfilerActivity.CUDA]) as prof:
         run = serve_once(model, prompts, cfg, kv_dtype=kv_dtype,
                          ranges=True, cache=cache)
+    t_read = time.perf_counter()
+    raw = raw_events(prof)
     # the ranges' own device-side spans are not kernels
-    events = [e for e in device_events(prof) if e[2] not in SLICE_RANGES]
-    total = sum(us for us, _, name in events if kernels.search(name)) / 1e3
-    cpu = torch.autograd.DeviceType.CPU
-    all_events = prof.events()
-    ranges = sorted((e.time_range.start, e.name) for e in all_events
-                    if e.name in SLICE_RANGES and e.device_type == cpu)
+    events = [(name, start, ns) for dev, name, start, ns in raw
+              if dev and name not in SLICE_RANGES]
+    total = sum(ns for name, _, ns in events if kernels.search(name)) / 1e6
+    ranges = sorted((start, name) for dev, name, start, _ in raw
+                    if not dev and name in SLICE_RANGES)
     starts = [r[0] for r in ranges]
     by_range = dict.fromkeys(SLICE_RANGES, 0.0)
-    for e in all_events:
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and kernels.search(e.name)):
-            i = bisect.bisect_right(starts, e.time_range.start) - 1
+    for name, start, ns in events:
+        if kernels.search(name):
+            i = bisect.bisect_right(starts, start) - 1
             if i >= 0:
-                by_range[ranges[i][1]] += e.time_range.elapsed_us() / 1e3
+                by_range[ranges[i][1]] += ns / 1e6
     prefill, decode = by_range[SLICE_RANGES[0]], by_range[SLICE_RANGES[1]]
     label = log_as or f"paged slice run, {kv_dtype} KV"
     check(run["tokens"] == tokens, f"{label}: tokens under the profiler "
@@ -2521,20 +2574,22 @@ def slice_device_time(model, prompts, cfg, kv_dtype, tokens, log_as=None,
     check(abs(prefill + decode - total) <= 1e-3 * total, f"{label}: row 9's "
           f"{total:.3f} ms of device time = prefill chunks {prefill:.3f} ms "
           f"+ decode steps {decode:.3f} ms")
-    busy = sum(us for us, _, _ in events) / 1e3
-    by_kernel = sorted(((us / 1e3, n, name) for us, n, name in events),
-                       reverse=True)
+    busy = sum(ns for _, _, ns in events) / 1e6
+    by_kernel = sorted(((us / 1e3, n, name) for us, n, name in by_name(
+        (name, ns) for name, _, ns in events)), reverse=True)
+    read_s = time.perf_counter() - t_read
     log(f"[profile] {label}, {len(prompts)} requests: row 9 {total:.3f} ms "
         f"of device time ({run['launches']} launches: {run['chunks']} "
         f"prefill chunks {prefill:.3f} ms, {run['decode_steps']} decode "
         f"steps {decode:.3f} ms); device busy {busy:.2f} ms (cache built "
-        f"before the profile), by kernel:")
+        f"before the profile; {len(raw)} events read in {read_s:.1f} s), "
+        f"by kernel:")
     for ms, n, name in by_kernel[:15]:
         log(f"  {ms:9.3f} ms  x{n:<6d} {name[:100]}")
     return dict(row9_ms=total, prefill_ms=prefill, decode_ms=decode,
                 launches=run["launches"], prefill_chunks=run["chunks"],
                 decode_steps=run["decode_steps"], busy_ms=busy,
-                wall_s=run["wall_s"],
+                wall_s=run["wall_s"], events=len(raw), read_s=read_s,
                 busy_by_kernel=[dict(name=name, ms=ms, calls=n)
                                 for ms, n, name in by_kernel[:15]])
 
@@ -8356,6 +8411,484 @@ def heter_ps_phase(seed):
     return counts, out
 
 
+# -- phase 28: the static graph's model-building surface ---------------------
+
+# (b) The book's label-semantic-roles db_lstm (Paddle v1.8
+# python/paddle/fluid/tests/book/test_label_semantic_roles.py): word_dim 32,
+# mark_dim 5, hidden_dim 512 (dynamic_lstm size, 4 x 128 hidden), depth 8,
+# BATCH_SIZE 10, SGD at 0.01; sequences from the port's Conll05st synthetic
+# corpus (maxlen 64) picked with the seed.  The reference's word embedding
+# is frozen (trainable=False): here it is left out of the parameter list.
+# Its crfw learning-rate scale (1e-3) is not carried: the port's static
+# optimizers take no per-parameter rate, so crfw trains at 0.01.
+SRL = dict(word_dim=32, mark_dim=5, hidden=512, depth=8, batch=10,
+           maxlen=64, lr=0.01, steps=4)
+# (c) The book's machine-translation greedy decode on while_loop
+# (tests/test_book_machine_translation.py _decoder_decode) at the
+# reference's dict_size 30000, word_dim 32, hidden_dim 32, max_length 8;
+# the source padded to 16.
+MT = dict(dict_size=30000, word_dim=32, hidden=32, max_length=8,
+          src_len=16, batches=(2, 64))
+# The db_lstm's 4 losses on the card against the same program, state and
+# feeds on the CPU (fp32, TF32 off): relative to the CPU's loss.
+TOL_BOOK_LOSS_REL = 1e-4
+# The reloaded VGG-16 against the in-memory program: the same ops in the
+# same order on the same state give the same bits; were the op order
+# another, TOL_STATIC_REL would apply.
+TOL_RELOAD_REL = 0.0
+
+
+def _book_vgg(static, exe, seed, tmp):
+    """(a): vgg16_bn_drop b128 fp32 saved, reloaded into a fresh Scope and
+    Executor, run under DEFAULT_PIPELINE; then PTQ from a saved prefix,
+    save_quantized_model, load, QUANT_INFER_PIPELINE."""
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.slim.quant_static import PostTrainingQuantization
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import nets
+    from paddle_tpu_torch.static import passes as P
+
+    batch = STATIC_BATCH["vgg16_bn_drop"]
+    # a nonzero program seed: at 0 the startup would draw its weights from
+    # the process's generator, whose state depends on the phases before
+    main, startup, fetches = vgg16_bn_drop(static, L, nets, seed + 28)
+    test = main.clone(for_test=True)
+    rng = np.random.default_rng(seed + 28)
+    scope = bn_state(static, startup, test, rng)
+    feed = {"img": rng.standard_normal((batch, 3, 32, 32)).astype(np.float32)}
+    d = os.path.join(tmp, "vgg16_bn_drop")
+    t0 = time.perf_counter()
+    static.save_inference_model(d, ["img"], fetches, exe, main_program=test,
+                                scope=scope)
+    save_s = time.perf_counter() - t0
+    lscope = static.Scope()
+    lexe = static.Executor(DEV)
+    t0 = time.perf_counter()
+    prog, feeds, lfetches = static.load_inference_model(d, lexe,
+                                                        scope=lscope)
+    load_s = time.perf_counter() - t0
+    check(feeds == ["img"] and lfetches == fetches, f"[book] (a) reloaded "
+          f"feeds {feeds} and fetches {lfetches}")
+    same_order = [op.type for op in prog.global_block().ops] == \
+        [op.type for op in test.global_block().ops]
+    out = dict(batch=batch, save_s=save_s, load_s=load_s,
+               same_op_order=same_order,
+               params_mb=sum(os.path.getsize(os.path.join(d, f))
+                             for f in os.listdir(d)) / 1e6)
+    with opt_passes("default"):
+        ref = run_static(exe, test, feed, fetches, scope)
+        run_static(lexe, prog, feed, lfetches, lscope)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        config.reset_counts()
+        got = run_static(lexe, prog, feed, lfetches, lscope)
+        torch.cuda.synchronize()
+        fp32_counts = config.launch_counts()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = STATIC_LAUNCHES["vgg16_bn_drop"]
+        check(fp32_counts == want, f"[book] (a) reloaded fp32 VGG-16: "
+              f"launches {fp32_counts} a forward (want {want}, no other)")
+        tol = TOL_RELOAD_REL if same_order else TOL_STATIC_REL
+        errs = [rel_err(g, r) for g, r in zip(got, ref)]
+        check(max(errs) <= tol, f"[book] (a) reloaded fetches vs the "
+              f"in-memory program: rel err {max(errs):.3g} <= {tol} "
+              f"({'bit for bit: same op order' if same_order else 'op order differs: the static phase tolerance'})")
+        out["reload_rel_err"] = max(errs)
+        out["fp32_forward_ms"] = _events_ms(
+            lambda: run_static(lexe, prog, feed, lfetches, lscope), 5)
+        out["fp32_profile"] = profile_forward(
+            lexe, prog, feed, lfetches, lscope, what="reloaded VGG-16 fp32")
+    # PTQ from a saved prefix (the JAX route: static.io.load), at the int8
+    # phase's calibration: one batch
+    prefix = os.path.join(tmp, "vgg_fp32", "model")
+    static.save(prog, prefix, lexe, scope=lscope, fetches=lfetches)
+    qscope = static.Scope()
+    with opt_passes(""):
+        t0 = time.perf_counter()
+        ptq = PostTrainingQuantization(
+            lexe, model_prefix=prefix,
+            batch_generator=lambda: iter([feed]), batch_nums=1,
+            scope=qscope)
+        check(ptq.feed_names == ["img"], f"[book] (a) PTQ feeds "
+              f"{ptq.feed_names} from the saved prefix")
+        ptq.quantize()
+        qprefix = os.path.join(tmp, "vgg_int8", "model")
+        ptq.save_quantized_model(qprefix)
+        out["ptq_s"] = time.perf_counter() - t0
+        iscope = static.Scope()
+        qprog, _, _ = static.load(qprefix, lexe, scope=iscope)
+        rewritten, report = P.PassManager(P.QUANT_INFER_PIPELINE).apply(
+            qprog, {"img"}, lfetches)
+        types = [op.type for op in rewritten.global_block().ops]
+        out["quant_ops"] = {t: types.count(t) for t in ("quant_conv2d",
+                                                       "quant_mul")}
+        run_static(lexe, rewritten, feed, lfetches, iscope)
+        torch.cuda.synchronize()
+        config.reset_counts()
+        qout = run_static(lexe, rewritten, feed, lfetches, iscope)
+        torch.cuda.synchronize()
+        int8_counts = config.launch_counts()
+        want = dict(INT8_LAUNCHES["vgg16_bn_drop"],
+                    max_pool2d=STATIC_LAUNCHES["vgg16_bn_drop"]["max_pool2d"])
+        check(int8_counts == want, f"[book] (a) reloaded int8 VGG-16: "
+              f"launches {int8_counts} a forward (want {want}, no other)")
+        check(all(torch.isfinite(t).all() for t in qout),
+              "[book] (a) finite int8 fetches")
+        with int8_plain():
+            plain = run_static(lexe, rewritten, feed, lfetches, iscope)
+        e_plain = max(rel_err(g, r) for g, r in zip(qout, plain))
+        check(e_plain <= TOL_INT8_PLAIN_REL, f"[book] (a) reloaded int8 "
+              f"program, kernels vs plain wrappers: rel err {e_plain:.3g} "
+              f"<= {TOL_INT8_PLAIN_REL}")
+        # the same PTQ through program= on the same fp32 state and
+        # calibration batch, never saved: the prefix route's save, load and
+        # calibration from a loaded program must change no bit
+        dscope = copy_scope(static, lscope)
+        dprog = PostTrainingQuantization(
+            lexe, program=prog.clone(for_test=True), feed_names=["img"],
+            batch_generator=lambda: iter([feed]), batch_nums=1,
+            scope=dscope).quantize()
+        drew, _ = P.PassManager(P.QUANT_INFER_PIPELINE).apply(
+            dprog, {"img"}, lfetches)
+        dout = run_static(lexe, drew, feed, lfetches, dscope)
+        e_route = max(max_abs(a, b) for a, b in zip(qout, dout))
+        check(e_route == 0.0, f"[book] (a) PTQ through model_prefix= and "
+              f"save / load vs PTQ through program= on the same state and "
+              f"batch: max abs diff {e_route:.3g} (bit for bit)")
+        del dscope
+        top1 = float((qout[1].argmax(1) == got[1].argmax(1)).float().mean())
+        # where top-1 differs: the fp32 logits' top-2 gap beside the int8
+        # logits' deviation from them, per image
+        gap = torch.topk(got[0], 2, dim=1).values
+        gap = gap[:, 0] - gap[:, 1]
+        dev = (qout[0] - got[0]).abs().max(1).values
+        out.update(int8_launches=int8_counts, int8_vs_plain_rel_err=e_plain,
+                   int8_top1_agreement_with_fp32=top1,
+                   ptq_prefix_vs_program_max_abs=e_route,
+                   fp32_top2_gap_median=float(gap.median()),
+                   int8_logit_dev_median=float(dev.median()),
+                   fp32_logit_abs_max=float(got[0].abs().max()),
+                   int8_forward_ms=_events_ms(lambda: run_static(
+                       lexe, rewritten, feed, lfetches, iscope), 5),
+                   int8_profile=profile_forward(
+                       lexe, rewritten, feed, lfetches, iscope,
+                       what="reloaded VGG-16 int8"))
+    log(f"[book] (a) vgg16_bn_drop b{batch} fp32: saved {out['params_mb']:.1f}"
+        f" MB in {save_s:.2f} s, loaded in {load_s:.2f} s, forward "
+        f"{out['fp32_forward_ms']:.3f} ms (busy share "
+        f"{out['fp32_profile']['busy_share']:.3f}), peak "
+        f"{out['peak_gib']:.2f} GiB, launches {fp32_counts}; PTQ from the "
+        f"prefix {out['ptq_s']:.2f} s, int8 forward "
+        f"{out['int8_forward_ms']:.3f} ms (busy share "
+        f"{out['int8_profile']['busy_share']:.3f}), launches {int8_counts}, "
+        f"top-1 agreement with fp32 {top1:.4f} (fp32 top-2 gap median "
+        f"{out['fp32_top2_gap_median']:.4g}, int8 logit deviation median "
+        f"{out['int8_logit_dev_median']:.4g}, logits to "
+        f"{out['fp32_logit_abs_max']:.4g})")
+    return fp32_counts, int8_counts, out
+
+
+def _srl_program(static, L, n_words, n_preds, n_labels, seed):
+    """The book's db_lstm + linear_chain_crf (SGD) and crf_decoding."""
+    c = SRL
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed
+    with static.program_guard(main, startup):
+        names = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
+        words = [L.data(n, [c["maxlen"]], "int64") for n in names]
+        pred = L.data("verb", [c["maxlen"]], "int64")
+        mark = L.data("mark", [c["maxlen"]], "int64")
+        length = L.data("length", [], "int64")
+        target = L.data("target", [c["maxlen"]], "int64")
+        embs = [L.embedding(w, (n_words, c["word_dim"]), param_attr="emb")
+                for w in words]
+        embs.append(L.embedding(pred, (n_preds, c["word_dim"]),
+                                param_attr="vemb"))
+        embs.append(L.embedding(mark, (2, c["mark_dim"])))
+        hid, lstm_size = c["hidden"], c["hidden"]
+
+        def fc(x, size, act="tanh"):
+            return L.fc(x, size, num_flatten_dims=2, act=act)
+
+        def lstm(x, reverse):
+            if reverse:
+                x = L.sequence_reverse(x, length)
+            h, _ = L.dynamic_lstm(x, lstm_size, sequence_length=length,
+                                  candidate_activation="relu",
+                                  gate_activation="sigmoid",
+                                  cell_activation="sigmoid")
+            return L.sequence_reverse(h, length) if reverse else h
+
+        hidden_0 = L.sums([fc(e, hid) for e in embs])
+        tmp = [hidden_0, lstm(hidden_0, False)]
+        for i in range(1, c["depth"]):
+            mix = L.sums([fc(tmp[0], hid), fc(tmp[1], hid)])
+            tmp = [mix, lstm(mix, i % 2 == 1)]
+        feature = L.sums([fc(tmp[0], n_labels), fc(tmp[1], n_labels)])
+        cost = L.mean(L.linear_chain_crf(feature, target, length,
+                                         param_attr="crfw"))
+        decode = L.crf_decoding(feature, length, param_attr="crfw")
+        infer = main.clone(for_test=True)
+        params = [p for p in main.all_parameters() if p.name != "emb"]
+        static.optimizer.SGD(learning_rate=c["lr"]).minimize(cost, params)
+    return main, startup, infer, cost, feature, decode
+
+
+def _srl_batches(seed):
+    from paddle_tpu_torch.text.datasets import Conll05st
+
+    ds = Conll05st(maxlen=SRL["maxlen"])
+    rng = np.random.default_rng(seed + 280)
+    keys = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2", "verb",
+            "mark", "target")
+    out = []
+    for _ in range(SRL["steps"] + 1):
+        idx = rng.choice(len(ds), SRL["batch"], replace=False)
+        cols = [np.stack([ds[i][k] for i in idx]) for k in range(9)]
+        feed = dict(zip(keys, cols))
+        feed["length"] = np.asarray([ds.lengths[i] for i in idx], np.int64)
+        out.append(feed)
+    return ds, out
+
+
+def _book_srl(static, seed, tmp):
+    """(b): 4 SGD steps of the db_lstm on the card against the CPU, then
+    the crf_decoding program saved, reloaded and decoded."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.static import layers as L
+
+    ds, batches = _srl_batches(seed)
+    # nonzero program seeds here and in (c), as in (a)
+    main, startup, infer, cost, feature, decode = _srl_program(
+        static, L, len(ds.word_dict), len(ds.predicate_dict), ds.n_labels,
+        seed + 280)
+    exe = static.Executor(DEV)
+    scope = static.Scope()
+    exe.run(startup, scope=scope)
+    with P.device_guard("cpu"):
+        cexe = static.Executor("cpu")
+        cscope = static.Scope()
+        for k in scope.keys():
+            cscope.set(k, scope.find_var(k).cpu().clone())
+    losses, cpu_losses, step_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    config.reset_counts()
+    for feed in batches[:SRL["steps"]]:
+        t0 = time.perf_counter()
+        lv, = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv))
+    counts = config.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    with P.device_guard("cpu"):
+        for feed in batches[:SRL["steps"]]:
+            cpu_losses.append(float(cexe.run(main, feed=feed,
+                                             fetch_list=[cost],
+                                             scope=cscope)[0]))
+    cpu_s = time.perf_counter() - t0
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    check(max(errs) <= TOL_BOOK_LOSS_REL and all(np.isfinite(losses)),
+          f"[book] (b) db_lstm losses {[round(x, 4) for x in losses]} on "
+          f"the card vs the CPU's: rel err {max(errs):.3g} <= "
+          f"{TOL_BOOK_LOSS_REL}")
+    check(not counts, f"[book] (b) the db_lstm step launches no port kernel "
+          f"({counts})")
+    prof = profile_split(lambda: exe.run(main, feed=batches[0],
+                                         fetch_list=[cost], scope=scope),
+                         steps=1)
+    # the decode program, saved and reloaded
+    probe = batches[-1]
+    d = os.path.join(tmp, "srl_decode")
+    static.save_inference_model(d, [k for k in probe if k != "target"],
+                                [feature, decode], exe, main_program=infer,
+                                scope=scope)
+    lexe, lscope = static.Executor(DEV), static.Scope()
+    prog, feeds, fetches = static.load_inference_model(d, lexe,
+                                                       scope=lscope)
+    feed = {k: probe[k] for k in feeds}
+    em, ref = exe.run(infer, feed=probe, fetch_list=[feature, decode],
+                      scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    em2, paths = lexe.run(prog, feed=feed, fetch_list=fetches, scope=lscope,
+                          return_numpy=False)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    trans = torch.as_tensor(scope.find_var("crfw"))
+    lens = torch.from_numpy(probe["length"])
+    clear = torch.from_numpy(viterbi_margins(em, trans, lens)
+                             > VITERBI_MARGIN)
+    same = (paths.cpu() == ref.cpu()).all(1)
+    check(bool(same[clear].all()) and bool(clear.any()),
+          f"[book] (b) reloaded crf_decoding paths equal the in-memory "
+          f"program's on {int(clear.sum())} of {len(clear)} rows with a "
+          f"Viterbi margin over {VITERBI_MARGIN} ({int(same.sum())} rows "
+          f"equal in all)")
+    out = dict(batch=SRL["batch"], maxlen=SRL["maxlen"], losses=losses,
+               cpu_losses=cpu_losses, loss_rel_err=max(errs),
+               step_ms=step_ms, cpu_steps_s=cpu_s, peak_gib=peak,
+               launches=counts, profile=prof,
+               busy_share=prof["busy_ms"] / prof["wall_ms"],
+               decode_ms=decode_ms, decode_rows_equal=int(same.sum()),
+               decode_rows_compared=int(clear.sum()),
+               emission_rel_err=rel_err(em2, em))
+    log(f"[book] (b) db_lstm b{SRL['batch']} s{SRL['maxlen']} fp32: steps "
+        f"{[round(x, 1) for x in step_ms]} ms, losses "
+        f"{[round(x, 5) for x in losses]} (CPU {cpu_s:.1f} s), peak "
+        f"{peak:.2f} GiB, busy share {out['busy_share']:.3f}; reloaded "
+        f"decode {decode_ms:.1f} ms, {int(same.sum())} of {len(same)} paths "
+        f"equal")
+    return out
+
+
+def _mt_decode_program(static, L, batch, seed):
+    c = MT
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = seed
+    with static.program_guard(main, startup):
+        src = L.data("src_word_id", [c["src_len"]], "int64")
+        src_len = L.data("src_len", [], "int64")
+        emb = L.embedding(src, (c["dict_size"], c["word_dim"]),
+                          param_attr="vemb")
+        fc1 = L.fc(emb, c["hidden"] * 4, num_flatten_dims=2, act="tanh")
+        h, _ = L.dynamic_lstm(fc1, c["hidden"] * 4, sequence_length=src_len)
+        context = L.sequence_last_step(h, src_len)
+        counter = L.fill_constant((1,), "int64", 0)
+        limit = L.fill_constant((1,), "int64", c["max_length"])
+        prev = L.fill_constant_batch_size_like(context, (context.shape[0],),
+                                               "int64", 0)
+        buf = L.fill_constant((c["max_length"], batch), "int64", 1)
+
+        def body(t, state, word, buf):
+            e = L.embedding(word, (c["dict_size"], c["word_dim"]),
+                            param_attr="vemb")
+            new_state = L.fc(L.concat([e, state], 1), c["hidden"],
+                             act="tanh", name="dec_state")
+            score = L.fc(new_state, c["dict_size"], act="softmax",
+                         name="dec_score")
+            nxt = L.argmax(score, axis=1)
+            buf = L.scatter(buf, L.cast(t, "int64"), L.unsqueeze(nxt, [0]))
+            return [static.increment(t, 1.0), new_state, nxt, buf]
+
+        _, _, _, ids = static.while_loop(
+            lambda t, s, w, b: static.less_than(t, limit), body,
+            [counter, context, prev, buf])
+    return main, startup, ids
+
+
+def _book_control_flow(static, seed):
+    """(c): the greedy decode on while_loop at batch 2 and 64, and the cond
+    program of tests/test_static_control_flow.py, on the card against the
+    CPU."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.ops.kernels import config
+    from paddle_tpu_torch.static import layers as L
+
+    out = {}
+    rng = np.random.default_rng(seed + 281)
+    config.reset_counts()
+    for batch in MT["batches"]:
+        main, startup, ids = _mt_decode_program(static, L, batch,
+                                                seed + 281)
+        exe, scope = static.Executor(DEV), static.Scope()
+        exe.run(startup, scope=scope)
+        lens = rng.integers(4, MT["src_len"] + 1, batch)
+        src = rng.integers(2, MT["dict_size"], (batch, MT["src_len"]))
+        src[np.arange(MT["src_len"])[None, :] >= lens[:, None]] = 0
+        feed = {"src_word_id": src.astype(np.int64),
+                "src_len": lens.astype(np.int64)}
+        got, = exe.run(main, feed=feed, fetch_list=[ids], scope=scope)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[ids], scope=scope)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_split(lambda: exe.run(main, feed=feed,
+                                             fetch_list=[ids], scope=scope),
+                             steps=1)
+        with P.device_guard("cpu"):
+            cscope = static.Scope()
+            for k in scope.keys():
+                cscope.set(k, scope.find_var(k).cpu().clone())
+            want, = static.Executor("cpu").run(main, feed=feed,
+                                               fetch_list=[ids],
+                                               scope=cscope)
+        check(got.shape == (MT["max_length"], batch)
+              and np.array_equal(got, want),
+              f"[book] (c) greedy decode b{batch} dict {MT['dict_size']}: "
+              f"ids on the card equal the CPU's ({got.shape})")
+        out[f"decode_b{batch}"] = dict(
+            ms=ms, busy_share=prof["busy_ms"] / prof["wall_ms"],
+            peak_gib=peak, host_syncs=MT["max_length"] + 1, profile=prof)
+        log(f"[book] (c) greedy decode b{batch}: {ms:.2f} ms a decode "
+            f"({MT['max_length']} steps, {MT['max_length'] + 1} loop tests "
+            f"read on the host), busy share "
+            f"{out[f'decode_b{batch}']['busy_share']:.3f}, peak "
+            f"{peak:.3f} GiB")
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = L.data("x", [2])
+        pred = static.less_than(L.reduce_sum(x),
+                                L.fill_constant([1], "float32", 0.0))
+        res = static.cond(pred, lambda: L.scale(x, scale=2.0),
+                          lambda: L.scale(x, scale=-1.0))
+    for v in (np.array([[-1.0, -2.0]], np.float32),
+              np.array([[1.0, 2.0]], np.float32)):
+        got, = static.Executor(DEV).run(main, feed={"x": v},
+                                        fetch_list=[res])
+        with P.device_guard("cpu"):
+            want, = static.Executor("cpu").run(main, feed={"x": v},
+                                               fetch_list=[res])
+        check(np.array_equal(got, want) and np.array_equal(
+            got, v * (2.0 if v.sum() < 0 else -1.0)),
+            f"[book] (c) cond on {v.tolist()}: {got.tolist()} on the card "
+            f"equals the CPU's")
+    counts = config.launch_counts()
+    check(not counts, f"[book] (c) no port kernel launches ({counts})")
+    out["cond"] = "both branches equal the CPU's"
+    return out
+
+
+def static_book_phase(seed):
+    """Phase 28 (module docstring): a saved-and-reloaded VGG-16 in fp32 and
+    PTQ int8, the label-semantic-roles db_lstm trained and its decode
+    reloaded, and control flow on the card.  Returns (launches of the
+    reloaded fp32 forward, of the reloaded int8 forward, the phase's
+    JSON)."""
+    import tempfile
+
+    from paddle_tpu_torch import static
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    log(f"[book] static graph: save / load, PTQ from a prefix, db_lstm, "
+        f"while_loop and cond ({smi})")
+    with tempfile.TemporaryDirectory(prefix="static_book_") as tmp:
+        exe = static.Executor(DEV)
+        t0 = time.perf_counter()
+        fp32_counts, int8_counts, vgg = _book_vgg(static, exe, seed, tmp)
+        vgg["part_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        srl = _book_srl(static, seed, tmp)
+        srl["part_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        flow = _book_control_flow(static, seed)
+        flow["part_s"] = time.perf_counter() - t0
+    out = dict(card=smi, vgg16=vgg, label_semantic_roles=srl,
+               control_flow=flow, phase_s=time.perf_counter() - t_phase)
+    return fp32_counts, int8_counts, out
+
+
 def timed(phase, *args):
     """``phase(*args)``, its seconds logged as ``[time] <name>``: the
     script's whole run has a time limit (1200 s), and this is where it
@@ -8500,6 +9033,8 @@ def main(argv=None):
                                                         args.seed)
     torch.cuda.empty_cache()
     heter_counts, heter_out = timed(heter_ps_phase, args.seed)
+    torch.cuda.empty_cache()
+    book_fp32, book_int8, book_out = timed(static_book_phase, args.seed)
     torch.cuda.empty_cache()
 
     kernels = []
@@ -8658,6 +9193,12 @@ def main(argv=None):
         entry["elastic_reshard_launches"] = {
             tag: c.get(entry["name"], 0) for tag, c in reshard_counts.items()}
         entry["heter_ps_launches"] = heter_counts.get(entry["name"], 0)
+        # phase 28's paths: one forward of the reloaded fp32 VGG-16 (rows 10
+        # and 13) and of the reloaded PTQ int8 one (rows 13-15); its
+        # db_lstm, decode and cond launch none (checked there)
+        entry["static_book_launches"] = {
+            "fp32_forward": book_fp32.get(entry["name"], 0),
+            "int8_forward": book_int8.get(entry["name"], 0)}
         # phases 21-22's paths launch no port kernel (checked there)
         entry["resnet_launches"] = resnet["port_kernel_launches"].get(
             entry["name"], 0)
@@ -8687,6 +9228,7 @@ def main(argv=None):
     print(json.dumps({"hybrid": hybrid_out}), flush=True)
     print(json.dumps({"elastic": elastic_out}), flush=True)
     print(json.dumps({"heter_ps": heter_out}), flush=True)
+    print(json.dumps({"static_book": book_out}), flush=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

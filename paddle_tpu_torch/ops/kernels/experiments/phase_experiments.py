@@ -27,8 +27,18 @@ then four gloo ranks over five meshes, ``chip_smoke.hybrid_phase``), 26
 ZeRO-1 checkpoint of four gloo ranks restored on two,
 ``chip_smoke.elastic_phase``) and 27 (ERNIE-base with its word
 embeddings in a host parameter-server table, and the standby's
-failover, ``chip_smoke.heter_ps_phase``).  Each phase keeps its own
-checks.  The card's name and power limit are printed first, then one
+failover, ``chip_smoke.heter_ps_phase``) and 28 (a saved-and-reloaded
+VGG-16 in fp32 and PTQ int8, the label-semantic-roles db_lstm trained and
+its decode reloaded, and the greedy decode on ``while_loop`` and a ``cond``
+program, ``chip_smoke.static_book_phase``).  ``paged_split`` profiles
+the paged slice's runs (``chip_smoke.slice_device_time``) over its first
+32 and its first 16 requests, for each KV type, and prints row 9's
+prefill / decode split of each: what ``PAGED_SERVE["profile_requests"]``
+trades.  ``paged_read`` profiles one run of the first 32 requests and
+reads row 9's split from it twice, from the raw events
+(``chip_smoke.raw_events``, as the script does) and from the profiler's
+``events()`` / ``key_averages()``, with the seconds each read takes.
+Each phase keeps its own checks.  The card's name and power limit are printed first, then one
 JSON line a phase: its seconds, step ms, profiled device busy ms and
 the objects Python's collector tracks after it.
 """
@@ -44,6 +54,98 @@ import tempfile
 import time
 
 import torch
+
+
+def paged_split(cs, seed, counts=(32, 16)):
+    """Row 9's device time over the paged slice's first ``n`` requests,
+    split into prefill chunks and decode steps, for each ``n`` and KV
+    type: totals, ms a launch and the prefill share."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import make_paged_toy_lm
+
+    cfg = cs.PAGED_SERVE
+    model = make_paged_toy_lm(vocab=cfg["vocab"], hidden=cfg["hidden"],
+                              max_positions=cfg["max_positions"], seed=seed,
+                              device=cs.DEV)
+    prompts, _ = cs.serve_traffic(np.random.default_rng(seed), cfg)
+    cs.serve_once(model, [prompts[0][:40], prompts[1][:300]], cfg)
+    out = {}
+    for n in counts:
+        sub = prompts[:n]
+        for kv in ("float32", "int8"):
+            tokens = cs.serve_once(model, sub, cfg, kv_dtype=kv)["tokens"]
+            r = cs.slice_device_time(model, sub, cfg, kv, tokens)
+            out[f"{kv}_{n}"] = dict(
+                requests=n, row9_ms=r["row9_ms"], prefill_ms=r["prefill_ms"],
+                decode_ms=r["decode_ms"], prefill_chunks=r["prefill_chunks"],
+                decode_steps=r["decode_steps"],
+                prefill_ms_a_chunk=r["prefill_ms"] / r["prefill_chunks"],
+                decode_ms_a_step=r["decode_ms"] / r["decode_steps"],
+                prefill_share=r["prefill_ms"] / r["row9_ms"],
+                busy_ms=r["busy_ms"])
+    return out
+
+
+def paged_read(cs, seed, n=32):
+    """Row 9's split and the busy time of one profiled run, read from the
+    raw events and from the profiler's FunctionEvents, each timed."""
+    import bisect
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import PagedKVCache, make_paged_toy_lm
+
+    cfg = cs.PAGED_SERVE
+    model = make_paged_toy_lm(vocab=cfg["vocab"], hidden=cfg["hidden"],
+                              max_positions=cfg["max_positions"], seed=seed,
+                              device=cs.DEV)
+    prompts, _ = cs.serve_traffic(np.random.default_rng(seed), cfg)
+    cs.serve_once(model, [prompts[0][:40], prompts[1][:300]], cfg)
+    cache = PagedKVCache(model, cfg["num_blocks"], cfg["block_size"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cs.serve_once(model, prompts[:n], cfg, ranges=True, cache=cache)
+    stop_s = time.perf_counter() - t0
+    rng = cs.SLICE_RANGES
+
+    def split(events, ranges):
+        starts = sorted(start for start, _ in ranges)
+        names = dict(ranges)
+        by = dict.fromkeys(rng, 0.0)
+        for start, ms in events:
+            i = bisect.bisect_right(starts, start) - 1
+            if i >= 0:
+                by[names[starts[i]]] += ms
+        return by
+
+    t0 = time.perf_counter()
+    raw = cs.raw_events(prof)
+    dev = [(name, start, ns / 1e6) for d, name, start, ns in raw
+           if d and name not in rng]
+    new = split([(st, ms) for name, st, ms in dev if cs.ROW9.search(name)],
+                [(st, name) for d, name, st, _ in raw
+                 if not d and name in rng])
+    new["busy_ms"] = sum(ms for _, _, ms in dev)
+    new["read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cuda, cpu = (torch.autograd.DeviceType.CUDA,
+                 torch.autograd.DeviceType.CPU)
+    evs = prof.events()
+    old = split([(e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                 for e in evs if e.device_type == cuda
+                 and cs.ROW9.search(e.name)],
+                [(e.time_range.start, e.name) for e in evs
+                 if e.name in rng and e.device_type == cpu])
+    old["busy_ms"] = sum(e.self_device_time_total
+                         for e in prof.key_averages()
+                         if e.device_type == cuda and e.key not in rng) / 1e3
+    old["read_s"] = time.perf_counter() - t0
+    return dict(requests=n, events=len(raw), run_and_stop_s=stop_s,
+                raw=new, function_events=old)
 
 
 def main(argv=None):
@@ -78,8 +180,11 @@ def main(argv=None):
            "25": lambda s: cs.hybrid_phase(s)[2]["world1"],
            "26": lambda s: cs.elastic_phase(s)[2],
            "27": lambda s: cs.heter_ps_phase(s)[1],
+           "28": lambda s: cs.static_book_phase(s)[2],
            "24probe": lambda s: {"gloo_cuda_collectives": cs.dp_probe(
-               tempfile.mkdtemp(prefix="dp_probe_"), s)}}
+               tempfile.mkdtemp(prefix="dp_probe_"), s)},
+           "paged_split": lambda s: {"paged_split": paged_split(cs, s)},
+           "paged_read": lambda s: {"paged_read": paged_read(cs, s)}}
     for phase in args.phases.split(","):
         t0 = time.perf_counter()
         out = run[phase](args.seed)
@@ -94,8 +199,11 @@ def main(argv=None):
                         losses=out.get("losses"))
         if phase == "20":
             line["vocab"] = cs.LAC["vocab"]
-        if phase == "24probe":
+        if phase in ("24probe", "paged_split", "paged_read"):
             line.update(out)
+        if phase == "28":
+            line["vgg16"] = {k: v for k, v in out["vgg16"].items()
+                             if not k.endswith("profile")}
         print(json.dumps(line), flush=True)
     return 0
 

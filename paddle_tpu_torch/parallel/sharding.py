@@ -490,7 +490,7 @@ class ShardingPlan:
     port's ``Mesh`` and ``fingerprint()`` is the JAX plan's string for the
     same mesh shape and knobs.  ``comm_*`` builds a
     ``compress.CommOptions``.  ``donate`` is recorded for the fingerprint
-    (the Executor does not take a plan yet: ROADMAP.md Queue 1 item 9).
+    (the Executor does not take a plan yet: ROADMAP.md Queue 1 item 9b).
     The ``embedding_*`` knobs raise ``NotImplementedError`` (item 9b)."""
 
     def __init__(self, mesh=None, rules: Optional[ShardingRules] = None,

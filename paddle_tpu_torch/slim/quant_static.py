@@ -22,8 +22,9 @@ the weights are replaced in the scope by their int8-simulated values
 pass (static/passes.py) then folds these artifacts into ``quant_conv2d`` /
 ``quant_mul``.
 
-Ported: the ``program=`` route.  The ``model_prefix`` route loads a saved
-program with ``static.io``, which is not ported yet (ROADMAP), and raises.
+Both routes are ported: ``program=``, and ``model_prefix=``, which loads a
+program and its state saved by ``static.save`` (``static.io.load``), as
+``save_quantized_model`` writes them.
 """
 from __future__ import annotations
 
@@ -240,15 +241,17 @@ class PostTrainingQuantization:
                  weight_bits: int = 8, activation_bits: int = 8,
                  quantizable_op_type: Sequence[str] = tuple(_QUANTIZABLE),
                  scope=None):
+        self.exe = executor
+        self.scope = scope or global_scope()
         if program is None:
             if model_prefix is None:
                 raise ValueError("pass model_prefix or program")
-            raise NotImplementedError(
-                "PostTrainingQuantization(model_prefix=...) loads a saved "
-                "program with static.io, which paddle_tpu_torch does not "
-                "port yet; pass program= (and feed_names=) instead")
-        self.exe = executor
-        self.scope = scope or global_scope()
+            from ..static import io as static_io
+
+            program, feeds, _ = static_io.load(model_prefix, executor,
+                                               scope=self.scope)
+            if not feed_names:
+                feed_names = feeds
         self.program = program
         self.feed_names = list(feed_names or [])
         self.batch_generator = batch_generator
@@ -331,3 +334,13 @@ class PostTrainingQuantization:
             new_ops.append(op)
         block.set_ops(new_ops)
         return self.program
+
+    def save_quantized_model(self, model_prefix: str) -> None:
+        """The quantized program and its state as ``static.save`` writes
+        them (``<prefix>.pdmodel`` / ``<prefix>.pdparams``, the JAX
+        package's format); ``static.load`` or ``model_prefix=`` read it
+        back."""
+        from ..static import io as static_io
+
+        static_io.save(self.program, model_prefix, self.exe,
+                       scope=self.scope)

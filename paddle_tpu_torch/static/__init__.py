@@ -11,17 +11,42 @@ fetch_list)``.  With the
 rewrite (conv + BN + act fusion, NHWC layout), whose fused convolutions and
 NHWC pools take the port's CUDA kernels.
 
-Ported so far: the program model, the layers and nets that build vision
-programs and their losses, their op lowerings (train-mode BN included),
-``append_backward`` / ``gradients`` and the eleven static optimizers, the
-default pass pipeline, the int8 ``QUANT_INFER_PIPELINE`` for programs
-quantized by ``slim.PostTrainingQuantization`` or frozen after
+Ported so far: the program model, the whole ``static.layers`` DSL and
+``static.nets``, the op lowerings of ``ops.py`` / ``ops_tail.py`` and the
+op types of ``ops_tail2`` / ``ops_tail3`` / ``ops_tail5`` the DSL emits,
+control flow (``cond``, ``while_loop``, ``StaticRNN`` and the compare /
+logical DSL), model I/O (``save`` / ``load``, ``save_inference_model`` /
+``load_inference_model``, ``save_persistables`` / ``load_persistables``,
+in the JAX package's native format or the reference's ``__model__``
+format), ``append_backward`` / ``gradients`` and the eleven static
+optimizers, the default pass pipeline, the int8 ``QUANT_INFER_PIPELINE``
+for programs quantized by ``slim.PostTrainingQuantization`` or frozen after
 quantization-aware training, and the Executor.  Still to port (ROADMAP):
-control flow, io, the program verifier and shape engine, the compile
-cache, and memory and sharding checks.
+the rest of ``ops_tail2``-``ops_tail7``, ``CompiledProgram``, the program
+verifier and shape engine, the compile cache, and memory and sharding
+checks.
 """
-from . import layers, nets, optimizer
+from . import layers, optimizer
+from . import layers_tail  # noqa: F401 — the DSL tail (attaches to layers)
+from . import control_flow
+from . import nets
 from .backward import append_backward, gradients
+from .control_flow import (
+    StaticRNN,
+    cond,
+    equal,
+    greater_equal,
+    greater_than,
+    increment,
+    less_equal,
+    less_than,
+    logical_and,
+    logical_not,
+    logical_or,
+    logical_xor,
+    not_equal,
+    while_loop,
+)
 from .executor import Executor, Scope, global_scope, scope_guard
 from .framework import (
     Block,
@@ -35,13 +60,28 @@ from .framework import (
     program_guard,
     unique_name,
 )
+from .io import (
+    load,
+    load_inference_model,
+    load_persistables,
+    save,
+    save_inference_model,
+    save_persistables,
+)
 from .passes import (DEFAULT_PIPELINE, QUANT_INFER_PIPELINE, PassManager,
                      available_passes, golden_parity, optimize_for_executor)
 from .registry import register_op, registered_ops
+from . import op_version
 
 data = layers.data
 
-__all__ = ["layers", "nets", "optimizer", "append_backward", "gradients",
+__all__ = ["layers", "nets", "optimizer", "control_flow", "op_version",
+           "StaticRNN", "cond", "equal", "greater_equal",
+           "greater_than", "increment", "less_equal", "less_than",
+           "logical_and", "logical_not", "logical_or", "logical_xor",
+           "not_equal", "while_loop", "load", "load_inference_model",
+           "load_persistables", "save", "save_inference_model",
+           "save_persistables", "append_backward", "gradients",
            "Executor", "Scope", "global_scope",
            "scope_guard", "Block", "Operator", "Parameter", "Program",
            "Variable", "default_main_program", "default_startup_program",

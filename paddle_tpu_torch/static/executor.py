@@ -31,9 +31,19 @@ region is ``torch.autograd.grad`` of ``sum(fp32(loss))`` over its
 graph outlives it, and the ops after it (the optimizer updates) run
 without autograd.
 
+Control flow (``conditional_block``, ``while``, ``static_rnn``, built by
+static/control_flow.py) runs its sub-blocks op by op as well, on a snapshot
+of the enclosing environment, as the JAX package's ``lax.cond`` /
+``lax.while_loop`` / ``lax.scan`` lowerings read it.  The branch choice
+and the loop test read a device scalar on the host each time, and
+``static_rnn`` is a Python loop over the time-major leading axis.  A random
+op inside a sub-block draws under the salt of its (block, op index), so,
+as in the JAX package, it draws the same values at every iteration of a
+step.  Gradients through ``conditional_block`` and ``static_rnn`` are
+torch autograd over the sub-block ops that actually ran.
+
 Not ported yet (ROADMAP): tracing into one graph, state donation, sharding
-plans, the persistent compile cache, the memory and sharding checkers and
-control-flow ops.
+plans, the persistent compile cache, and the memory and sharding checkers.
 """
 from __future__ import annotations
 
@@ -51,6 +61,9 @@ from ..core.device import resolve_device
 from . import ops as _ops
 from . import ops_fused as _ops_fused  # noqa: F401 — registers lowerings
 from . import ops_tail as _ops_tail  # noqa: F401 — registers lowerings
+from . import ops_tail2 as _ops_tail2  # noqa: F401 — registers lowerings
+from . import ops_tail3 as _ops_tail3  # noqa: F401 — registers lowerings
+from . import ops_tail5 as _ops_tail5  # noqa: F401 — registers lowerings
 from .framework import Program, Variable, default_main_program
 from .registry import get_lowering
 
@@ -59,9 +72,10 @@ __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "to_numpy"]
 # Odd 64-bit constants mixing (seed, step, salt) into a random op's seed.
 _MIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
 
-# Optimizer updates that draw (not RANDOM_OPS in either package's passes:
-# they write state, so no pass folds, merges or drops them).
-_DRAWING_UPDATES = frozenset({"dpsgd"})
+# Ops that draw but are not RANDOM_OPS in either package's passes: an
+# optimizer update (it writes state, so no pass folds, merges or drops it)
+# and sampled softmax's negatives.
+_DRAWING_OPS = frozenset({"dpsgd", "sample_logits"})
 
 
 class Scope:
@@ -173,6 +187,92 @@ def _backward_region(op, env, leaves, retain_graph: bool) -> None:
         env[name] = torch.zeros_like(p) if g is None else g
 
 
+def _run_ops(program, block_idx, ops, env, seed, step):
+    """Run ``ops`` of block ``block_idx`` on ``env``, dispatching the
+    control-flow ops to their sub-block lowerings."""
+    for idx, op in enumerate(ops):
+        _run_one(program, block_idx, idx, op, env, seed, step)
+
+
+def _run_one(program, block_idx, idx, op, env, seed, step):
+    lower = _CONTROL_FLOW.get(op.type)
+    if lower is not None:
+        lower(program, op, env, seed, step)
+        return
+    salt = op.rng_salt if op.rng_salt is not None \
+        else _op_salt(block_idx, idx)
+    _run_op(op, env, seed, step, salt)
+
+
+def _scalar_true(t) -> bool:
+    """A one-element predicate read on the host (a device sync on CUDA)."""
+    return bool(t.reshape(()).item())
+
+
+def _lower_cond(program, op, env, seed, step):
+    """conditional_block: run the chosen branch on a snapshot of ``env``
+    (ref operators/controlflow/conditional_block_op.cc)."""
+    take_true = _scalar_true(env[op.inputs["Cond"][0]])
+    blk = program.blocks[op.attrs["true_block" if take_true
+                                  else "false_block"]]
+    names = op.attrs["true_outs" if take_true else "false_outs"]
+    env2 = dict(env)
+    _run_ops(program, blk.idx, blk.ops, env2, seed, step)
+    for name, src in zip(op.outputs["Out"], names):
+        env[name] = env2[src]
+
+
+def _lower_while(program, op, env, seed, step):
+    """while: ``X`` is the carry; each body output is cast to its carry's
+    dtype (ref operators/controlflow/while_op.cc)."""
+    cb = program.blocks[op.attrs["cond_block"]]
+    bb = program.blocks[op.attrs["body_block"]]
+    loop_names = op.inputs["X"]
+    carry = [env[n] for n in loop_names]
+
+    def with_carry():
+        env2 = dict(env)
+        env2.update(zip(loop_names, carry))
+        return env2
+
+    while True:
+        env2 = with_carry()
+        _run_ops(program, cb.idx, cb.ops, env2, seed, step)
+        if not _scalar_true(env2[op.attrs["cond_out"]]):
+            break
+        env2 = with_carry()
+        _run_ops(program, bb.idx, bb.ops, env2, seed, step)
+        carry = [torch.as_tensor(env2[n]).to(c.dtype)
+                 for n, c in zip(op.attrs["body_outs"], carry)]
+    for name, val in zip(op.outputs["Out"], carry):
+        env[name] = val
+
+
+def _lower_static_rnn(program, op, env, seed, step):
+    """static_rnn: the step block over the time-major leading axis of every
+    ``X``, the memories carried in their initial dtypes, the step outputs
+    stacked (ref operators/recurrent_op.cc)."""
+    blk = program.blocks[op.attrs["rnn_block"]]
+    seqs = [env[n] for n in op.inputs["X"]]
+    mems = [env[n] for n in op.inputs["Init"]]
+    outs = [[] for _ in op.attrs["out_names"]]
+    for t in range(seqs[0].shape[0]):
+        env2 = dict(env)
+        env2.update(zip(op.attrs["mem_names"], mems))
+        env2.update(zip(op.attrs["step_in_names"], (x[t] for x in seqs)))
+        _run_ops(program, blk.idx, blk.ops, env2, seed, step)
+        mems = [env2[n].to(m.dtype)
+                for n, m in zip(op.attrs["mem_next"], mems)]
+        for acc, n in zip(outs, op.attrs["out_names"]):
+            acc.append(env2[n])
+    for name, acc in zip(op.outputs["Out"], outs):
+        env[name] = torch.stack(acc)
+
+
+_CONTROL_FLOW = {"conditional_block": _lower_cond, "while": _lower_while,
+                 "static_rnn": _lower_static_rnn}
+
+
 def _op_generator(seed: int, step: int, salt: int) -> torch.Generator:
     mixed = (seed * _MIX[0] + step * _MIX[1] + salt * _MIX[2]) \
         & 0x7FFFFFFFFFFFFFFF
@@ -192,7 +292,7 @@ def _run_op(op, env, seed, step, salt):
         raise _errors.PreconditionNotMetError(
             f"op {op.type!r} reads {e.args[0]!r}, which no earlier op "
             "produced and the feed and scope do not hold") from None
-    if op.type in RANDOM_OPS or op.type in _DRAWING_UPDATES:
+    if op.type in RANDOM_OPS or op.type in _DRAWING_OPS:
         with _random.rng_scope(_op_generator(seed, step, salt)):
             outs = lowering(ins, op.attrs, op)
     else:
@@ -293,7 +393,7 @@ class Executor:
                     if op.type == "backward_region":
                         _backward_region(op, env, leaves, idx < last)
                         continue
-                    self._run(op, idx, env, seed, step)
+                    _run_one(run_program, 0, idx, op, env, seed, step)
                     for n in op.output_names():
                         if n in entry.wrt and n not in leaves:
                             env[n] = leaves[n] = _grad_leaf(env[n])
@@ -303,7 +403,7 @@ class Executor:
                         env[k] = v.detach()
             with torch.no_grad():
                 for idx in range(last + 1, len(ops)):
-                    self._run(ops[idx], idx, env, seed, step)
+                    _run_one(run_program, 0, idx, ops[idx], env, seed, step)
         for n in entry.state_names:
             if n in env:
                 scope.set(n, env[n].detach())
@@ -385,11 +485,6 @@ class Executor:
         self._cache.clear()
 
     # -- internals -----------------------------------------------------------
-    @staticmethod
-    def _run(op, idx, env, seed, step):
-        salt = op.rng_salt if op.rng_salt is not None else _op_salt(0, idx)
-        _run_op(op, env, seed, step, salt)
-
     def _entry(self, program, feed, fetch_names) -> _Entry:
         flag = _flags.get_flag("opt_passes")
         key = (_program_token(program), program._version,
@@ -426,10 +521,16 @@ class Executor:
     @staticmethod
     def _first_access(block, name: str):
         """First access to ``name`` in execution order: 'read', 'write', or
-        None (block 0 only: the port has no control-flow ops)."""
+        None.  A control-flow op's sub-blocks are walked at the op's
+        position: a read anywhere inside is a read."""
+        program = block.program
         for op in block.ops:
             if name in op.input_names():
                 return "read"
+            for _a, idx in op.sub_block_indices():
+                if Executor._first_access(program.blocks[idx],
+                                          name) == "read":
+                    return "read"
             if name in op.output_names():
                 return "write"
         return None

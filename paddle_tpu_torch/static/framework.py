@@ -291,29 +291,19 @@ class Program:
             yield from b.vars.values()
 
     def clone(self, for_test: bool = False) -> "Program":
-        """Shallow structural clone (ref Program.clone): for_test drops ops
-        after the last fetchable var is produced is NOT emulated; instead,
+        """Structural clone (ref Program.clone), every block kept with its
+        index, so control-flow ops still name their sub-blocks (the JAX
+        package's clone keeps block 0 only).  for_test drops ops after the
+        last fetchable var is produced is NOT emulated; instead,
         `is_test`-sensitive ops (dropout, batch_norm) read the attr set
         here."""
         p = Program()
         p.random_seed = self.random_seed
-        b = p.global_block()
-        src = self.global_block()
-        for name, v in src.vars.items():
-            if isinstance(v, Parameter):
-                b.create_parameter(name, v.shape, v.dtype, v.trainable,
-                                   v.initializer, v.regularizer)
-            else:
-                b.create_var(name, v.shape, v.dtype,
-                             persistable=v.persistable,
-                             stop_gradient=v.stop_gradient,
-                             is_data=v.is_data)
-        for op in src.ops:
-            attrs = dict(op.attrs)
-            if for_test and op.type in ("dropout", "batch_norm"):
-                attrs["is_test"] = True
-            b.append_op(op.type, op.inputs, op.outputs,
-                        attrs).rng_salt = op.rng_salt
+        for src in self.blocks:
+            b = p.global_block() if src.idx == 0 \
+                else p._create_block(src.parent_idx)
+            copy_block(src, b, for_test)
+        p._current_block_idx = 0
         return p
 
     def to_string(self, throw_on_error=False) -> str:
@@ -328,6 +318,29 @@ class Program:
 
     def __repr__(self):
         return self.to_string()
+
+
+def copy_block(src: Block, dst: Block, for_test: bool = False,
+               names=None, ops=None) -> None:
+    """Append ``src``'s vars (those in ``names``, all when None) and ops
+    (``ops``, all when None) to ``dst``; with ``for_test`` the dropout and
+    batch_norm ops run in test mode."""
+    for name, v in src.vars.items():
+        if names is not None and name not in names:
+            continue
+        if isinstance(v, Parameter):
+            dst.create_parameter(name, v.shape, v.dtype, v.trainable,
+                                 v.initializer, v.regularizer)
+        else:
+            dst.create_var(name, v.shape, v.dtype,
+                           persistable=v.persistable,
+                           stop_gradient=v.stop_gradient, is_data=v.is_data)
+    for op in src.ops if ops is None else ops:
+        attrs = dict(op.attrs)
+        if for_test and op.type in ("dropout", "batch_norm"):
+            attrs["is_test"] = True
+        dst.append_op(op.type, op.inputs, op.outputs,
+                      attrs).rng_salt = op.rng_salt
 
 
 class _ProgramState(threading.local):

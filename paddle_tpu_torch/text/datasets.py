@@ -237,6 +237,8 @@ class Conll05st(Dataset):
                 samples.append((words.tolist(), pred, pred_pos,
                                 labels.tolist()))
         self.samples = [self._featurize(*s) for s in samples]
+        # each item's sequence length (its valid prefix of ``maxlen``)
+        self.lengths = [min(len(s[0]), maxlen) for s in samples]
 
     def _featurize(self, word_ids, pred_id, pred_pos, label_ids):
         m = self.maxlen

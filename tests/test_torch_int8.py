@@ -417,9 +417,12 @@ def test_quant_mul_kernel_route_against_simulate(tpu_gate):
 
 
 def test_ptq_model_prefix_route_raises_until_static_io():
-    with pytest.raises(NotImplementedError, match="static.io"):
-        tqs.PostTrainingQuantization(tstatic.Executor("cpu"),
-                                     model_prefix="/nonexistent/model")
+    # the route is ported (static.io.load); a prefix that holds no saved
+    # program raises as the JAX route does
+    for qs, static, place in ((tqs, tstatic, ("cpu",)), (jqs, jstatic, ())):
+        with pytest.raises(FileNotFoundError):
+            qs.PostTrainingQuantization(static.Executor(*place),
+                                        model_prefix="/nonexistent/model")
 
 
 # -- full-width dispatch counts ------------------------------------------------------
