@@ -415,7 +415,7 @@ Phases (any failed check raises, so the script exits non-zero):
               full width (L12 H768 A12 I3072 V18000): bench.py's bf16 b64
               s512 step with 76 masked positions and Adam: 12 / 12 / 2 /
               2 / 24 / 24 launches of rows 1 / 2 / 5 / 6 / 7 / 8 and no
-              other, 10 timed steps (finite, falling loss), peak memory;
+              other, 4 timed steps (finite, falling loss), peak memory;
               then the same step in fp32 at dropout 0 from the same
               parameters against ``entry.make_train_step`` (loss within
               1e-5 relative, every gradient within 1e-4 of its tensor's
@@ -513,6 +513,39 @@ Phases (any failed check raises, so the script exits non-zero):
               on both branches equal to the CPU's.  No port kernel
               launches in (b) and (c).  Printed: forward and step ms,
               peak memory, launches and busy share of each part.
+29. static-tail -- the static graph's op tail and its three checkers:
+              (a) Faster R-CNN R50-FPN's proposal and target stage
+              (tests/torch_static_fpn.py, PaddleDetection's
+              faster_rcnn_r50_fpn_1x.yml) at b2 800x1344, P2-P6 of 256
+              seeded channels: the DSL's shared RPN head (3x3 conv 256 +
+              ReLU, 1x1 convs to 3 scores and 12 deltas), then
+              generate_proposals a level (train 2000 / 2000, test 1000 /
+              1000, nms 0.7), collect_fpn_proposals, distribute_fpn_
+              proposals (levels 2-5, refer 4 / 224), roi_align a level
+              (7x7, sampling 2), rpn_target_assign (256, fg 0.5) and
+              generate_proposal_labels (512, fg 0.25, 81 classes) over
+              seeded ground truth of 1-20 boxes an image; the scores,
+              proposals, counts and collected RoIs against the same
+              program on the CPU (a kept or collected row may differ only
+              at a score tie), the routing and RestoreIndex exactly
+              against distribute_fpn_proposals on the CPU over the card's
+              own collected RoIs, the RoI features on sampled rows against
+              roi_align on the CPU, the sampled targets by their
+              invariants; ms a step,
+              busy share, launches (none). (b) Every case of the 130
+              op types of ops_tail2-7.py (tests/torch_static_cases.py)
+              on the card against the CPU. (c) A program reading a
+              variable nothing writes raises ProgramVerificationError
+              (PV001) before any CUDA kernel runs; memcheck's estimate
+              of vgg16_bn_drop's forward at b8192, plain and under
+              DEFAULT_PIPELINE, within 1.5x of the card's measured peak
+              with the process capped at 1.5x the estimate above what
+              else is resident (cuDNN's workspace is elastic: an engine
+              whose workspace cannot be allocated gives way to one that
+              needs less), the fetch within 1e-4 of the uncapped run's
+              (the uncapped peaks and the training step's ratio
+              printed); MC001 at b262144 against the card's own memory,
+              nothing allocated.
 Phases 17-20 and 23 run right after the build (and row 11's profile),
 before the first CUDA graph capture: the card's profiler loses eager
 launches after one; phases 21-22 follow them.
@@ -524,15 +557,17 @@ Before the last line it prints ``{"train": ...}``, ``{"bhsd": ...}``,
 ``{"ops": ...}``, ``{"dygraph": ...}``, ``{"tagging": ...}``,
 ``{"rnn": ...}``, ``{"resnet": ...}``, ``{"yolo": ...}``, ``{"hapi":
 ...}``, ``{"dp": ...}``, ``{"hybrid": ...}``, ``{"elastic": ...}``,
-``{"heter_ps": ...}``, ``{"static_book": ...}`` and ``{"kernels": [...]}``
+``{"heter_ps": ...}``, ``{"static_book": ...}``, ``{"static_tail":
+...}`` and ``{"kernels": [...]}``
 JSON lines (one kernel entry for each of the 15 TPU kernels; rows 10 and
 13-15 with their launches on the static-train path, rows 11-13 with their
 cold times, rows 1, 2 and 5-8 with their launches on each path of phases
 14-16, 18, 19 and 23, every row with its launches on phases 21 and 22's
 paths, 0, on phase 24's data-parallel step, ``dp_launches``, and on phase
 25's world-1 hybrid step and each mesh's step, ``hybrid_launches`` /
-``hybrid_mesh_launches``, and on phase 28's reloaded fp32 and int8
-forwards, ``static_book_launches``) and the card's name and power limit;
+``hybrid_mesh_launches``, on phase 28's reloaded fp32 and int8
+forwards, ``static_book_launches``, and on phase 29's FPN stage,
+``static_tail_launches``) and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -550,6 +585,7 @@ import signal
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 _T_MODULE_TOP = time.time()      # a spawned worker's start-up, SpawnProbe
 import numpy as np  # noqa: E402
@@ -4354,7 +4390,10 @@ def qat_model(seed):
         f"steps ({qat_ms:.2f} ms a step, {batch / qat_ms * 1e3:.1f} "
         f"images/s), losses {losses[0]:.4f} -> {losses[-1]:.4f}; frozen: "
         f"{report.to_text()}; {quant_ops}")
-    feed = {"img": batches[0]["img"]}
+    # the label too: the float test program keeps its loss ops, and the
+    # Executor refuses a program that reads a data variable nobody fed
+    # (PV001) before DEFAULT_PIPELINE's dead-op pass could drop them
+    feed = {"img": batches[0]["img"], "label": batches[0]["label"]}
     with opt_passes(""):
         run_static(exe, rewritten, feed, logit_fetches, scope)
         torch.cuda.synchronize()
@@ -7414,8 +7453,9 @@ def dp_phase(seed, train_ms=None):
 # then its fp32 dropout-0 step against entry.make_train_step; (b) four gloo
 # ranks sharing the card, full-width ERNIE-base in fp32 at dropout 0, b8
 # s512, one mesh after another, each held against the world-1 step of the
-# same parameters and batch (computed on rank 0)
-HYBRID = dict(steps=10, warm=2, batch=8, mesh_steps=2, mesh_warm=1,
+# same parameters and batch (computed on rank 0); a mesh's timed step
+# follows its parity step, which warms it
+HYBRID = dict(steps=4, warm=1, batch=8, mesh_steps=1, mesh_warm=0,
               lr=1e-4, timeout_s=600)
 # name, degrees, micro-batches, pipeline schedule, MoE experts, ZeRO-1
 HYBRID_MESHES = (
@@ -8152,7 +8192,7 @@ def elastic_phase(seed):
     check(all(r["split_moments"] > 0 for r in four),
           f"[elastic] (b) the dp4 save held the Adam moments as dp slices "
           f"({[r['split_moments'] for r in four]} a rank)")
-    log(f"[elastic] (b) fp32 ERNIE-base b{ELASTIC['reshard_batch']} "
+    log(f"[elastic] (b) fp32 ERNIE-base L{L} b{ELASTIC['reshard_batch']} "
         f"s{TRAIN_SEQ} ZeRO-1 on 4 gloo ranks, saved and restored on 2: "
         f"save {[round(r['save_ms'], 1) for r in four]} ms, written "
         f"{[round(r['bytes'] / 1e6, 1) for r in four]} MB a rank; restore "
@@ -8889,6 +8929,535 @@ def static_book_phase(seed):
     return fp32_counts, int8_counts, out
 
 
+# -- phase 29: the static graph's op tail and its three checkers -------------
+
+# (a) Faster R-CNN R50-FPN's proposal and target stage (tests/
+# torch_static_fpn.py: PaddleDetection's faster_rcnn_r50_fpn_1x.yml) at b2,
+# 800 x 1344 (P2-P6 200x336 ... 13x21, 256 channels), train and test
+# proposal settings; the card's fetches against the same program, state and
+# feeds on the CPU (fp32, TF32 off), the RoI features on a sample of rows
+FPN = dict(images=2, height=800, width=1344, levels=(2, 3, 4, 5, 6),
+           steps=3, sample_rows=64)
+# card vs CPU: sigmoid scores within TOL_FPN_SCORE_ABS, boxes (pixels)
+# within TOL_FPN_BOX_ABS, RoI features within TOL_FPN_FEAT_REL of the
+# largest; a kept or collected row may differ only where the two runs'
+# scores at that row are within FPN_TIE_MARGIN (two near-equal scores taken
+# in the other order); counts exact, and the routing, RestoreIndex and
+# per-level RoIs of the card's own collected RoIs exactly those of
+# distribute_fpn_proposals on the CPU
+TOL_FPN_SCORE_ABS = 1e-5
+TOL_FPN_BOX_ABS = 1e-2
+TOL_FPN_FEAT_REL = 1e-4
+FPN_TIE_MARGIN = 1e-5
+# (b) each op-tail case (tests/torch_static_cases.py) card vs CPU: the
+# case's tolerance, floored at this (fp32 reductions reorder on the card)
+TOL_TAIL_REL = 1e-4
+# (c) memcheck's estimate against the measured peak: the JAX package's
+# calibration gate (tests/test_memcheck.py), at a batch the estimate
+# prices at 4 GB or more; MC001 at a batch it prices above the card
+MEMCHECK_GATE = 1.5
+MEM_VGG_BATCH = 8192
+# cuDNN's workspace is elastic (an engine whose workspace cannot be
+# allocated gives way to one that needs less), so the gated forwards are
+# measured with the process capped at MEMCHECK_GATE x the estimate above
+# what else is resident, and the uncapped peak, its workspaces at their
+# widest, printed beside it; the capped fetches against the uncapped ones
+# (other cuDNN engines summing in other orders)
+TOL_MEM_CAPPED_REL = 1e-4
+MC001_VGG_BATCH = 1 << 18
+
+
+def _tests(name):
+    """tests/<name>.py of this checkout, loaded by its path (a ``tests``
+    package installed elsewhere may shadow the checkout's)."""
+    import importlib.util
+
+    key = f"chip_smoke_tests_{name}"
+    if key not in sys.modules:
+        path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(key, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[key]
+
+
+def _to_np(v):
+    from paddle_tpu_torch.static.executor import to_numpy
+
+    return to_numpy(v)
+
+
+def _cpu_scope(static, scope):
+    new = static.Scope()
+    for k in scope.keys():
+        new.set(k, scope.find_var(k).detach().cpu().clone())
+    return new
+
+
+def _fpn_program(static, seed, train, roi_feats):
+    F = _tests("torch_static_fpn")
+    main, start = static.Program(), static.Program()
+    main.random_seed = start.random_seed = seed + 29
+    with static.program_guard(main, start):
+        fetch = F.build(static, FPN["images"], FPN["height"], FPN["width"],
+                        FPN["levels"], train=train, targets=train,
+                        roi_feats=roi_feats)
+    return main, start, fetch
+
+
+def _rows_agree(tag, got, ref, score_got, score_ref, tol):
+    """Rows of ``got`` against ``ref`` (numpy): within ``tol``, or at a
+    row whose two scores are within FPN_TIE_MARGIN; returns the rows that
+    differ."""
+    bad = np.nonzero(np.abs(got - ref).reshape(len(got), -1).max(1) > tol)[0]
+    if len(bad) and score_got is not None:
+        tie = np.abs(score_got[bad] - score_ref[bad]) <= FPN_TIE_MARGIN
+        check(tie.all(), f"[tail] (a) {tag}: rows {bad[~tie][:8].tolist()} "
+              f"differ beyond {tol} away from a score tie")
+    return len(bad)
+
+
+def _collected_scores(res, i, levels):
+    """The score of each of image ``i``'s collected RoIs, looked up by its
+    box among the levels' kept rows of the same run."""
+    table = {}
+    for lv in levels:
+        n = int(res[f"num{lv}"][i])
+        for box, sc in zip(res[f"rois{lv}"][i, :n],
+                           res[f"probs{lv}"][i, :n, 0]):
+            table[box.tobytes()] = sc
+    n = int(res[f"fpn_num_{i}"])
+    rows = res[f"fpn_rois_{i}"][:n]
+    found = [box.tobytes() in table for box in rows]
+    check(all(found), f"[tail] (a) image {i}: {found.count(False)} collected "
+          f"rois are no level's kept roi")
+    return np.array([table[box.tobytes()] for box in rows])
+
+
+def _fpn_route_cpu(static, rois, roi_levels):
+    """distribute_fpn_proposals on the CPU over ``rois`` (one image's
+    collected RoIs as the card gave them), at the stage's attributes."""
+    p = static.Program()
+    b = p.global_block()
+    R = rois.shape[0]
+    b.create_var(name="fpn", shape=(R, 4), is_data=True)
+    multi = [f"multi{lv}" for lv in roi_levels]
+    for name in multi:
+        b.create_var(name=name, shape=(R, 4))
+    b.create_var(name="num", shape=(len(roi_levels),), dtype="int32")
+    b.create_var(name="restore", shape=(R, 1), dtype="int32")
+    b.append_op("distribute_fpn_proposals", {"FpnRois": ["fpn"]},
+                {"MultiFpnRois": multi, "MultiLevelRoIsNum": ["num"],
+                 "RestoreIndex": ["restore"]},
+                {"min_level": min(roi_levels), "max_level": max(roi_levels),
+                 "refer_level": 4, "refer_scale": 224})
+    names = ["num", "restore"] + multi
+    return dict(zip(names, static.Executor("cpu").run(
+        p, feed={"fpn": rois}, fetch_list=names)))
+
+
+def _fpn_compare(static, got, ref, levels, images, prefix):
+    """The deterministic fetches of the stage, card vs CPU: scores, kept
+    rows and collected rows (a row may differ only at a score tie), and
+    the routing of the card's own collected RoIs against
+    distribute_fpn_proposals on the CPU, exactly."""
+    swaps, collected_diff, worst = 0, [], {}
+    for lv in levels:
+        e = float(np.abs(got[f"scores{lv}"] - ref[f"scores{lv}"]).max())
+        check(e <= TOL_FPN_SCORE_ABS, f"[tail] (a) {prefix} P{lv} scores: "
+              f"max abs err {e:.3g} <= {TOL_FPN_SCORE_ABS}")
+        worst[f"scores{lv}"] = e
+        num_g, num_r = got[f"num{lv}"], ref[f"num{lv}"]
+        check(np.array_equal(num_g, num_r), f"[tail] (a) {prefix} P{lv} "
+              f"proposals kept {num_g.tolist()} (CPU {num_r.tolist()})")
+        for i in range(images):
+            n = int(num_g[i])
+            pg, pr = got[f"probs{lv}"][i, :n, 0], ref[f"probs{lv}"][i, :n, 0]
+            swaps += _rows_agree(f"{prefix} P{lv} image {i} rois",
+                                 got[f"rois{lv}"][i, :n],
+                                 ref[f"rois{lv}"][i, :n], pg, pr,
+                                 TOL_FPN_BOX_ABS)
+            swaps += _rows_agree(f"{prefix} P{lv} image {i} probs",
+                                 pg[:, None], pr[:, None], pg, pr,
+                                 TOL_FPN_SCORE_ABS)
+    roi_levels = [lv for lv in (2, 3, 4, 5) if lv in levels]
+    for i in range(images):
+        n = int(got[f"fpn_num_{i}"])
+        check(n == int(ref[f"fpn_num_{i}"]), f"[tail] (a) {prefix} image "
+              f"{i}: {n} rois collected (CPU {int(ref[f'fpn_num_{i}'])})")
+        collected_diff.append(_rows_agree(
+            f"{prefix} image {i} collected rois", got[f"fpn_rois_{i}"][:n],
+            ref[f"fpn_rois_{i}"][:n], _collected_scores(got, i, levels),
+            _collected_scores(ref, i, levels), TOL_FPN_BOX_ABS))
+        route = _fpn_route_cpu(static, got[f"fpn_rois_{i}"], roi_levels)
+        same = [np.array_equal(got[f"level_num_{i}"], route["num"]),
+                np.array_equal(got[f"restore_{i}"], route["restore"])] + [
+            np.array_equal(got[f"multi_rois{lv}_{i}"], route[f"multi{lv}"])
+            for lv in roi_levels]
+        check(all(same), f"[tail] (a) {prefix} image {i}: the card's routing "
+              f"{got[f'level_num_{i}'].tolist()} (CPU over the card's rois "
+              f"{route['num'].tolist()}), RestoreIndex and per-level rois "
+              f"equal to distribute_fpn_proposals on the CPU: {same}")
+    return swaps, collected_diff, worst
+
+
+def _fpn_features(feed, got, images):
+    """The card's RoI features on up to FPN['sample_rows'] valid rows a
+    level and image against ``ops.vision.roi_align`` on the CPU."""
+    from paddle_tpu_torch.ops import vision as V
+
+    F = _tests("torch_static_fpn")
+    worst = 0.0
+    for i in range(images):
+        for lv in (2, 3, 4, 5):
+            key = f"roi_feat{lv}_{i}"
+            n = int(got[f"level_num_{i}"][lv - 2])
+            if n == 0:
+                continue
+            rows = np.linspace(0, n - 1, min(n, FPN["sample_rows"])) \
+                .astype(int)
+            rois = torch.from_numpy(got[f"multi_rois{lv}_{i}"][rows])
+            x = torch.from_numpy(feed[f"p{lv}"][i])
+            ref = V.roi_align(x, rois, output_size=(7, 7),
+                              spatial_scale=1.0 / F.STRIDE[lv],
+                              sampling_ratio=2).numpy()
+            g = got[key][rows]
+            e = float(np.abs(g - ref).max()) / max(float(np.abs(ref).max()),
+                                                   1e-30)
+            check(e <= TOL_FPN_FEAT_REL, f"[tail] (a) image {i} P{lv} RoI "
+                  f"features ({len(rows)} of {n} rows) vs roi_align on the "
+                  f"CPU: rel err {e:.3g} <= {TOL_FPN_FEAT_REL}")
+            worst = max(worst, e)
+    return worst
+
+
+def _fpn_stage(static, seed):
+    """Phase 29 (a)."""
+    from paddle_tpu_torch.ops.kernels import config
+
+    F = _tests("torch_static_fpn")
+    feed = F.inputs(seed + 29, FPN["images"], FPN["height"], FPN["width"],
+                    FPN["levels"])
+    dev_feed = {k: torch.from_numpy(v).to(DEV) for k, v in feed.items()}
+    out = {}
+    for train in (True, False):
+        tag = "train" if train else "test"
+        main, start, fetch = _fpn_program(static, seed, train, True)
+        # the program as the card runs it, plus its twin without the RoI
+        # features for the CPU (roi_align over 8000 rows x 256 channels is
+        # held on a sample instead)
+        cmain, _, cfetch = _fpn_program(static, seed, train, False)
+        names = sorted(fetch)
+        scope = static.Scope()
+        exe = static.Executor(DEV)
+        exe.run(start, scope=scope)
+        cpu_scope = _cpu_scope(static, scope)
+        fl = [fetch[n] for n in names]
+        run_static(exe, main, dev_feed, fl, scope)
+        torch.cuda.synchronize()
+        config.reset_counts()
+        res = run_static(exe, main, dev_feed, fl, scope)
+        torch.cuda.synchronize()
+        counts = config.launch_counts()
+        check(not any(counts.values()), f"[tail] (a) {tag}: port kernel "
+              f"launches {counts} a step (none: no BatchNorm in the head)")
+        got = {n: _to_np(v) for n, v in zip(names, res)}
+        ms = _events_ms(lambda: run_static(exe, main, dev_feed, fl, scope),
+                        FPN["steps"])
+        prof = profile_forward(exe, main, dev_feed, fl, scope, reps=2,
+                               what=f"FPN proposal stage ({tag})")
+        cnames = sorted(cfetch)
+        t0 = time.perf_counter()
+        ref = dict(zip(cnames, static.Executor("cpu").run(
+            cmain, feed=feed, fetch_list=[cfetch[n] for n in cnames],
+            scope=cpu_scope)))
+        cpu_s = time.perf_counter() - t0
+        swaps, collected_diff, worst = _fpn_compare(
+            static, got, ref, FPN["levels"], FPN["images"], tag)
+        entry = dict(ms=ms, busy_share=prof["busy_share"],
+                     busy_ms=prof["busy_ms"], launches=counts,
+                     cpu_run_s=cpu_s, tie_swaps=swaps,
+                     collected_tie_rows=collected_diff, score_err=worst,
+                     collected=[int(got[f"fpn_num_{i}"])
+                                for i in range(FPN["images"])],
+                     kept={lv: got[f"num{lv}"].tolist()
+                           for lv in FPN["levels"]},
+                     routed=[got[f"level_num_{i}"].tolist()
+                             for i in range(FPN["images"])])
+        # on the card's own routed rois, so held whatever the tie swaps
+        entry["roi_feat_rel_err"] = _fpn_features(feed, got, FPN["images"])
+        if train:
+            entry["targets"] = F.check_targets(got, feed, FPN["images"])
+            entry["cpu_targets"] = F.check_targets(ref, feed, FPN["images"])
+            check(True, f"[tail] (a) sampled targets hold their invariants "
+                  f"on the card {entry['targets']} and the CPU "
+                  f"{entry['cpu_targets']}")
+        log(f"[tail] (a) FPN stage {tag} b{FPN['images']} "
+            f"{FPN['height']}x{FPN['width']}: {ms:.2f} ms a step, busy "
+            f"share {prof['busy_share']:.3f}, launches {counts}; kept "
+            f"{entry['kept']}, collected {entry['collected']}, routed "
+            f"{entry['routed']}; {swaps} kept and {collected_diff} "
+            f"collected rows at score ties; CPU reference "
+            f"{cpu_s:.1f} s")
+        out[tag] = entry
+        del scope, cpu_scope, exe, res, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tail_cases():
+    """Phase 29 (b): every op-tail case on the card and on the CPU."""
+    import paddle_tpu_torch.static as static
+    import tempfile
+
+    T = _tests("torch_static_cases")
+    cases = [c for c in T.HAND if c.op_type in T.TAIL_9C]
+    tmp = Path(tempfile.mkdtemp(prefix="tail_cases_"))
+    worst, random_n = {}, 0
+    try:
+        for k, case in enumerate(cases):
+            with contextlib.redirect_stdout(sys.stderr):
+                got, _ = T.run(case, static, tmp / f"{k}d", place=DEV)
+                ref, _ = T.run(case, static, tmp / f"{k}c", place="cpu")
+            held = T.Case(case.op_type, {}, tol=max(case.tol, TOL_TAIL_REL))
+            held.id = case.id
+            T.assert_same(held, got, ref)
+            if case.verify is not None:
+                case.verify(case, got, ref)
+                random_n += case.random
+            errs = []
+            for slot in ref:
+                for g, r in zip(got[slot], ref[slot]):
+                    r = np.asarray(r, np.float64)
+                    fin = np.isfinite(r)
+                    if np.asarray(ref[slot][0]).dtype.kind == "f" and \
+                            fin.any():
+                        g = np.asarray(g, np.float64)
+                        errs.append(float(np.abs(g[fin] - r[fin]).max())
+                                    / max(float(np.abs(r[fin]).max()),
+                                          1e-30))
+            worst[case.id] = max(errs, default=0.0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    types = {c.op_type for c in cases}
+    check(types == T.TAIL_9C and len(types) == 130, f"[tail] (b) {len(cases)}"
+          f" cases of {len(types)} op types run on the card against the CPU "
+          f"(tolerance {TOL_TAIL_REL} or the case's; {random_n} random cases "
+          f"held by their verify)")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[tail] (b) largest card-vs-CPU rel errors: {top}")
+    return dict(cases=len(cases), op_types=len(types), random=random_n,
+                max_rel_err=max(worst.values()), worst=dict(top))
+
+
+def _vgg_mem(static, seed, batch, train, passes="", capped=False):
+    """memcheck's estimate of one Executor.run of the VGG forward (or
+    training step) at ``batch`` and the measured peaks: the peak over a run
+    less what was resident before it besides state and feed, uncapped and,
+    with ``capped``, with the process held to other + MEMCHECK_GATE x the
+    estimate (``set_per_process_memory_fraction``), and the capped run's
+    fetch against the uncapped one's."""
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import memcheck, nets
+
+    main, startup, fetches = vgg16_bn_drop(static, L, nets, seed + 29)
+    rng = np.random.default_rng(seed + 29)
+    if train:
+        with static.program_guard(main, startup):
+            label = L.data("label", [1], dtype="int64")
+            prob = main.global_block().var(fetches[1])
+            loss = L.mean(L.cross_entropy(prob, label))
+            static.optimizer.Momentum(learning_rate=0.01,
+                                      momentum=0.9).minimize(loss)
+        program, fetch = main, [loss.name]
+        scope = static.Scope()
+        static.Executor(DEV).run(startup, scope=scope)
+    else:
+        program = main.clone(for_test=True)
+        fetch = fetches
+        scope = bn_state(static, startup, program, rng)
+    feed = {"img": torch.from_numpy(rng.standard_normal(
+        (batch, 3, 32, 32)).astype(np.float32)).to(DEV)}
+    if train:
+        feed["label"] = torch.from_numpy(rng.integers(
+            0, 10, (batch, 1))).to(DEV)
+    est = memcheck.estimate_peak(
+        program, feeds={k: tuple(v.shape) for k, v in feed.items()},
+        fetch_list=fetch)
+    exe = static.Executor(DEV)
+    state = sum(scope.find_var(k).numel() * scope.find_var(k).element_size()
+                for k in scope.keys())
+    fed = sum(v.numel() * v.element_size() for v in feed.values())
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = dict(est=est)
+    with opt_passes(passes):
+        run_static(exe, program, feed, fetch, scope)        # warm
+        for tag in ("uncapped", "capped") if capped else ("uncapped",):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            out["other"] = before - state - fed
+            if tag == "capped":
+                allowed = (torch.cuda.memory_reserved() - state - fed
+                           + MEMCHECK_GATE * est.peak_bytes)
+                out["cap_bytes"] = allowed
+                torch.cuda.set_per_process_memory_fraction(
+                    min(1.0, allowed / total))
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                res = run_static(exe, program, feed, fetch, scope)
+                torch.cuda.synchronize()
+                out[tag] = torch.cuda.max_memory_allocated() - out["other"]
+            finally:
+                torch.cuda.set_per_process_memory_fraction(1.0)
+            out[f"{tag}_fetch"] = res[-1].float().cpu()
+            del res
+    if capped:
+        out["capped_rel_err"] = rel_err(out["capped_fetch"],
+                                        out["uncapped_fetch"])
+    del scope, feed, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+def _checkers(static, seed):
+    """Phase 29 (c)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.core import errors
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import memcheck, nets
+
+    out = {}
+    # a read that nothing writes: refused before any launch
+    p = static.Program()
+    b = p.global_block()
+    b.create_var(name="x", shape=(1024, 1024), is_data=True)
+    b.create_var(name="mid", shape=(1024, 1024))
+    b.create_var(name="out", shape=(1024, 1024))
+    b.append_op("relu", {"X": ["x"]}, {"Out": ["mid"]})
+    b.append_op("elementwise_add", {"X": ["mid"], "Y": ["ghost"]},
+                {"Out": ["out"]})
+    feed = {"x": np.ones((1024, 1024), np.float32)}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        try:
+            static.Executor(DEV).run(p, feed=feed, fetch_list=["out"])
+            raised = None
+        except errors.ProgramVerificationError as e:
+            raised = e
+        torch.cuda.synchronize()
+    kernels = sum(c for _us, c, _n in device_events(prof))
+    check(raised is not None and [d.code for d in raised.diagnostics]
+          == ["PV001"] and raised.diagnostics[0].var == "ghost",
+          f"[tail] (c) a read nothing writes: ProgramVerificationError "
+          f"{[(d.code, d.var) for d in raised.diagnostics] if raised else None}")
+    check(kernels == 0 and torch.cuda.memory_allocated() == before,
+          f"[tail] (c) refused before any launch: {kernels} CUDA kernels, "
+          f"allocated {torch.cuda.memory_allocated() - before} B")
+    out["pv_kernels"] = kernels
+    # memcheck against the measured peak: the forward plain and as phase
+    # 28 runs it (DEFAULT_PIPELINE), each gated with cuDNN's elastic
+    # workspace held to the gate; the uncapped peaks and the training
+    # step's ratio are findings (autograd keeps what the walk would release)
+    for tag, train, passes in (("forward", False, ""),
+                               ("forward_pipeline", False, "default"),
+                               ("train_step", True, "")):
+        m = _vgg_mem(static, seed, MEM_VGG_BATCH, train, passes,
+                     capped=not train)
+        est = m["est"]
+        ratio = est.peak_bytes / m["uncapped"]
+        out[tag] = dict(batch=MEM_VGG_BATCH, opt_passes=passes,
+                        estimate_bytes=est.peak_bytes,
+                        measured_uncapped_bytes=m["uncapped"],
+                        ratio_uncapped=ratio,
+                        state_bytes=est.state_bytes,
+                        temp_bytes=est.temp_bytes, out_bytes=est.out_bytes,
+                        feed_bytes=est.feed_bytes, peak_op=est.peak_op,
+                        other_resident_bytes=m["other"])
+        line = (f"[tail] (c) memcheck vgg16_bn_drop {tag} b{MEM_VGG_BATCH} "
+                f"(opt_passes={passes!r}): estimate "
+                f"{est.peak_bytes / 2**30:.3f} GiB (state "
+                f"{est.state_bytes / 2**20:.1f} MiB, temp "
+                f"{est.temp_bytes / 2**30:.3f} GiB at op {est.peak_op}), "
+                f"measured uncapped {m['uncapped'] / 2**30:.3f} GiB, ratio "
+                f"{ratio:.3f}")
+        if train:
+            log(line + " (a finding, not a check)")
+            continue
+        log(line + " (a finding: cuDNN's workspaces at their widest)")
+        capped_ratio = est.peak_bytes / m["capped"]
+        out[tag].update(measured_bytes=m["capped"], ratio=capped_ratio,
+                        cap_bytes=m["cap_bytes"],
+                        capped_rel_err=m["capped_rel_err"])
+        check(est.peak_bytes >= 4 << 30
+              and 1 / MEMCHECK_GATE <= capped_ratio <= MEMCHECK_GATE
+              and m["capped_rel_err"] <= TOL_MEM_CAPPED_REL,
+              f"[tail] (c) memcheck vgg16_bn_drop {tag} b{MEM_VGG_BATCH} "
+              f"(opt_passes={passes!r}) with the process capped at "
+              f"{m['cap_bytes'] / 2**30:.3f} GiB: estimate "
+              f"{est.peak_bytes / 2**30:.3f} GiB, measured "
+              f"{m['capped'] / 2**30:.3f} GiB, ratio {capped_ratio:.3f} "
+              f"within {MEMCHECK_GATE}x either way; fetch within "
+              f"{m['capped_rel_err']:.3g} <= {TOL_MEM_CAPPED_REL} of the "
+              f"uncapped run's")
+    # MC001 with the card's own capacity, before anything is allocated
+    main, startup, fetches = vgg16_bn_drop(static, L, nets, seed + 29)
+    test = main.clone(for_test=True)
+    scope = static.Scope()
+    static.Executor(DEV).run(startup, scope=scope)
+    big = {"img": np.zeros((MC001_VGG_BATCH, 3, 32, 32), np.float32)}
+    cap, kind = memcheck._hbm_capacity()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        static.Executor(DEV).run(test, feed=big, fetch_list=fetches,
+                                 scope=scope)
+        raised = None
+    except errors.ProgramVerificationError as e:
+        raised = e
+    check(raised is not None and [d.code for d in raised.diagnostics]
+          == ["MC001"] and torch.cuda.memory_allocated() == before,
+          f"[tail] (c) vgg16_bn_drop at b{MC001_VGG_BATCH} against the "
+          f"{kind}'s {cap / 2**30:.2f} GiB: "
+          f"{raised.diagnostics[0].message if raised else 'no MC001'}; "
+          f"allocated {torch.cuda.memory_allocated() - before} B")
+    out["mc001"] = dict(batch=MC001_VGG_BATCH, capacity_bytes=cap,
+                        device_kind=kind,
+                        message=raised.diagnostics[0].message)
+    del scope, big
+    torch.cuda.empty_cache()
+    return out
+
+
+def static_tail_phase(seed):
+    """Phase 29: the FPN proposal and target stage, the op tail card
+    against CPU, the checkers on the card."""
+    import paddle_tpu_torch.static as static
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[tail] {smi}")
+    t0 = time.perf_counter()
+    fpn = _fpn_stage(static, seed)
+    fpn["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tail = _tail_cases()
+    tail["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkers = _checkers(static, seed)
+    checkers["part_s"] = time.perf_counter() - t0
+    counts = {k: v for tag in ("train", "test")
+              for k, v in fpn[tag]["launches"].items()}
+    return counts, dict(card=smi, fpn=fpn, op_tail=tail, checkers=checkers,
+                        phase_s=time.perf_counter() - t_phase)
+
+
 def timed(phase, *args):
     """``phase(*args)``, its seconds logged as ``[time] <name>``: the
     script's whole run has a time limit (1200 s), and this is where it
@@ -9035,6 +9604,8 @@ def main(argv=None):
     heter_counts, heter_out = timed(heter_ps_phase, args.seed)
     torch.cuda.empty_cache()
     book_fp32, book_int8, book_out = timed(static_book_phase, args.seed)
+    torch.cuda.empty_cache()
+    tail_counts, tail_out = timed(static_tail_phase, args.seed)
     torch.cuda.empty_cache()
 
     kernels = []
@@ -9199,6 +9770,9 @@ def main(argv=None):
         entry["static_book_launches"] = {
             "fp32_forward": book_fp32.get(entry["name"], 0),
             "int8_forward": book_int8.get(entry["name"], 0)}
+        # phase 29's path: one step of the FPN proposal and target stage
+        # (train and test settings; none: checked there)
+        entry["static_tail_launches"] = tail_counts.get(entry["name"], 0)
         # phases 21-22's paths launch no port kernel (checked there)
         entry["resnet_launches"] = resnet["port_kernel_launches"].get(
             entry["name"], 0)
@@ -9229,6 +9803,7 @@ def main(argv=None):
     print(json.dumps({"elastic": elastic_out}), flush=True)
     print(json.dumps({"heter_ps": heter_out}), flush=True)
     print(json.dumps({"static_book": book_out}), flush=True)
+    print(json.dumps({"static_tail": tail_out}, default=str), flush=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -113,3 +113,47 @@ def set_default_dtype(dtype) -> None:
     if d not in (torch.float32, torch.bfloat16):
         raise TypeError(f"default dtype must be float32 or bfloat16, got {d}")
     _default_dtype = d
+
+
+class _Bfloat16:
+    """numpy has no bfloat16: this stands in for the JAX package's
+    ``np.dtype(jnp.bfloat16)`` where the static checkers compare, name and
+    size dtypes (kind "V", two bytes, as ml_dtypes declares it)."""
+
+    name = "bfloat16"
+    kind = "V"
+    itemsize = 2
+
+    def __eq__(self, other):
+        return other is self or other == "bfloat16" \
+            or other is torch.bfloat16
+
+    def __hash__(self):
+        return hash("bfloat16")
+
+    def __str__(self):
+        return "bfloat16"
+
+    def __repr__(self):
+        return "dtype(bfloat16)"
+
+
+BFLOAT16_NP = _Bfloat16()
+_TORCH_TO_NP_NAME = {torch.float32: "float32", torch.float16: "float16",
+                     torch.float64: "float64", torch.int8: "int8",
+                     torch.int16: "int16", torch.int32: "int32",
+                     torch.int64: "int64", torch.uint8: "uint8",
+                     torch.bool: "bool", torch.complex64: "complex64",
+                     torch.complex128: "complex128"}
+
+
+def numpy_dtype(dtype):
+    """A dtype spec (torch dtype, name, numpy dtype or scalar type) as the
+    numpy dtype the JAX package's ``np.dtype`` gives for it, bfloat16 as
+    ``BFLOAT16_NP``: what the static checkers price and name."""
+    if dtype is BFLOAT16_NP or dtype is torch.bfloat16 \
+            or dtype in ("bfloat16", "bf16"):
+        return BFLOAT16_NP
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(_TORCH_TO_NP_NAME[dtype])
+    return np.dtype(dtype)

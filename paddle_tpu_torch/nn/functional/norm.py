@@ -127,7 +127,9 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         return out, new_rm, new_rv
     a, b = bn_inference_scale_bias(running_mean, running_var, weight, bias,
                                    epsilon)
-    out = x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+    # b + x * a in one op: no x-sized temporary beside the output
+    out = torch.addcmul(b.to(x.dtype).reshape(shape), x,
+                        a.to(x.dtype).reshape(shape))
     return out, running_mean, running_var
 
 

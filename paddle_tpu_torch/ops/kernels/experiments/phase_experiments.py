@@ -30,14 +30,21 @@ embeddings in a host parameter-server table, and the standby's
 failover, ``chip_smoke.heter_ps_phase``) and 28 (a saved-and-reloaded
 VGG-16 in fp32 and PTQ int8, the label-semantic-roles db_lstm trained and
 its decode reloaded, and the greedy decode on ``while_loop`` and a ``cond``
-program, ``chip_smoke.static_book_phase``).  ``paged_split`` profiles
+program, ``chip_smoke.static_book_phase``) and 29 (Faster R-CNN R50-FPN's
+proposal and target stage, the static op tail card against CPU and the
+three static checkers, ``chip_smoke.static_tail_phase``).  ``paged_split`` profiles
 the paged slice's runs (``chip_smoke.slice_device_time``) over its first
 32 and its first 16 requests, for each KV type, and prints row 9's
 prefill / decode split of each: what ``PAGED_SERVE["profile_requests"]``
 trades.  ``paged_read`` profiles one run of the first 32 requests and
 reads row 9's split from it twice, from the raw events
 (``chip_smoke.raw_events``, as the script does) and from the profiler's
-``events()`` / ``key_averages()``, with the seconds each read takes.
+``events()`` / ``key_averages()``, with the seconds each read takes.  ``memcheck_cost`` times phase 28's
+host-bound static paths with the Executor's ``check_memory`` hook on and
+off, and memcheck's own walk on each program.  ``conv_paths`` times the
+port's vision forwards outside autograd (ResNet-50, YOLOv3, the static
+VGG-16 at b128 and b8192) with and without the workspace-read chunking of
+``conv_workspace.install_chunking``, and lists the signatures it chunked.
 Each phase keeps its own checks.  The card's name and power limit are printed first, then one
 JSON line a phase: its seconds, step ms, profiled device busy ms and
 the objects Python's collector tracks after it.
@@ -53,6 +60,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 
@@ -148,6 +156,148 @@ def paged_read(cs, seed, n=32):
                 raw=new, function_events=old)
 
 
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def memcheck_cost(cs, seed):
+    """Phase 28's host-bound static paths with the Executor's
+    ``check_memory`` hook on and off (a fresh Executor each time, so its
+    first step pays memcheck's walk): the db_lstm's 4 steps at its fixed
+    batch and at 4 batch sizes (a new feed signature each step), its
+    crf_decoding program, and the greedy decode at b2 / b64; beside them
+    ``memcheck.check_memory``'s own host ms on each program."""
+    import paddle_tpu_torch.static as static
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import memcheck
+
+    ds, batches = cs._srl_batches(seed)
+    main, startup, infer, cost, feature, decode = cs._srl_program(
+        static, L, len(ds.word_dict), len(ds.predicate_dict), ds.n_labels,
+        seed + 280)
+    sizes = (7, 8, 9, 10)
+    varied = [{k: v[:n] for k, v in b.items()}
+              for n, b in zip(sizes, batches)]
+    mt = {b: cs._mt_decode_program(static, L, b, seed + 281)
+          for b in cs.MT["batches"]}
+    rng = np.random.default_rng(seed + 281)
+    mt_feed = {}
+    for b in cs.MT["batches"]:
+        lens = rng.integers(4, cs.MT["src_len"] + 1, b)
+        src = rng.integers(2, cs.MT["dict_size"], (b, cs.MT["src_len"]))
+        src[np.arange(cs.MT["src_len"])[None, :] >= lens[:, None]] = 0
+        mt_feed[b] = {"src_word_id": src.astype(np.int64),
+                      "src_len": lens.astype(np.int64)}
+    out = {"walk_ms": {}}
+
+    def walk(name, program, feed, fetch):
+        shapes = {k: tuple(np.shape(v)) for k, v in feed.items()}
+        ms = [_timed(lambda: memcheck.check_memory(
+            program, None, shapes, fetch_list=fetch)) for _ in range(3)]
+        out["walk_ms"][name] = ms
+
+    walk("db_lstm_step", main, batches[0], [cost.name])
+    walk("db_lstm_decode", infer, batches[0], [feature.name, decode.name])
+    for b, (prog, _st, ids) in mt.items():
+        walk(f"greedy_decode_b{b}", prog, mt_feed[b], [ids.name])
+    for rep, on in enumerate((True, False, True, False)):
+        flags.set_flags({"check_memory": on})
+        tag = f"{'on' if on else 'off'}_{rep}"
+        exe, scope = static.Executor(cs.DEV), static.Scope()
+        exe.run(startup, scope=scope)
+        res = {"fixed_ms": [_timed(lambda f=f: exe.run(
+            main, feed=f, fetch_list=[cost], scope=scope))
+            for f in batches[:cs.SRL["steps"]]]}
+        exe2 = static.Executor(cs.DEV)
+        res["varied_ms"] = [_timed(lambda f=f: exe2.run(
+            main, feed=f, fetch_list=[cost], scope=scope)) for f in varied]
+        exe3 = static.Executor(cs.DEV)
+        res["decode_ms"] = [_timed(lambda: exe3.run(
+            infer, feed=batches[-1], fetch_list=[feature, decode],
+            scope=scope)) for _ in range(3)]
+        for b, (prog, st, ids) in mt.items():
+            e, sc = static.Executor(cs.DEV), static.Scope()
+            e.run(st, scope=sc)
+            res[f"greedy_b{b}_ms"] = [_timed(lambda: e.run(
+                prog, feed=mt_feed[b], fetch_list=[ids], scope=sc))
+                for _ in range(4)]
+        out[tag] = res
+        del exe, exe2, exe3, scope
+    flags.set_flags({"check_memory": True})
+    return out
+
+
+def conv_paths(cs, seed):
+    """The port's vision forwards outside autograd with and without
+    ``conv_workspace.install_chunking`` (cuDNN over batch chunks where its
+    workspace exceeds the output): ms a forward (events, 3 after 3 warm)
+    and the signatures chunked.  ResNet-50 b256 224 NHWC and
+    YOLOv3-DarkNet53 b64 416 in eval mode (fp32, TF32 off), and phase 28's
+    static VGG-16 forward at b128 and at b8192 (phase 29's memcheck
+    batch)."""
+    import paddle_tpu_torch.static as static
+    from paddle_tpu_torch.static import layers as L
+    from paddle_tpu_torch.static import nets
+    from paddle_tpu_torch.vision import models as M
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import conv_workspace
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(seed)
+
+    def forwards():
+        res = {}
+        for name, make, shape in (
+                ("resnet50_b256", lambda: M.resnet50(
+                    num_classes=1000, data_format="NHWC", device=cs.DEV,
+                    generator=torch.Generator().manual_seed(seed)),
+                 (256, 224, 224, 3)),
+                ("yolov3_b64", lambda: M.yolov3_darknet53(
+                    num_classes=80, device=cs.DEV,
+                    generator=torch.Generator().manual_seed(seed)),
+                 (64, 3, 416, 416))):
+            model = make()
+            model.eval()
+            x = torch.randn(shape, device=cs.DEV, generator=gen)
+            with torch.no_grad():
+                for _ in range(3):
+                    model(x)
+                res[name] = cs._events_ms(lambda: model(x), 3)
+            del model, x
+            torch.cuda.empty_cache()
+        for b in (128, 8192):
+            main, startup, fetches = cs.vgg16_bn_drop(static, L, nets,
+                                                      seed + 29)
+            test = main.clone(for_test=True)
+            scope = cs.bn_state(static, startup, test,
+                                np.random.default_rng(seed))
+            exe = static.Executor(cs.DEV)
+            feed = {"img": torch.randn((b, 3, 32, 32), device=cs.DEV,
+                                       generator=gen)}
+            for _ in range(3):
+                cs.run_static(exe, test, feed, fetches, scope)
+            res[f"vgg16_static_b{b}"] = cs._events_ms(
+                lambda: cs.run_static(exe, test, feed, fetches, scope), 3)
+            del scope, exe, feed
+            torch.cuda.empty_cache()
+        return res
+
+    out = {}
+    for rep, on in enumerate((True, False, True, False)):
+        conv_workspace.install_chunking(on)
+        res = forwards()
+        res["chunked"] = sorted((k[0], k[3], v) for k, v in
+                                conv_workspace.install_chunking(False)
+                                .items())
+        out[f"{'on' if on else 'off'}_{rep}"] = res
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="18")
@@ -181,10 +331,13 @@ def main(argv=None):
            "26": lambda s: cs.elastic_phase(s)[2],
            "27": lambda s: cs.heter_ps_phase(s)[1],
            "28": lambda s: cs.static_book_phase(s)[2],
+           "29": lambda s: cs.static_tail_phase(s)[1],
            "24probe": lambda s: {"gloo_cuda_collectives": cs.dp_probe(
                tempfile.mkdtemp(prefix="dp_probe_"), s)},
            "paged_split": lambda s: {"paged_split": paged_split(cs, s)},
-           "paged_read": lambda s: {"paged_read": paged_read(cs, s)}}
+           "paged_read": lambda s: {"paged_read": paged_read(cs, s)},
+           "memcheck_cost": lambda s: {"memcheck_cost": memcheck_cost(cs, s)},
+           "conv_paths": lambda s: {"conv_paths": conv_paths(cs, s)}}
     for phase in args.phases.split(","):
         t0 = time.perf_counter()
         out = run[phase](args.seed)
@@ -199,12 +352,15 @@ def main(argv=None):
                         losses=out.get("losses"))
         if phase == "20":
             line["vocab"] = cs.LAC["vocab"]
-        if phase in ("24probe", "paged_split", "paged_read"):
+        if phase in ("24probe", "paged_split", "paged_read",
+                     "memcheck_cost", "conv_paths"):
             line.update(out)
         if phase == "28":
             line["vgg16"] = {k: v for k, v in out["vgg16"].items()
                              if not k.endswith("profile")}
-        print(json.dumps(line), flush=True)
+        if phase == "29":
+            line.update(out)
+        print(json.dumps(line, default=str), flush=True)
     return 0
 
 

@@ -11,9 +11,15 @@ fetch_list)``.  With the
 rewrite (conv + BN + act fusion, NHWC layout), whose fused convolutions and
 NHWC pools take the port's CUDA kernels.
 
+The Executor verifies a program before its first op (``check_program``:
+the PV001-PV010 walker and symbolic shape engine of ``static.analysis``)
+and prices its peak memory per feed shape (``check_memory``:
+``static.memcheck``), raising ``ProgramVerificationError`` on an error;
+``static.shardcheck`` checks a Program against a ``ShardingPlan``.
+
 Ported so far: the program model, the whole ``static.layers`` DSL and
-``static.nets``, the op lowerings of ``ops.py`` / ``ops_tail.py`` and the
-op types of ``ops_tail2`` / ``ops_tail3`` / ``ops_tail5`` the DSL emits,
+``static.nets``, every op lowering of the JAX package's registry
+(``ops.py``, ``ops_tail.py`` to ``ops_tail7.py``, ``ops_fused.py``),
 control flow (``cond``, ``while_loop``, ``StaticRNN`` and the compare /
 logical DSL), model I/O (``save`` / ``load``, ``save_inference_model`` /
 ``load_inference_model``, ``save_persistables`` / ``load_persistables``,
@@ -21,10 +27,9 @@ in the JAX package's native format or the reference's ``__model__``
 format), ``append_backward`` / ``gradients`` and the eleven static
 optimizers, the default pass pipeline, the int8 ``QUANT_INFER_PIPELINE``
 for programs quantized by ``slim.PostTrainingQuantization`` or frozen after
-quantization-aware training, and the Executor.  Still to port (ROADMAP):
-the rest of ``ops_tail2``-``ops_tail7``, ``CompiledProgram``, the program
-verifier and shape engine, the compile cache, and memory and sharding
-checks.
+quantization-aware training, the three static checkers and the Executor.
+Still to port (ROADMAP): ``CompiledProgram`` and the Executor's use of a
+``ShardingPlan``, and the compile cache.
 """
 from . import layers, optimizer
 from . import layers_tail  # noqa: F401 — the DSL tail (attaches to layers)
@@ -72,6 +77,10 @@ from .passes import (DEFAULT_PIPELINE, QUANT_INFER_PIPELINE, PassManager,
                      available_passes, golden_parity, optimize_for_executor)
 from .registry import register_op, registered_ops
 from . import op_version
+from . import analysis, memcheck, shardcheck
+from .analysis import (Diagnostic, check_program, check_program_cached,
+                       infer_program, shape_rule_coverage, verify_program)
+from .shardcheck import check_plan, estimate_comm, verify_plan
 
 data = layers.data
 
@@ -88,4 +97,8 @@ __all__ = ["layers", "nets", "optimizer", "control_flow", "op_version",
            "name_scope", "program_guard", "unique_name", "DEFAULT_PIPELINE",
            "QUANT_INFER_PIPELINE",
            "PassManager", "available_passes", "golden_parity",
-           "optimize_for_executor", "register_op", "registered_ops", "data"]
+           "optimize_for_executor", "register_op", "registered_ops", "data",
+           "analysis", "memcheck", "shardcheck", "Diagnostic",
+           "check_program", "check_program_cached", "infer_program",
+           "shape_rule_coverage", "verify_program", "check_plan",
+           "estimate_comm", "verify_plan"]

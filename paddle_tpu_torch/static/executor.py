@@ -42,8 +42,25 @@ as in the JAX package, it draws the same values at every iteration of a
 step.  Gradients through ``conditional_block`` and ``static_rnn`` are
 torch autograd over the sub-block ops that actually ran.
 
+Before the first op of a new entry, under the ``check_program`` flag, the
+program verifier (static/analysis.py, PV001-PV010) walks the caller's
+program, memoized by program version x feed/fetch signature, and raises
+``ProgramVerificationError`` on an error.  Under ``check_memory`` the
+static peak-memory verifier (static/memcheck.py) prices each new feed-shape
+signature before any feed moves to the device: a predicted OOM (MC001)
+raises with nothing allocated, and the estimate is the
+``executor.predicted_peak_bytes`` gauge.
+
+The walk releases each intermediate after its last reader: ``env`` drops a
+name once no later op of block 0 reads it (a sub-block's free reads and
+the names its lowering returns count as reads of the carrying op), so the
+card holds the step's live set, the quantity memcheck prices, rather than
+every intermediate of the step.  Fetches, feeds and persistable state are
+kept; what a backward region saves, autograd keeps.
+
 Not ported yet (ROADMAP): tracing into one graph, state donation, sharding
-plans, the persistent compile cache, and the memory and sharding checkers.
+plans (the ``check_sharding`` hook comes with them) and the persistent
+compile cache.
 """
 from __future__ import annotations
 
@@ -58,12 +75,16 @@ from ..core import errors as _errors
 from ..core import flags as _flags
 from ..core import random as _random
 from ..core.device import resolve_device
+from ..utils import monitor as _monitor
 from . import ops as _ops
 from . import ops_fused as _ops_fused  # noqa: F401 — registers lowerings
 from . import ops_tail as _ops_tail  # noqa: F401 — registers lowerings
 from . import ops_tail2 as _ops_tail2  # noqa: F401 — registers lowerings
 from . import ops_tail3 as _ops_tail3  # noqa: F401 — registers lowerings
+from . import ops_tail4 as _ops_tail4  # noqa: F401 — registers lowerings
 from . import ops_tail5 as _ops_tail5  # noqa: F401 — registers lowerings
+from . import ops_tail6 as _ops_tail6  # noqa: F401 — registers lowerings
+from . import ops_tail7 as _ops_tail7  # noqa: F401 — registers lowerings
 from .framework import Program, Variable, default_main_program
 from .registry import get_lowering
 
@@ -73,9 +94,10 @@ __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "to_numpy"]
 _MIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
 
 # Ops that draw but are not RANDOM_OPS in either package's passes: an
-# optimizer update (it writes state, so no pass folds, merges or drops it)
-# and sampled softmax's negatives.
-_DRAWING_OPS = frozenset({"dpsgd", "sample_logits"})
+# optimizer update (it writes state, so no pass folds, merges or drops it),
+# sampled softmax's negatives and the detection / TDM samplers.
+_DRAWING_OPS = frozenset({"dpsgd", "sample_logits", "rpn_target_assign",
+                          "generate_proposal_labels", "tdm_sampler"})
 
 
 class Scope:
@@ -302,6 +324,49 @@ def _run_op(op, env, seed, step, salt):
             env[name] = val
 
 
+_m_predicted_peak = _monitor.gauge(
+    "executor.predicted_peak_bytes", "memcheck's static per-device peak "
+    "estimate for this program, set before the run it prices.",
+    labelnames=("program",))
+
+# attrs naming variables a control-flow lowering reads out of the
+# environment (branch outputs, loop carries, the loop test, RNN slots)
+_NAME_LIST_ATTRS = ("true_outs", "false_outs", "body_outs", "mem_next",
+                    "out_names")
+
+
+def _reads(op, block):
+    """Every name op reads from ``env``: its inputs, its sub-blocks' free
+    reads, and the names its lowering returns out of a sub-block."""
+    names = set(op.input_names())
+    if op.sub_block_indices():
+        from .passes import subblock_free_reads
+
+        names |= subblock_free_reads(op, block)
+        for a in _NAME_LIST_ATTRS:
+            names.update(op.attrs.get(a, ()))
+        if "cond_out" in op.attrs:
+            names.add(op.attrs["cond_out"])
+    return names
+
+
+def release_plan(block, keep) -> List[tuple]:
+    """Per op of ``block``, the names dead after it: read or written by
+    the op and read by no later op, less ``keep``.  The walk is the
+    kill-then-gen liveness scan of ``passes.liveness`` with every op
+    treated as live (the Executor runs dead ops too)."""
+    later: set = set()
+    plan: List[tuple] = [()] * len(block.ops)
+    for idx in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[idx]
+        reads = _reads(op, block)
+        touched = reads | set(op.output_names())
+        plan[idx] = tuple(sorted(n for n in touched
+                                 if n not in later and n not in keep))
+        later |= reads
+    return plan
+
+
 _tokens = itertools.count(1)
 
 
@@ -315,21 +380,30 @@ def _program_token(program) -> int:
     return token
 
 
+# feed-shape signatures an entry remembers as checked, cleared when full
+# (memcheck's own memo is bounded the same way)
+_MEM_CHECKED_CAP = 4096
+
+
 class _Entry:
     __slots__ = ("program", "passes", "state_names", "needs_value",
-                 "last_region", "wrt")
+                 "last_region", "wrt", "release", "mem_checked")
 
-    def __init__(self, program, passes, state_names, needs_value):
+    def __init__(self, program, passes, state_names, needs_value, keep):
         self.program = program
         self.passes = passes
         self.state_names = state_names
         self.needs_value = needs_value
-        ops = program.global_block().ops
+        block = program.global_block()
+        ops = block.ops
         regions = [i for i, op in enumerate(ops)
                    if op.type == "backward_region"]
         # ops up to the last region run with autograd on
         self.last_region = regions[-1] if regions else -1
         self.wrt = {n for i in regions for n in ops[i].inputs["Params"]}
+        self.release = release_plan(block, keep)
+        # feed-shape signatures memcheck has passed for this entry
+        self.mem_checked: set = set()
 
 
 class Executor:
@@ -355,6 +429,8 @@ class Executor:
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         entry = self._entry(program, feed, fetch_names)
+        if _flags.get_flag("check_memory"):
+            self._check_memory(entry, program, feed, fetch_names)
 
         env: Dict[str, Any] = {}
         missing = []
@@ -386,17 +462,20 @@ class Executor:
         self._step += 1
         ops = run_program.global_block().ops
         last = entry.last_region
+        release = entry.release
         with _ops.device_scope(self.place):
             with torch.enable_grad():
                 for idx in range(last + 1):
                     op = ops[idx]
                     if op.type == "backward_region":
                         _backward_region(op, env, leaves, idx < last)
-                        continue
-                    _run_one(run_program, 0, idx, op, env, seed, step)
-                    for n in op.output_names():
-                        if n in entry.wrt and n not in leaves:
-                            env[n] = leaves[n] = _grad_leaf(env[n])
+                    else:
+                        _run_one(run_program, 0, idx, op, env, seed, step)
+                        for n in op.output_names():
+                            if n in entry.wrt and n not in leaves:
+                                env[n] = leaves[n] = _grad_leaf(env[n])
+                    for n in release[idx]:
+                        env.pop(n, None)
             if last >= 0:
                 for k, v in env.items():
                     if isinstance(v, torch.Tensor) and v.requires_grad:
@@ -404,6 +483,8 @@ class Executor:
             with torch.no_grad():
                 for idx in range(last + 1, len(ops)):
                     _run_one(run_program, 0, idx, ops[idx], env, seed, step)
+                    for n in release[idx]:
+                        env.pop(n, None)
         for n in entry.state_names:
             if n in env:
                 scope.set(n, env[n].detach())
@@ -491,6 +572,13 @@ class Executor:
                tuple(sorted(feed)), tuple(fetch_names), str(flag))
         entry = self._cache.get(key)
         if entry is None:
+            if _flags.get_flag("check_program"):
+                # PV001-PV010 before the first op, memoized by program
+                # version x feed/fetch signature on the program itself
+                from .analysis import check_program_cached
+
+                check_program_cached(program, feed_names=set(feed),
+                                     fetch_names=fetch_names)
             run_program, passes_fp = program, ""
             if flag:
                 from . import passes as _passes
@@ -502,9 +590,30 @@ class Executor:
             needs = {n for n in state_names
                      if self._first_access(program.global_block(),
                                            n) == "read"}
-            entry = _Entry(run_program, passes_fp, state_names, needs)
+            keep = set(fetch_names) | set(feed) | {
+                v.name for v in run_program.list_vars() if v.persistable}
+            entry = _Entry(run_program, passes_fp, state_names, needs, keep)
             self._cache[key] = entry
         return entry
+
+    def _check_memory(self, entry, program, feed, fetch_names) -> None:
+        """memcheck's MC checks for a feed-shape signature this entry has
+        not run yet: a predicted OOM raises before any feed moves to the
+        device; the peak estimate is the predicted-peak gauge."""
+        shapes = {k: tuple(v.shape) if hasattr(v, "shape")
+                  else np.shape(v) for k, v in feed.items()}
+        sig = tuple(sorted(shapes.items()))
+        if sig in entry.mem_checked:
+            return
+        if len(entry.mem_checked) >= _MEM_CHECKED_CAP:
+            entry.mem_checked.clear()
+        from .memcheck import check_memory_cached
+
+        report = check_memory_cached(program, None, shapes, fetch_names)
+        if report.mem is not None and _monitor.enabled():
+            _m_predicted_peak.set(report.mem.peak_bytes,
+                                  program=str(_program_token(program)))
+        entry.mem_checked.add(sig)
 
     def _tensor(self, value, dtype=None) -> torch.Tensor:
         """``value`` on the Executor's device in ``dtype`` (None: its own

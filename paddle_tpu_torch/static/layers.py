@@ -66,7 +66,8 @@ def _init_attrs(initializer, shape, dtype):
     the reference does this via initializer ops appended to the startup
     program (fluid/initializer.py)."""
     shape = list(shape)
-    base = {"shape": shape, "dtype": _dtype_mod.dtype_name(dtype)}
+    base = {"shape": shape, "dtype": dtype if isinstance(dtype, str)
+            else _dtype_mod.dtype_name(dtype)}
     if initializer is None or isinstance(initializer, I.XavierUniform):
         fan_in = shape[0] if len(shape) >= 1 else 1
         fan_out = shape[1] if len(shape) >= 2 else fan_in
@@ -934,7 +935,8 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
     out = _out(dtype, tuple(out_shape))
     _append("fill_constant_batch_size_like", {"Input": [input.name]},
             {"Out": [out.name]},
-            {"shape": list(shape), "dtype": _dtype_mod.dtype_name(dtype),
+            {"shape": list(shape), "dtype": dtype if isinstance(dtype, str)
+             else _dtype_mod.dtype_name(dtype),
              "value": float(value), "input_dim_idx": input_dim_idx, "output_dim_idx": output_dim_idx})
     return out
 

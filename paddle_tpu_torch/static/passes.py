@@ -16,14 +16,12 @@ The rewrite contract:
    mutated;
 2. the clone is stamped with per-op ``rng_salt`` before any rewrite, so
    random ops keep their pre-rewrite streams when op indices shift;
-3. every fetch must remain *produced or fed* after the rewrite: a
-   violation raises ``ProgramVerificationError`` carrying a ``PV011``
-   diagnostic.
-
-The JAX package's contract also re-checks each fetch's inferred shape and
-dtype with its symbolic shape engine, and re-runs its PV001-PV010 program
-walker on the rewritten program (static/analysis.py).  Neither is ported
-yet: here PV011 checks reachability only.
+3. every fetch must remain *produced or fed* after the rewrite, with the
+   inferred shape and dtype it had before (static/analysis.py's symbolic
+   engine): a violation raises ``ProgramVerificationError`` carrying a
+   ``PV011`` diagnostic;
+4. the rewritten program must pass the PV001-PV010 program walker
+   (``analysis.check_program``).
 
 The Executor runs the pipeline on its first run of a (program, feeds,
 fetches, flag) key behind the ``opt_passes`` flag; a failed pipeline
@@ -44,6 +42,7 @@ import torch
 from ..core import dtype as _dtype_mod
 from ..core import errors as _errors
 from ..utils import monitor as _monitor
+from .analysis import Diagnostic, _known, check_program, infer_program
 from .framework import Block, Operator, Program
 
 __all__ = [
@@ -52,6 +51,7 @@ __all__ = [
     "QUANT_INFER_PIPELINE", "available_passes",
     "pipeline_from_flag", "optimize_for_executor", "golden_parity",
     "verify_rewrite", "use_def_chains", "liveness", "is_pure",
+    "subblock_free_reads",
     "RANDOM_OPS", "CONTROL_FLOW_OPS",
 ]
 
@@ -124,6 +124,35 @@ def use_def_chains(block: Block) -> Tuple[Dict[str, List[Tuple[int, str]]],
     return defs, uses
 
 
+def subblock_free_reads(op: Operator, block: Block) -> Set[str]:
+    """Names the op's sub-blocks read from an enclosing scope.
+
+    Walks every sub-block the op references (recursively), tracking which
+    names are defined *by earlier ops within that sub-block*; any read of
+    a name not so defined is a free read — the outer scope must keep it
+    live for the whole duration of the carrying op (while/cond carries,
+    rnn sequence inputs, backward_region's forward reads).  Names that
+    turn out not to exist in the outer block are harmless over-approximation
+    (the caller's live-set simply carries a name nobody produces)."""
+    free: Set[str] = set()
+    program = block.program
+
+    def walk(block_idx: int, defined: Set[str]) -> None:
+        sub = program.blocks[block_idx]
+        local = set(defined)
+        for sop in sub.ops:
+            for n in sop.input_names():
+                if n not in local:
+                    free.add(n)
+            for _attr, sbi in sop.sub_block_indices():
+                walk(sbi, local)
+            local.update(sop.output_names())
+
+    for _attr, bi in op.sub_block_indices():
+        walk(bi, set())
+    return free
+
+
 def _op_is_root(block: Block, op: Operator) -> bool:
     """Ops that must survive DCE regardless of dataflow: effects, control
     flow, and writes to persistable state (the executor writes persistable
@@ -145,9 +174,10 @@ def liveness(block: Block, fetch_names: Sequence[str]
              ) -> Tuple[List[bool], List[Set[str]]]:
     """Backward liveness over one block: per-op liveness (is the op needed
     for any fetch / persistable write / side effect?) and the set of names
-    live *after* each op, by the classic kill-then-gen walk.  The port has
-    no control-flow ops, and the PassManager leaves programs with
-    sub-blocks alone, so no sub-block reads are tracked."""
+    live *after* each op, by the classic kill-then-gen walk.  Ops that
+    carry sub-blocks gen every free read of their sub-blocks
+    (``subblock_free_reads``): a carry read only inside a loop body stays
+    live across the whole loop."""
     n = len(block.ops)
     needed: Set[str] = set(fetch_names or ())
     live = [False] * n
@@ -160,6 +190,8 @@ def liveness(block: Block, fetch_names: Sequence[str]
             live[idx] = True
             needed -= outs
             needed |= set(op.input_names())
+            if op.sub_block_indices():
+                needed |= subblock_free_reads(op, block)
     return live, live_after
 
 
@@ -879,33 +911,21 @@ class LayoutNHWC(Pass):
 
 
 # ---------------------------------------------------------------------------
-# The PV011 interface contract (reachability).
+# VerifiedRewrite: the PV011 interface contract.
 # ---------------------------------------------------------------------------
 
-@dataclass
-class Diagnostic:
-    """One finding: code, severity, message, where (block, op index, op
-    type), the variable, a hint (the fields of the reference's
-    static/analysis.py Diagnostic, in its order)."""
-    code: str
-    severity: str
-    message: str
-    block: int = 0
-    op_index: Optional[int] = None
-    op_type: Optional[str] = None
-    var: Optional[str] = None
-    hint: Optional[str] = None
-
-    def render(self) -> str:
-        where = f" [{self.var}]" if self.var else ""
-        hint = f" (hint: {self.hint})" if self.hint else ""
-        return f"{self.code} {self.severity}{where}: {self.message}{hint}"
+def _norm_dim(d):
+    return int(d) if _known(d) else "?"
 
 
 def _interface_snapshot(program: Program, feed_names, fetch_names
-                        ) -> Dict[str, bool]:
-    """fetch name -> reachable: the Executor's env will hold the name after
-    the walk (produced by an op, fed, or carried persistable state)."""
+                        ) -> Dict[str, tuple]:
+    """fetch name -> (reachable, normalized shape, dtype string) from the
+    infer_program symbolic engine.  ``reachable`` means the executor's env
+    will actually hold the name after the walk: produced by an op, fed, or
+    carried persistable state."""
+    _diags, engine = infer_program(program, feed_names=feed_names,
+                                   fetch_names=fetch_names)
     block = program.global_block()
     produced: Set[str] = set()
     for b in program.blocks:
@@ -918,39 +938,68 @@ def _interface_snapshot(program: Program, feed_names, fetch_names
             fed = v.is_data or v.persistable
         except KeyError:
             fed = False
-        snap[n] = n in produced or fed or n in (feed_names or ())
+        fed = fed or n in (feed_names or ())
+        reachable = n in produced or fed
+        shape = engine.shape_of(block, n)
+        dtype = engine.dtype_of(block, n)
+        snap[n] = (reachable,
+                   None if shape is None else tuple(_norm_dim(d)
+                                                    for d in shape),
+                   None if dtype is None else str(dtype))
     return snap
 
 
-def _verify_interface(before: Dict[str, bool], after: Dict[str, bool]
+def _verify_interface(before: Dict[str, tuple], after: Dict[str, tuple]
                       ) -> List[Diagnostic]:
-    """PV011: every fetch reachable before the rewrite is reachable after."""
-    return [Diagnostic(
-        "PV011", "error",
-        f"rewrite broke the fetch interface: {name!r} is no longer "
-        "produced or fed", var=name,
-        hint="a pass removed or renamed the producing op")
-        for name, was in before.items() if was and not after.get(name)]
-
-
-def _raise_pv011(diags: List[Diagnostic]):
-    raise _errors.ProgramVerificationError(
-        "graph-rewrite verification failed (PV011):\n"
-        + "\n".join(d.render() for d in diags), diagnostics=diags)
+    """PV011: the fetch-reachable interface must survive the rewrite."""
+    diags = []
+    for name, (was_reachable, shape0, dtype0) in before.items():
+        reachable, shape1, dtype1 = after.get(name, (False, None, None))
+        if was_reachable and not reachable:
+            diags.append(Diagnostic(
+                "PV011", "error",
+                f"rewrite broke the fetch interface: {name!r} is no longer "
+                "produced or fed", var=name,
+                hint="a pass removed or renamed the producing op"))
+            continue
+        if shape0 is not None and shape1 is not None:
+            bad_rank = len(shape0) != len(shape1)
+            bad_dim = not bad_rank and any(
+                a != "?" and b != "?" and a != b
+                for a, b in zip(shape0, shape1))
+            if bad_rank or bad_dim:
+                diags.append(Diagnostic(
+                    "PV011", "error",
+                    f"rewrite changed fetch {name!r} inferred shape "
+                    f"{shape0} -> {shape1}", var=name,
+                    hint="passes must preserve every fetch's shape"))
+        if dtype0 is not None and dtype1 is not None and dtype0 != dtype1:
+            diags.append(Diagnostic(
+                "PV011", "error",
+                f"rewrite changed fetch {name!r} inferred dtype "
+                f"{dtype0} -> {dtype1}", var=name,
+                hint="passes must preserve every fetch's dtype"))
+    return diags
 
 
 def verify_rewrite(original: Program, rewritten: Program,
                    feed_names: Optional[Sequence[str]] = None,
                    fetch_names: Optional[Sequence[str]] = None) -> None:
-    """Raise ``ProgramVerificationError`` unless the rewritten program still
-    serves the original's fetch interface (PV011, reachability)."""
+    """Standalone VerifiedRewrite check between two programs: proves the
+    rewritten program still serves the original's fetch interface (PV011
+    on violation) and re-runs the full program walker on it.  Raises
+    ``ProgramVerificationError``; returns None when the rewrite holds."""
     feeds = set(feed_names or ())
     fetches = tuple(fetch_names or ())
     diags = _verify_interface(
         _interface_snapshot(original, feeds, fetches),
         _interface_snapshot(rewritten, feeds, fetches))
     if diags:
-        _raise_pv011(diags)
+        raise _errors.ProgramVerificationError(
+            "graph-rewrite verification failed (PV011):\n"
+            + _errors.render_diagnostics(diags), diagnostics=diags)
+    check_program(rewritten, feed_names=sorted(feeds) or None,
+                  fetch_names=fetches or None)
 
 
 # ---------------------------------------------------------------------------
@@ -1038,7 +1087,8 @@ class PipelineReport:
 class PassManager:
     """Apply a named pass pipeline under the rewrite contract: ``apply``
     clones, stamps PRNG salts, rewrites the clone, checks the fetch
-    interface (PV011) and only then returns the rewritten program."""
+    interface (PV011), re-runs the program verifier, and only then returns
+    the rewritten program."""
 
     def __init__(self, passes: Sequence[str] = DEFAULT_PIPELINE):
         unknown = [p for p in passes if p not in _REGISTRY]
@@ -1086,7 +1136,12 @@ class PassManager:
         diags = _verify_interface(
             before, _interface_snapshot(work, ctx.feed_names, fetches))
         if diags:
-            _raise_pv011(diags)
+            raise _errors.ProgramVerificationError(
+                "graph-rewrite verification failed (PV011):\n"
+                + _errors.render_diagnostics(diags), diagnostics=diags)
+        # the rewritten program must satisfy the full PV001-PV010 walker
+        check_program(work, feed_names=sorted(ctx.feed_names) or None,
+                      fetch_names=fetches or None)
         report.elapsed_ms = (time.perf_counter() - t0) * 1000.0
         _m_pipeline_ms.observe(report.elapsed_ms)
         return work, report

@@ -52,5 +52,9 @@ def suggest_names(name: str, candidates: Optional[Sequence[str]] = None,
     return "did you mean " + " / ".join(repr(c) for c in close) + "?"
 
 
+def is_registered(type_name: str) -> bool:
+    return type_name in _REGISTRY
+
+
 def registered_ops() -> List[str]:
     return sorted(_REGISTRY)

@@ -66,6 +66,10 @@ def test_import_scan_covers_every_package_of_the_port():
                 "static.framework", "static.registry", "static.layers",
                 "static.nets", "static.ops", "static.ops_fused",
                 "static.passes", "static.executor", "static.ops_tail",
+                "static.ops_tail2", "static.ops_tail3", "static.ops_tail4",
+                "static.ops_tail5", "static.ops_tail6", "static.ops_tail7",
+                "static.analysis", "static.memcheck", "static.shardcheck",
+                "static.op_coverage",
                 "ops.kernels.bn_act_train", "ops.kernels.int8", "slim.quant",
                 "slim.quant_static", "optimizer.lr", "optimizer.grad_clip",
                 "nn.layer.conv", "nn.layer.loss", "nn.layer.base",

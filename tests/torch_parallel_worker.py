@@ -168,6 +168,45 @@ def sync_bn(rank, out_dir):
             "running_mean": _np(bn._mean)}
 
 
+STATIC_COLL = (
+    ("c_allreduce_sum", {}), ("c_allreduce_max", {}), ("c_allreduce_min", {}),
+    ("c_allreduce_prod", {}), ("c_allgather", {}), ("c_reducescatter", {}),
+    ("c_broadcast", {"root": 1}), ("c_reduce_sum", {"root_id": 0}),
+    ("c_reduce_prod", {"root_id": 1}), ("c_scatter", {"root": 0}),
+    ("barrier", {}), ("allreduce", {"reduce_type": 2}),
+    ("broadcast", {"root": 0}), ("c_allreduce_sum", {"compress": "int8"}),
+    ("c_comm_init", {}), ("c_sync_comm_stream", {}))
+
+
+@case
+def static_collectives(rank, out_dir):
+    """The static c_* ops, each a one-op program through the port's
+    Executor, over the job's bound data group (2 ranks); then
+    sync_batch_norm in training."""
+    import torch_static_cases as T
+
+    import paddle_tpu_torch.static as S
+    from paddle_tpu_torch.parallel.collective import bound_data_axis
+
+    assert bound_data_axis() == "dp"
+    res = {}
+    for k, (op_type, attrs) in enumerate(STATIC_COLL):
+        x = J.rank_array(rank, (4, 6), seed=30)
+        got, _ = T.run(T.Case(op_type, {"X": x}, attrs), S,
+                       Path(out_dir) / f"st{rank}_{k}", place="cpu")
+        res[f"{k}_{op_type}"] = got["Out"][0]
+    w, b = bn_params()
+    got, _ = T.run(T.Case(
+        "sync_batch_norm",
+        {"X": J.rank_array(rank, J.BN_SHAPE, seed=11), "Scale": w,
+         "Bias": b, "Mean": np.zeros(3, np.float32),
+         "Variance": np.ones(3, np.float32)}, {"is_test": False},
+        outs=("Y", "MeanOut", "VarianceOut")), S,
+        Path(out_dir) / f"st{rank}_bn", place="cpu")
+    res.update({f"bn_{k}": v[0] for k, v in got.items()})
+    return res
+
+
 @case
 def metrics(rank, out_dir):
     from paddle_tpu_torch.metric import Auc

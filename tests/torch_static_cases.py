@@ -24,9 +24,14 @@ from typing import Dict, List
 import numpy as np
 
 # The op types of the JAX package's registry that the port leaves for a
-# later slice: the rest of ops_tail2-7.py (collectives, RNN monoliths,
-# fusion ops, LoD arrays, PS data-plane ops, the contrib / detection tails).
-LATER = frozenset("""
+# later slice: none.
+LATER = frozenset()
+
+# The 130 op types of ops_tail2-7.py (collectives, RNN monoliths, fusion
+# ops, LoD arrays, PS data-plane ops, the contrib / detection tails) the
+# static graph's op tail brought in; chip_smoke.py runs their cases on the
+# card against the CPU.
+TAIL_9C = frozenset("""
 c_allreduce_sum c_allreduce_max c_allreduce_min c_allreduce_prod c_allgather
 c_reducescatter c_broadcast c_comm_init c_comm_init_all c_gen_nccl_id
 c_sync_calc_stream c_sync_comm_stream gen_nccl_id sync_batch_norm lstm lstmp
@@ -71,7 +76,7 @@ STRUCTURAL = frozenset({"conditional_block", "while", "static_rnn",
 class Case:
     def __init__(self, op_type, inputs, attrs=None, outs=("Out",), name="",
                  random=False, tol=1e-5, expect=None, prep=None,
-                 verify=None):
+                 verify=None, pre=(), post=(), bind=None, feeds=None):
         self.op_type = op_type
         self.inputs = {k: (list(v) if isinstance(v, (list, tuple)) else [v])
                        for k, v in inputs.items()}
@@ -90,6 +95,17 @@ class Case:
         # must be given its own draw: the deterministic slots against the
         # JAX package's, the rest against numpy on the drawn values
         self.verify = verify
+        # ops around the case's op, each (type, {slot: [names]},
+        # {slot: [names]}, attrs): ``pre`` build what it reads (an input
+        # given as a str names such a variable instead of a feed), and
+        # the last of ``post`` gives the fetches (a tensor array, say,
+        # stacked back into a tensor)
+        self.pre = tuple(pre)
+        self.post = tuple(post)
+        # feeds the ``pre`` ops read, {name: array}
+        self.feeds = dict(feeds or {})
+        # bind(static) sets up package state the op reads (a PS table)
+        self.bind = bind
 
 
 _R = np.random.default_rng(20261018)
@@ -679,6 +695,574 @@ C("quant_mul", {"X": f(4, 6), "Y": np.round(f(6, 5) * 40).astype(
     np.float32)}, {"act": "", "in_scale": 2.5,
                    "weight_scale": [40.0] * 5}, tol=1e-4)
 
+# -- ops_tail2-7.py: the static graph's op tail -------------------------------
+# (collectives run with no group bound: the identities of one device; the
+# 2-rank reductions are held in tests/test_torch_static_tail.py)
+
+
+def _ps_table(static):
+    """A fresh seeded SparseTable named "emb" in ``static``'s package."""
+    pkg = static.__name__.rsplit(".", 1)[0]
+    table = importlib.import_module(pkg + ".distributed.ps").SparseTable(
+        dim=4, num_shards=2, optimizer="sgd", seed=9)
+    importlib.import_module(static.__name__ + ".ops_tail2") \
+        .register_ps_table("emb", table)
+
+
+def _v_bernoulli(case, got, want):
+    """Out is 0 or 1, at about X's mean rate."""
+    x, out = case.inputs["X"][0], np.asarray(got["Out"][0])
+    assert set(np.unique(out)) <= {0.0, 1.0}
+    assert abs(out.mean() - x.mean()) <= 0.03, (out.mean(), x.mean())
+
+
+def _v_int_range(lo, hi, slot="Out"):
+    def verify(case, got, want):
+        """Every draw an integer in [lo, hi], every value drawn."""
+        out = np.asarray(got[slot][0])
+        assert out.dtype.kind in "iu" and out.min() >= lo \
+            and out.max() <= hi, (out.min(), out.max())
+        assert len(np.unique(out)) == hi - lo + 1
+    return verify
+
+
+def _v_randperm(case, got, want):
+    """A permutation of range(n)."""
+    out = np.sort(np.asarray(got["Out"][0]))
+    np.testing.assert_array_equal(out, np.arange(case.attrs["n"]))
+
+
+def _v_sampling_id(case, got, want):
+    """Each class drawn at about its mean probability over the rows."""
+    x, out = case.inputs["X"][0], np.asarray(got["Out"][0]).reshape(-1)
+    freq = np.bincount(out, minlength=x.shape[1]) / len(out)
+    np.testing.assert_allclose(freq, x.mean(0), atol=0.04)
+
+
+def _v_seed(case, got, want):
+    out = np.asarray(got["Out"][0])
+    assert out.shape == (1,) and 1 <= int(out[0]) < 2 ** 31 - 1
+
+
+def _v_normal_like(case, got, want):
+    """N(mean, std) of Input's batch by the shape attr, by its moments."""
+    out = np.asarray(got["Out"][0], np.float64)
+    assert out.shape == (case.inputs["Input"][0].shape[0],
+                         case.attrs["shape"][1])
+    assert abs(out.mean() - case.attrs["mean"]) <= 0.1
+    assert abs(out.std() / case.attrs["std"] - 1.0) <= 0.1
+
+
+def _v_uniform_like(case, got, want):
+    out = np.asarray(got["Out"][0], np.float64)
+    lo, hi = case.attrs["min"], case.attrs["max"]
+    assert out.min() >= lo and out.max() <= hi
+    assert abs(out.mean() - (lo + hi) / 2) <= 0.05 * (hi - lo)
+
+
+def _v_random_crop(case, got, want):
+    """Out is X cut at one offset of the trailing dims."""
+    x, out = case.inputs["X"][0], np.asarray(got["Out"][0])
+    h, w = case.attrs["shape"]
+    hits = [(i, j) for i in range(x.shape[1] - h + 1)
+            for j in range(x.shape[2] - w + 1)
+            if np.array_equal(x[:, i:i + h, j:j + w], out)]
+    assert len(hits) == 1, hits
+
+
+def _v_tdm_sampler(case, got, want):
+    """Positives are the items' travel nodes, each negative a node of its
+    layer other than the positive, the labels and mask as laid out."""
+    x = case.inputs["X"][0].reshape(-1)
+    travel, layer = case.inputs["Travel"][0], case.inputs["Layer"][0]
+    offs, negs = case.attrs["layer_offset_lod"], \
+        case.attrs["neg_samples_num_list"]
+    out, lab = np.asarray(got["Out"][0]), np.asarray(got["Labels"][0])
+    col = 0
+    for li, neg in enumerate(negs):
+        nodes = set(layer[offs[li]:offs[li + 1]].reshape(-1).tolist())
+        pos = travel[x, li]
+        np.testing.assert_array_equal(out[:, col], pos)
+        np.testing.assert_array_equal(lab[:, col], 1)
+        for k in range(1, neg + 1):
+            assert all(v in nodes and v != p
+                       for v, p in zip(out[:, col + k], pos))
+            np.testing.assert_array_equal(lab[:, col + k], 0)
+        col += 1 + neg
+
+
+def _iou_np(a, b):
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.maximum(rb - lt + 1, 0)
+    inter = wh[..., 0] * wh[..., 1]
+    area = lambda z: (z[:, 2] - z[:, 0] + 1) * (z[:, 3] - z[:, 1] + 1)
+    return inter / (area(a)[:, None] + area(b)[None, :] - inter)
+
+
+def _v_rpn_target_assign(case, got, want):
+    """The sampled anchors keep the invariants: the deterministic fg set
+    (IoU >= positive or a gt's best) capped at fg_fraction, backgrounds
+    below the negative IoU, the batch filled, labels 1 on fg."""
+    anc, gt = case.inputs["Anchor"][0], case.inputs["GtBoxes"][0][0]
+    a = case.attrs
+    iou = _iou_np(anc, gt)
+    fg_all = (iou.max(1) >= a["rpn_positive_overlap"]) \
+        | (iou == iou.max(0)[None]).any(1)
+    bg_all = (iou.max(1) < a["rpn_negative_overlap"]) & ~fg_all
+    nfg = int(np.asarray(got["ForegroundNumber"][0])[0])
+    nsc = int(np.asarray(got["ScoreNumber"][0])[0])
+    batch = a["rpn_batch_size_per_im"]
+    assert nfg == min(fg_all.sum(), int(batch * a["rpn_fg_fraction"]))
+    assert nsc == min(batch, nfg + bg_all.sum())
+    loc = np.asarray(got["LocationIndex"][0])[0]
+    score = np.asarray(got["ScoreIndex"][0])[0]
+    assert fg_all[loc[:nfg]].all() and (loc[nfg:] == -1).all()
+    sampled = score[:nsc]
+    assert len(set(sampled.tolist())) == nsc
+    assert (fg_all | bg_all)[sampled].all()
+    lbl = np.asarray(got["TargetLabel"][0])[0]
+    np.testing.assert_array_equal(lbl[:nsc], fg_all[sampled].astype(int))
+
+
+def _v_proposal_labels(case, got, want):
+    """The sampled rois: fg (IoU >= fg_thresh) first, capped at
+    fg_fraction, then bg; labels the matched gt's class on fg, 0 on bg;
+    each fg target BoxToDelta of its roi against its gt."""
+    a = case.attrs
+    gt = case.inputs["GtBoxes"][0][0]
+    cls = case.inputs["GtClasses"][0][0].reshape(-1)
+    n = int(np.asarray(got["RoisNum"][0])[0])
+    rois = np.asarray(got["Rois"][0])[0]
+    lbl = np.asarray(got["LabelsInt32"][0])[0, :, 0]
+    tgt = np.asarray(got["BboxTargets"][0])[0].reshape(
+        len(rois), a["class_nums"], 4)
+    iou = _iou_np(rois[:n], gt)
+    fg = iou.max(1) >= a["fg_thresh"]
+    nfg = int(fg.sum())
+    assert nfg <= int(a["fg_fraction"] * a["batch_size_per_im"])
+    assert fg[:nfg].all() and not fg[nfg:].any()
+    assert (iou.max(1)[nfg:] < a["bg_thresh_hi"]).all()
+    np.testing.assert_array_equal(lbl[:nfg], cls[iou[:nfg].argmax(1)])
+    np.testing.assert_array_equal(lbl[nfg:], 0)
+    w = a["bbox_reg_weights"]
+    for r in range(nfg):
+        g = gt[iou[r].argmax()]
+        e = rois[r]
+        ew, eh = e[2] - e[0] + 1, e[3] - e[1] + 1
+        gw, gh = g[2] - g[0] + 1, g[3] - g[1] + 1
+        d = [((g[0] + gw / 2) - (e[0] + ew / 2)) / ew / w[0],
+             ((g[1] + gh / 2) - (e[1] + eh / 2)) / eh / w[1],
+             np.log(gw / ew) / w[2], np.log(gh / eh) / w[3]]
+        np.testing.assert_allclose(tgt[r, lbl[r]], d, rtol=1e-4, atol=1e-5)
+
+
+def _grid_anchors(H, W, stride=4):
+    base = np.array([[0, 0, 15, 15], [4, 4, 11, 11], [2, 2, 13, 13]],
+                    np.float32)
+    out = np.zeros((H, W, 3, 4), np.float32)
+    for y in range(H):
+        for x in range(W):
+            out[y, x] = base + np.array([x, y, x, y]) * stride
+    return out
+
+
+def _pool_with_index(x):
+    """2x2 max pool and each max's flat H*W index (unpool's inputs)."""
+    n, c, h, w = x.shape
+    win = x.reshape(n, c, h // 2, 2, w // 2, 2).transpose(0, 1, 2, 4, 3, 5) \
+        .reshape(n, c, h // 2, w // 2, 4)
+    arg = win.argmax(-1)
+    rows = np.arange(h // 2)[:, None] * 2 + arg // 2
+    cols = np.arange(w // 2)[None, :] * 2 + arg % 2
+    return win.max(-1), (rows * w + cols).astype(np.int32)
+
+
+_TREE = np.zeros((8, 5), np.int32)
+_TREE[1:8] = [[0, 0, 0, 2, 3], [0, 1, 1, 4, 5], [0, 1, 1, 6, 7],
+              [41, 2, 2, 0, 0], [42, 2, 2, 0, 0], [43, 2, 3, 0, 0],
+              [44, 2, 3, 0, 0]]
+_ANC8 = np.array([[0, 0, 10, 10], [20, 20, 30, 30], [40, 40, 50, 50],
+                  [60, 60, 70, 70], [200, 200, 210, 210],
+                  [220, 220, 230, 230], [240, 240, 250, 250],
+                  [260, 260, 270, 270]], np.float32)
+_GT2 = np.array([[[0, 0, 10, 10], [20, 20, 30, 30]]], np.float32)
+_FPN_ROIS = np.array([[0, 0, 112, 112], [0, 0, 224, 224],
+                      [0, 0, 448, 448], [0, 0, 100, 125]], np.float32)
+
+
+def _boxes(n, lo=0.0, hi=60.0, size=(6.0, 20.0)):
+    xy = _R.uniform(lo, hi, (n, 2))
+    wh = _R.uniform(*size, (n, 2))
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+# batch 2: collectives (no group bound), RNN monoliths, fusion ops
+for _t in ("c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+           "c_allreduce_prod", "c_allgather", "c_reducescatter",
+           "c_broadcast", "c_comm_init", "c_comm_init_all", "c_gen_nccl_id",
+           "c_sync_calc_stream", "c_sync_comm_stream", "gen_nccl_id",
+           "c_reduce_sum", "c_reduce_max", "c_reduce_min", "c_reduce_prod",
+           "c_scatter", "barrier", "allreduce", "broadcast"):
+    C(_t, {"X": f(3, 4)})
+C("sync_batch_norm", {"X": f(4, 3, 2, 2), "Scale": f(3), "Bias": f(3),
+                      "Mean": np.zeros(3, np.float32),
+                      "Variance": np.ones(3, np.float32)},
+  {"is_test": False, "momentum": 0.9}, outs=("Y", "MeanOut", "VarianceOut"))
+_MASK = np.array([[1, 1, 1, 1], [1, 1, 0, 0]], np.float32)
+C("lstm", {"Input": f(2, 4, 12), "Weight": f(3, 12) * 0.5, "Bias": f(12)},
+  outs=("Hidden", "Cell"))
+C("lstm", {"Input": f(2, 4, 12), "Weight": f(3, 12) * 0.5, "Bias": f(12),
+           "Mask": _MASK, "H0": f(2, 3), "C0": f(2, 3)},
+  outs=("Hidden", "Cell"), name="mask")
+C("lstmp", {"Input": f(2, 4, 12), "Weight": f(2, 12) * 0.5,
+            "ProjWeight": f(3, 2), "Bias": f(12), "Mask": _MASK},
+  outs=("Projection", "Cell"))
+C("cudnn_lstm", {"Input": f(4, 2, 3), "W": f(48) * 0.5},
+  {"hidden_size": 2}, outs=("Out", "LastH", "LastC"))
+C("gru", {"Input": f(2, 4, 9), "Weight": f(3, 9) * 0.5, "Bias": f(9),
+          "Mask": _MASK}, outs=("Hidden",))
+C("fusion_lstm", {"X": f(2, 4, 5), "WeightX": f(5, 12) * 0.5,
+                  "WeightH": f(3, 12) * 0.5, "Bias": f(12)},
+  outs=("Hidden", "Cell"))
+C("fusion_gru", {"X": f(2, 4, 5), "WeightX": f(5, 9) * 0.5,
+                 "WeightH": f(3, 9) * 0.5, "Bias": f(9)}, outs=("Hidden",))
+C("fused_embedding_fc_lstm", {"Ids": i(2, 4, hi=11),
+                              "Embeddings": f(11, 12) * 0.5,
+                              "WeightH": f(3, 12) * 0.5, "Bias": f(12)},
+  outs=("Hidden", "Cell"))
+C("fusion_repeated_fc_relu", {"X": f(3, 4), "W": [f(4, 5), f(5, 2)],
+                              "Bias": [f(5), f(2)]})
+C("fusion_squared_mat_sub", {"X": f(3, 4), "Y": f(4, 5)}, {"scalar": 0.5})
+_LEN2 = np.array([5, 3], np.int32)
+C("fusion_seqpool_concat", {"X": [f(2, 5, 3), f(2, 5, 3)],
+                            "Length": _LEN2}, {"pooltype": "SUM"})
+C("fusion_seqconv_eltadd_relu", {"X": f(2, 5, 3), "Length": _LEN2,
+                                 "Filter": f(9, 4), "Bias": f(4)},
+  {"contextLength": 3, "contextStart": -1})
+C("max_pool3d_with_index", {"X": f(1, 2, 4, 4, 4)},
+  {"ksize": [2, 2, 2], "strides": [2, 2, 2]}, outs=("Out", "Mask"))
+_PV, _PI = _pool_with_index(f(1, 2, 4, 4))
+C("unpool", {"X": _PV, "Indices": _PI}, {"output_size": [4, 4]})
+# tensor arrays: a list in the environment, stacked back to be fetched
+C("write_to_array", {"X": f(2, 3)}, {"index": 0},
+  post=[("array_to_lod_tensor", {"X": ["out_out_0"]}, {"Out": ["stk"]},
+         {})])
+C("read_from_array", {"X": "arr"}, {"index": 1}, feeds={"seq": f(3, 2)},
+  pre=[("lod_tensor_to_array", {"X": ["seq"]}, {"Out": ["arr"]}, {})])
+C("array_to_lod_tensor", {"X": "arr"}, feeds={"seq": f(3, 2)},
+  pre=[("lod_tensor_to_array", {"X": ["seq"]}, {"Out": ["arr"]}, {})])
+C("lod_tensor_to_array", {"X": f(3, 2)},
+  post=[("array_to_lod_tensor", {"X": ["out_out_0"]}, {"Out": ["stk"]},
+         {})])
+C("shrink_rnn_memory", {"X": f(2, 3)})
+_M4 = np.array([1, 0, 1, 0], np.int32)
+C("merge_lod_tensor", {"InTrue": f(4, 3), "InFalse": f(4, 3), "Mask": _M4})
+C("merge_lod_tensor_infer", {"InTrue": f(4, 3), "InFalse": f(4, 3),
+                             "Mask": _M4})
+C("split_lod_tensor", {"X": f(4, 3), "Mask": _M4},
+  outs=("OutTrue", "OutFalse"))
+# PS data plane: a fresh seeded table per run in each package
+_IDS = np.array([[3, 5, 3]], np.int32)
+C("distributed_lookup_table", {"Ids": _IDS}, {"table_name": "emb"},
+  outs=("Outputs",), bind=_ps_table)
+for _t in ("pull_sparse", "pull_sparse_v2"):
+    C(_t, {"Ids": _IDS}, {"table_name": "emb"}, bind=_ps_table)
+for _t in ("push_sparse", "push_sparse_v2"):
+    C(_t, {"Ids": np.array([3, 5], np.int32), "Grads": f(2, 4)},
+      {"table_name": "emb", "lr": 0.5}, bind=_ps_table)
+C("c_embedding", {"Ids": i(2, 3, hi=10), "W": f(5, 4)}, {"start_index": 3})
+_SA = np.array([0, -1, 2, -1, 4, -1], np.int32)
+_SB = np.array([-1, 1, -1, 3, -1, 5], np.int32)
+C("merge_ids", {"Ids": [_SA, _SB], "X": [f(6, 2), f(6, 2)]})
+C("split_ids", {"Ids": np.arange(6, dtype=np.int32)}, outs={"Out": 2})
+C("split_selected_rows", {"X": f(5, 2)}, {"height_sections": [2, 3]},
+  outs={"Out": 2})
+C("split_byref", {"X": f(4, 3)}, outs={"Out": 2})
+C("lookup_sparse_table_merge", {"X": [i(4, hi=6), i(3, hi=6)]})
+C("print", {"In": f(2, 3)}, {"message": "print op: "})
+C("quantize", {"Input": f(2, 3)}, {"scale": 60.0}, outs=("Output",))
+_Q8 = i(2, 3, lo=-128, hi=128).astype(np.int8)
+C("dequantize", {"Input": _Q8}, {"scale": 60.0}, outs=("Output",))
+C("requantize", {"Input": _Q8}, {"Scale_in": 100.0, "Scale_out": 50.0},
+  outs=("Output",))
+
+# batch 3: contrib / detection stragglers
+C("attention_lstm", {"X": f(2, 4, 3), "AttentionWeight": f(5, 1),
+                     "AttentionBias": f(1), "AttentionScalar": f(1),
+                     "AttentionScalarBias": f(1), "LSTMWeight": f(5, 8) * .5,
+                     "LSTMBias": f(8), "Mask": _MASK},
+  outs=("Hidden", "Cell"))
+C("tree_conv", {"NodesVector": f(1, 5, 3),
+                "EdgeSet": np.array([[[0, 1], [0, 2], [1, 3], [1, 4],
+                                      [-1, -1]]], np.int32),
+                "Filter": f(3, 3, 2, 2)}, {"max_depth": 2})
+_PH = i(2, 5, hi=20)
+_PH[1, 3:] = -1
+C("pyramid_hash", {"X": _PH, "W": f(32, 4)},
+  {"space_len": 32, "pyramid_layer": 3, "num_emb": 4})
+C("var_conv_2d", {"X": f(2, 2, 5, 5), "ROW": np.array([5, 3], np.int32),
+                  "COLUMN": np.array([4, 5], np.int32), "W": f(3, 2, 3, 3)},
+  {"StrideH": 1, "StrideW": 1, "KernelH": 3, "KernelW": 3}, tol=1e-4)
+C("bilateral_slice", {"X": f(1, 2, 4, 4), "Grid": f(1, 6, 3, 2, 2),
+                      "Guide": f(1, 4, 4, lo=0, hi=1)}, {"has_offset": True})
+C("bilateral_slice", {"X": f(1, 2, 4, 4), "Grid": f(1, 4, 3, 2, 2),
+                      "Guide": f(1, 4, 4, lo=0, hi=1)},
+  {"has_offset": False}, name="no_offset")
+C("sequence_reshape", {"X": f(2, 4, 6)}, {"new_dim": 8})
+C("sequence_scatter", {"X": f(2, 5, 3),
+                       "Ids": np.array([[0, 3], [1, 1]], np.int32),
+                       "Updates": f(2, 2, 3)})
+C("select_input", {"X": [f(2, 3), f(2, 3)], "Mask": np.array([1], np.int32)})
+C("select_output", {"X": f(2, 3), "Mask": np.array([1], np.int32)},
+  outs={"Out": 2})
+C("fusion_seqexpand_concat_fc", {"X": [f(2, 4, 3), f(2, 2)],
+                                 "FCWeight": f(5, 4), "FCBias": f(4)},
+  {"fc_activation": "relu"})
+
+# batch 4: padded dynamic outputs, hashing, optimizers, DGC
+_U = np.array([3, 1, 3, 0, 1, 4, 4, 3], np.int32)
+C("unique", {"X": _U}, {"dtype": "int32"},
+  outs=("Out", "Index", "Counts", "ValidCount"))
+C("unique_with_counts", {"X": _U}, {"dtype": "int32"},
+  outs=("Out", "Index", "Count", "ValidCount"))
+C("where_index", {"Condition": b(3, 4)}, outs=("Out", "ValidCount"))
+C("hash", {"X": i(4, 2, hi=100)}, {"num_hash": 3, "mod_by": 1000})
+C("sequence_enumerate", {"X": i(2, 5, hi=9), "Length": _LEN2},
+  {"win_size": 3, "pad_value": 0})
+C("sequence_erase", {"X": i(2, 6, hi=6),
+                     "Length": np.array([6, 4], np.int32)},
+  {"tokens": [2, 3]}, outs=("Out", "Length"))
+C("proximal_adagrad", {**_OPT, "Moment": f(3, 4, lo=0.1, hi=1)},
+  {"l1": 0.05, "l2": 0.01}, outs=("ParamOut", "MomentOut"))
+C("proximal_gd", _OPT, {"l1": 0.05, "l2": 0.01}, outs=("ParamOut",))
+C("positive_negative_pair", {"Score": f(8, 2),
+                             "Label": i(8, 1, hi=3).astype(np.float32),
+                             "QueryID": i(8, 1, hi=2)},
+  {"column": -1}, outs=("PositivePair", "NegativePair", "NeutralPair"))
+_DGC = {"U": f(4, 4), "V": f(4, 4), "Grad": f(4, 4), "Param": f(4, 4),
+        "current_step": _a(5.0), "nranks": _a(1.0)}
+C("dgc", _DGC, {"m": 0.9, "sparsity": [0.75], "rampup_begin_step": 0.0,
+                "rampup_step": 1.0, "regular_coeff": 0.01,
+                "regular_type": 2},
+  outs=("U_out", "V_out", "EncodeGrad", "Grad_out", "k", "GatherBuff"))
+C("dgc_momentum", {**_OPT, "Velocity": f(3, 4), "current_step": _a(5.0),
+                   "nranks": _a(2.0)}, {"mu": 0.9, "rampup_begin_step": 10},
+  outs=("ParamOut", "VelocityOut", "Grad_out"))
+C("dgc_clip_by_norm", {"X": f(3, 4), "current_step": _a(5.0)},
+  {"max_norm": 1.0, "rampup_begin_step": 0})
+
+# batch 5: aliases and the numeric tail
+_X34 = f(3, 4)
+C("allclose", {"Input": _X34, "Other": _X34 + 1e-7})
+C("allclose", {"Input": _X34, "Other": _X34 + 0.1}, name="far")
+C("bernoulli", {"X": f(64, 64, lo=0, hi=1)}, random=True,
+  verify=_v_bernoulli)
+C("eye", {}, {"num_rows": 3, "num_columns": 4})
+C("fill", {}, {"value": [1, 2, 3, 4, 5, 6], "shape": [2, 3],
+               "dtype": "float32"})
+C("fill_zeros_like2", {"X": f(2, 3)})
+C("diag_v2", {"X": f(3)}, {"offset": 1, "padding_value": 0.5})
+C("diag_v2", {"X": f(3, 4)}, {"offset": -1}, name="2d")
+C("diag_embed", {"X": f(2, 3)}, {"offset": 1})
+C("histogram", {"X": f(50)}, {"bins": 10})
+C("histogram", {"X": f(50)}, {"bins": 8, "min": -1, "max": 1},
+  name="range")
+C("randint", {}, {"shape": [40, 40], "low": 0, "high": 10},
+  random=True, verify=_v_int_range(0, 9))
+C("randperm", {}, {"n": 1200}, random=True, verify=_v_randperm)
+_PROBS = f(2000, 5, lo=0.1, hi=1)
+C("sampling_id", {"X": _PROBS / _PROBS.sum(1, keepdims=True)}, random=True,
+  verify=_v_sampling_id)
+C("seed", {}, {"seed": 7})
+C("seed", {}, {"seed": 0}, name="draw", random=True, verify=_v_seed)
+C("modified_huber_loss", {"X": f(6, 1) * 2,
+                          "Y": i(6, 1, hi=2).astype(np.float32)},
+  outs=("IntermediateVal", "Out"))
+C("add_position_encoding", {"X": f(2, 4, 6)}, {"alpha": 0.5, "beta": 1.5})
+C("add_position_encoding", {"X": f(2, 3, 5)}, name="odd")
+C("amp_check_finite_and_scale", {"X": [f(2, 3), f(3)], "Scale": _a(2.0)},
+  outs={"Out": 2, "FoundInfinite": 1})
+C("amp_check_finite_and_scale",
+  {"X": [np.array([1.0, np.inf], np.float32)], "Scale": _a(2.0)},
+  outs=("Out", "FoundInfinite"), name="inf")
+C("fake_init", {}, {"shape": [2, 3]})
+C("bilinear_tensor_product", {"X": f(3, 4), "Y": f(3, 5),
+                              "Weight": f(2, 4, 5), "Bias": f(1, 2)})
+C("gaussian_random_batch_size_like", {"Input": f(40, 3)},
+  {"shape": [-1, 30], "mean": 1.0, "std": 2.0}, random=True,
+  verify=_v_normal_like)
+C("uniform_random_batch_size_like", {"Input": f(40, 3)},
+  {"shape": [-1, 30], "min": -2.0, "max": 3.0}, random=True,
+  verify=_v_uniform_like)
+C("sequence_expand_as", {"X": f(2, 3), "Y": f(2, 4, 3),
+                         "Length": np.array([4, 2], np.int32)})
+_QF = np.round(f(3, 4) * 40).astype(np.float32)
+for _t in ("fake_dequantize_max_abs", "dequantize_abs_max"):
+    C(_t, {"X": _QF, "Scale": _a(2.0)}, {"max_range": 127.0})
+C("fake_channel_wise_dequantize_max_abs",
+  {"X": _QF, "Scales": [f(3, lo=0.5, hi=2)]},
+  {"quant_axis": 0, "quant_bits": [8]})
+C("dequantize_log", {"X": i(3, 4, lo=-128, hi=128).astype(np.int8),
+                     "Dict": f(128)})
+C("fake_quantize_moving_average_abs_max",
+  {"X": _X, "InScale": _a(0.8), "InState": _a(1.0), "InAccum": _a(0.8)},
+  {"moving_rate": 0.9}, outs=("Out", "OutScale", "OutState", "OutAccum"))
+C("average_accumulates", {"param": f(3), "in_sum_1": f(3),
+                          "in_sum_2": f(3), "in_sum_3": f(3),
+                          "in_num_updates": np.array([5], np.int32),
+                          "in_num_accumulates": np.array([3], np.int32),
+                          "in_old_num_accumulates": np.array([0], np.int32)},
+  {"average_window": 0.5, "max_average_window": 10,
+   "min_average_window": 2},
+  outs=("out_sum_1", "out_sum_2", "out_sum_3", "out_num_updates",
+        "out_num_accumulates", "out_old_num_accumulates"))
+C("precision_recall", {"Indices": i(6, 1, hi=3), "Labels": i(6, 1, hi=3),
+                       "Weights": f(6, 1, lo=0.5, hi=1.5),
+                       "StatesInfo": f(3, 4, lo=0, hi=3)},
+  {"class_number": 3},
+  outs=("BatchMetrics", "AccumMetrics", "AccumStatesInfo"))
+C("spp", {"X": f(1, 2, 5, 5)}, {"pyramid_height": 2, "pooling_type": "max"})
+C("spp", {"X": f(1, 2, 5, 5)}, {"pyramid_height": 2, "pooling_type": "avg"},
+  name="avg")
+C("polygon_box_transform", {"Input": f(1, 4, 3, 3)}, outs=("Output",))
+C("random_crop", {"X": f(2, 40, 40)}, {"shape": [30, 30]},
+  outs=("Out", "SeedOut"), random=True, verify=_v_random_crop)
+C("hierarchical_sigmoid", {"X": f(4, 3), "W": f(5, 3),
+                           "Label": i(4, 1, hi=6), "Bias": f(5)},
+  {"num_classes": 6}, outs=("Out", "PreOut"))
+_DIST = f(1, 3, 5, lo=0, hi=1)
+C("bipartite_match", {"DistMat": _DIST},
+  outs=("ColToRowMatchIndices", "ColToRowMatchDist"))
+C("bipartite_match", {"DistMat": _DIST},
+  {"match_type": "per_prediction", "dist_threshold": 0.5},
+  outs=("ColToRowMatchIndices", "ColToRowMatchDist"), name="per_pred")
+C("target_assign", {"X": f(2, 4, 3), "MatchIndices": i(2, 5, lo=-1, hi=4),
+                    "NegIndices": np.array([[1, 3, -1, -1, -1],
+                                            [0, -1, -1, -1, -1]], np.int32)},
+  {"mismatch_value": 0}, outs=("Out", "OutWeight"))
+_MHE = {"ClsLoss": f(2, 6), "LocLoss": f(2, 6),
+        "MatchIndices": i(2, 6, lo=-1, hi=2),
+        "MatchDist": f(2, 6, lo=0, hi=1)}
+C("mine_hard_examples", _MHE, {"neg_pos_ratio": 1.0},
+  outs=("NegIndices", "UpdatedMatchIndices"))
+C("mine_hard_examples", _MHE, {"mining_type": "hard_example",
+                               "sample_size": 3, "neg_dist_threshold": 0.5},
+  outs=("NegIndices", "UpdatedMatchIndices"), name="hard")
+C("assert", {"Cond": np.array([True, True]), "Data": [f(3)]}, outs=())
+
+# batch 6: the RCNN / FPN tail
+_GA = _grid_anchors(4, 4)
+C("generate_proposals",
+  {"Scores": f(2, 3, 4, 4, lo=0, hi=1), "BboxDeltas": f(2, 12, 4, 4) * 0.1,
+   "ImInfo": np.array([[64, 64, 1], [60, 56, 1]], np.float32),
+   "Anchors": _GA, "Variances": np.ones_like(_GA)},
+  {"pre_nms_topN": 48, "post_nms_topN": 8, "nms_thresh": 0.7,
+   "min_size": 1.0}, outs=("RpnRois", "RpnRoiProbs", "RpnRoisNum"))
+_RPN = {"rpn_batch_size_per_im": 6, "rpn_positive_overlap": 0.7,
+        "rpn_negative_overlap": 0.3, "rpn_fg_fraction": 0.5}
+_RPN_OUTS = ("LocationIndex", "ScoreIndex", "TargetLabel", "TargetBBox",
+             "MatchedGtIndex", "BBoxInsideWeight", "ForegroundNumber",
+             "ScoreNumber")
+C("rpn_target_assign", {"Anchor": _ANC8, "GtBoxes": _GT2},
+  {**_RPN, "use_random": False}, outs=_RPN_OUTS)
+_ANC_R = np.concatenate([_ANC8, _boxes(40)])
+C("rpn_target_assign", {"Anchor": _ANC_R, "GtBoxes": _GT2},
+  {**_RPN, "rpn_batch_size_per_im": 12, "use_random": True},
+  outs=_RPN_OUTS, name="random", random=True, verify=_v_rpn_target_assign)
+_NMS_BOX = _boxes(12, 10, 80)[None]
+for _g in (False, True):
+    C("matrix_nms", {"BBoxes": _NMS_BOX, "Scores": f(1, 3, 12, lo=0, hi=1)},
+      {"score_threshold": 0.2, "post_threshold": 0.1, "nms_top_k": 12,
+       "keep_top_k": 20, "use_gaussian": _g, "gaussian_sigma": 2.0,
+       "background_label": 0, "normalized": False},
+      outs=("Out", "Index", "RoisNum"), name="gauss" if _g else "")
+C("box_decoder_and_assign",
+  {"PriorBox": _boxes(4), "PriorBoxVar": _a(0.1, 0.1, 0.2, 0.2),
+   "TargetBox": f(4, 12) * 0.5, "BoxScore": f(4, 3, lo=0, hi=1)},
+  {"box_clip": 4.135}, outs=("DecodeBox", "OutputAssignBox"))
+_FPN_ALL = np.concatenate([_FPN_ROIS, _boxes(6, 0, 300, (8, 400)),
+                           np.zeros((2, 4), np.float32)])
+C("distribute_fpn_proposals", {"FpnRois": _FPN_ALL},
+  {"min_level": 2, "max_level": 5, "refer_level": 4, "refer_scale": 224},
+  outs={"MultiFpnRois": 4, "MultiLevelRoIsNum": 1, "RestoreIndex": 1})
+C("collect_fpn_proposals",
+  {"MultiLevelRois": [_boxes(4), _boxes(4), _boxes(4)],
+   "MultiLevelScores": [f(4, lo=0, hi=1), f(4, lo=0, hi=1),
+                        f(4, lo=0, hi=1)],
+   "MultiLevelRoIsNum": np.array([2, 4, 1], np.int32)},
+  {"post_nms_topN": 5}, outs=("FpnRois", "RoisNum"))
+
+# batch 7: TDM, text matching, RetinaNet, deformable PS-RoI, the
+# proposal-target layer, the perspective transform
+C("tdm_child", {"X": np.array([[1], [3], [4], [0]], np.int32),
+                "TreeInfo": _TREE}, {"child_nums": 2},
+  outs=("Child", "LeafMask"))
+C("tdm_sampler", {"X": np.array([[0], [1]] * 8, np.int32),
+                  "Travel": np.array([[2, 4], [3, 6]], np.int32),
+                  "Layer": np.array([2, 3, 4, 5, 6, 7], np.int32)},
+  {"neg_samples_num_list": [1, 2], "layer_offset_lod": [0, 2, 6],
+   "output_positive": True}, outs=("Out", "Labels", "Mask"), random=True,
+  verify=_v_tdm_sampler)
+C("match_matrix_tensor", {"X": f(2, 3, 4), "Y": f(2, 2, 4),
+                          "W": f(4, 2, 4),
+                          "XLength": np.array([3, 2], np.int32),
+                          "YLength": np.array([2, 1], np.int32)},
+  {"dim_t": 2}, outs=("Out", "Tmp"))
+C("sequence_topk_avg_pooling", {"X": f(2, 2, 3, 5),
+                                "RowLength": np.array([3, 2], np.int32),
+                                "ColLength": np.array([5, 4], np.int32)},
+  {"topks": [1, 3], "channel_num": 2}, outs=("Out", "pos"))
+C("retinanet_target_assign", {"Anchor": _ANC8, "GtBoxes": _GT2,
+                              "GtLabels": np.array([[[3], [5]]], np.int32)},
+  {"positive_overlap": 0.5, "negative_overlap": 0.4},
+  outs=("LocationIndex", "ScoreIndex", "TargetLabel", "TargetBBox",
+        "BBoxInsideWeight", "ForegroundNumber", "ScoreNumber"))
+_DPS = {"spatial_scale": 1.0, "output_dim": 2, "group_size": [2, 2],
+        "pooled_height": 2, "pooled_width": 2, "part_size": [2, 2],
+        "sample_per_part": 4}
+_DPS_ROIS = np.array([[0, 1, 1, 4, 4], [0, 0, 2, 5, 5]], np.float32)
+C("deformable_psroi_pooling", {"Input": f(1, 8, 6, 6), "ROIs": _DPS_ROIS},
+  {**_DPS, "no_trans": True, "trans_std": 0.0},
+  outs=("Output", "TopCount"), tol=1e-4)
+C("deformable_psroi_pooling", {"Input": f(1, 8, 6, 6), "ROIs": _DPS_ROIS,
+                               "Trans": f(2, 2, 2, 2) * 0.5},
+  {**_DPS, "no_trans": False, "trans_std": 0.1},
+  outs=("Output", "TopCount"), name="trans", tol=1e-4)
+_GPL_ROIS = np.array([[[0, 0, 10, 10], [100, 100, 120, 120],
+                       [40, 40, 60, 60], [1, 1, 11, 12]]], np.float32)
+_GPL_GT = np.array([[[0, 0, 10, 10], [30, 30, 50, 50]]], np.float32)
+_GPL = {"batch_size_per_im": 4, "fg_fraction": 0.5, "fg_thresh": 0.5,
+        "bg_thresh_hi": 0.5, "bg_thresh_lo": 0.0, "class_nums": 7,
+        "bbox_reg_weights": [0.1, 0.1, 0.2, 0.2]}
+_GPL_OUTS = ("Rois", "LabelsInt32", "BboxTargets", "BboxInsideWeights",
+             "BboxOutsideWeights", "RoisNum")
+C("generate_proposal_labels",
+  {"RpnRois": _GPL_ROIS, "GtClasses": np.array([[[2], [5]]], np.int32),
+   "IsCrowd": np.zeros((1, 2), np.int32), "GtBoxes": _GPL_GT,
+   "ImInfo": np.array([[100, 100, 1.0]], np.float32),
+   "RpnRoisNum": np.array([4], np.int32)},
+  {**_GPL, "use_random": False}, outs=_GPL_OUTS)
+_GPL_R = np.concatenate([_GPL_ROIS[0], _boxes(30, 0, 50)])[None]
+C("generate_proposal_labels",
+  {"RpnRois": _GPL_R, "GtClasses": np.array([[[2], [5]]], np.int32),
+   "GtBoxes": _GPL_GT, "ImInfo": np.array([[100, 100, 1.0]], np.float32)},
+  {**_GPL, "batch_size_per_im": 12, "use_random": True}, outs=_GPL_OUTS,
+  name="random", random=True, verify=_v_proposal_labels)
+C("retinanet_detection_output",
+  {"BBoxes": [f(1, 6, 4) * 0.1, f(1, 4, 4) * 0.1],
+   "Scores": [f(1, 6, 2, lo=0, hi=1), f(1, 4, 2, lo=0, hi=1)],
+   "Anchors": [_boxes(6), _boxes(4)],
+   "ImInfo": np.array([[100, 100, 1.0]], np.float32)},
+  {"score_threshold": 0.3, "nms_top_k": 6, "nms_threshold": 0.3,
+   "keep_top_k": 5}, outs=("Out", "RoisNum"))
+C("roi_perspective_transform",
+  {"X": f(1, 2, 8, 8),
+   "ROIs": np.array([[0, 1, 1, 6, 1.5, 6.5, 5, 1, 5.5]], np.float32)},
+  {"transformed_height": 4, "transformed_width": 5, "spatial_scale": 1.0},
+  outs=("Out", "Mask", "TransformMatrix"), tol=1e-4)
+
+
 _OPTEST_MODULES = ("tests.test_op_harness", "tests.test_ops_tail",
                    "tests.test_ops_tail2", "tests.test_ops_tail3",
                    "tests.test_ops_tail5")
@@ -743,25 +1327,47 @@ def run(case: Case, static, tmp, place=None, seed: int = 1):
     os.makedirs(tmp, exist_ok=True)
     if case.prep is not None:
         case.prep(tmp)
+    if case.bind is not None:
+        case.bind(static)
     main = static.Program()
     main.random_seed = seed
     blk = main.global_block()
     feed, ins = {}, {}
+    for name, arr in case.feeds.items():
+        blk.create_var(name=name, shape=arr.shape, dtype=str(arr.dtype),
+                       is_data=True)
+        feed[name] = arr
     for slot, arrs in case.inputs.items():
         names = []
         for k, arr in enumerate(arrs):
+            if isinstance(arr, str):
+                names.append(arr)
+                continue
             name = f"{slot.lower()}_{k}"
             blk.create_var(name=name, shape=arr.shape, dtype=str(arr.dtype),
                            is_data=True)
             feed[name] = arr
             names.append(name)
         ins[slot] = names
+
+    def declare(names_by_slot):
+        for names in names_by_slot.values():
+            for name in names:
+                if not blk.has_var(name):
+                    blk.create_var(name=name, shape=(), dtype="float32")
+
+    for op_type, op_ins, op_outs, op_attrs in case.pre:
+        declare(op_outs)
+        blk.append_op(op_type, op_ins, op_outs, dict(op_attrs))
     outs = {slot: [f"out_{slot.lower()}_{k}" for k in range(n)]
             for slot, n in case.outs.items()}
-    for names in outs.values():
-        for name in names:
-            blk.create_var(name=name, shape=(), dtype="float32")
+    declare(outs)
     blk.append_op(case.op_type, ins, outs, _fill(case.attrs, tmp))
+    for op_type, op_ins, op_outs, op_attrs in case.post:
+        declare(op_outs)
+        blk.append_op(op_type, op_ins, op_outs, dict(op_attrs))
+    if case.post:
+        outs = case.post[-1][2]
     exe = static.Executor() if place is None else static.Executor(place)
     fetch = [n for names in outs.values() for n in names]
     guard = contextlib.nullcontext()
